@@ -1,0 +1,73 @@
+"""The port stands alone: every ``repro_torch`` module and ``chip_smoke``
+import with JAX made unimportable, and none of them loads ``repro``."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any 'import jax' now raises
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro.")
+                or m == "jax" and sys.modules[m] is not None)
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", PROBE, str(ROOT)],
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n, leaked = proc.stdout.split(" ", 1)
+    assert int(n) >= 15
+    assert leaked.strip() == "[]"
+
+
+def test_port_sources_name_no_jax_or_repro():
+    """No import of jax or of the reference package in the port's sources
+    or in chip_smoke.py."""
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), (
+                    path, line)
+
+
+def test_build_model_without_a_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.zoo import build_model
+    with pytest.raises(RuntimeError):
+        build_model(reduced(ARCHS["gemma2-2b"]))
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    """No card: non-zero exit and no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
