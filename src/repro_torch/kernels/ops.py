@@ -3,13 +3,18 @@
 Resolution order, as in ``repro.kernels.ops``: explicit argument >
 ``config=`` mapping > default.  The tuned-cache lookup of the JAX package
 waits for the port's autotune slice.  Defaults are the port's own copy of
-``repro.core.autotune.space``'s ``paged_attention`` entry.
+``repro.core.autotune.space``'s ``flash_attention`` and ``paged_attention``
+entries.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 
-KERNEL_DEFAULTS = {"paged_attention": {"block_size": 16, "num_splits": 1}}
+KERNEL_DEFAULTS = {
+    "flash_attention": {"block_q": 128, "block_k": 128, "acc_dtype": "f32"},
+    "paged_attention": {"block_size": 16, "num_splits": 1},
+}
 
 
 def resolve_kernel_config(kernel, *, config=None, explicit=None):
@@ -21,6 +26,23 @@ def resolve_kernel_config(kernel, *, config=None, explicit=None):
     if explicit:
         out.update({k: v for k, v in explicit.items() if v is not None})
     return out
+
+
+def flash_attention(q, k, v, causal=True, window=None, softcap=None,
+                    scale=None, block_q=None, block_k=None, acc_dtype=None,
+                    config=None):
+    """Blocked forward attention (``kernels.flash_attention``) with
+    ``block_q``/``block_k``/``acc_dtype`` resolved explicit > ``config=``
+    > default."""
+    c = resolve_kernel_config(
+        "flash_attention", config=config,
+        explicit={"block_q": block_q, "block_k": block_k,
+                  "acc_dtype": acc_dtype})
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale,
+                               block_q=int(c["block_q"]),
+                               block_k=int(c["block_k"]),
+                               acc_dtype=str(c["acc_dtype"]))
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,

@@ -1,12 +1,22 @@
-"""Plain PyTorch versions of the paged-attention kernel: the oracle the
-CUDA kernel is held against on the card, and what the wrapper runs for
-tensors on the CPU.  Ports of ``repro.kernels.ref.gather_pages`` /
-``paged_attention_ref`` plus the split-KV first pass and its merge."""
+"""Plain PyTorch versions of the CUDA kernels: the oracles each kernel is
+held against on the card, and what the wrappers run for tensors on the
+CPU.
+
+* paged attention: ports of ``repro.kernels.ref.gather_pages`` /
+  ``paged_attention_ref`` plus the split-KV first pass and its merge;
+* flash attention: ``flash_attention_ref`` (full softmax, a port of
+  ``repro.kernels.ref.flash_attention_ref``) and ``flash_attention_plain``
+  (the blocked online softmax of ``repro.kernels.flash_attention``, with
+  its rounding points).
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0e38
+# accumulator dtype names accepted by flash attention's ``acc_dtype``
+ACC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def gather_pages(pages, block_tables):
@@ -114,3 +124,93 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens, *,
         q, k_pages, v_pages, block_tables, context_lens, scale=scale,
         window=window, softcap=softcap, num_splits=num_splits)
     return merge_partials(m, l, acc, q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                        scale=None):
+    """q [B,Sq,H,D]; k,v [B,Skv,KH,D] -> [B,Sq,H,D]: full softmax in f32,
+    query i at position i and key j at position j (causal is top-left
+    aligned), GQA by repeating KV heads."""
+    D = q.shape[-1]
+    H, KH = q.shape[2], k.shape[2]
+    if KH != H:
+        k = torch.repeat_interleave(k, H // KH, dim=2)
+        v = torch.repeat_interleave(v, H // KH, dim=2)
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qi = torch.arange(q.shape[1], device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    m = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                   device=q.device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= (qi - ki) < window
+    s = torch.where(m[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
+                          scale=None, block_q=128, block_k=128,
+                          acc_dtype="f32"):
+    """The flash kernel's own arithmetic in plain torch: for each
+    ``block_q`` query tile, an online softmax over ``block_k`` KV tiles.
+
+    Ragged tails are padded to whole tiles; padded keys (position >= Skv)
+    never attend and padded query rows are sliced off.  With ``causal``
+    and no window, the tiles wholly above the diagonal are skipped, as in
+    ``repro.kernels.flash_attention._fa_kernel``.  The running max ``m``,
+    sum ``l`` and accumulator ``acc`` are kept in ``acc_dtype`` ("f32" or
+    "bf16") and, for "bf16", rounded after every KV tile exactly where the
+    Pallas kernel rounds them.  q [B,Sq,H,D]; k,v [B,Skv,KH,D] ->
+    [B,Sq,H,D] in q's dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    adt = ACC_DTYPES[acc_dtype]
+    bq, bk = max(min(block_q, Sq), 1), max(min(block_k, Skv), 1)
+    pad_q, pad_k = -Sq % bq, -Skv % bk
+    # [B, KH, G, S, D]: query head h = kh * G + g reads KV head kh
+    qf = F.pad(q.float(), (0, 0, 0, 0, 0, pad_q)) * scale
+    qf = qf.reshape(B, Sq + pad_q, KH, G, D).permute(0, 2, 3, 1, 4)
+    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad_k)).permute(0, 2, 1, 3)
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad_k)).permute(0, 2, 1, 3)
+    n_k = (Skv + pad_k) // bk
+    out = torch.empty_like(qf)
+    for i in range((Sq + pad_q) // bq):
+        qt = qf[:, :, :, i * bq:(i + 1) * bq]
+        q_pos = i * bq + torch.arange(bq, device=q.device)
+        m = torch.full(qt.shape[:-1], NEG_INF, dtype=adt, device=q.device)
+        l = torch.zeros(qt.shape[:-1], dtype=adt, device=q.device)
+        acc = torch.zeros(qt.shape, dtype=adt, device=q.device)
+        upper = n_k
+        if causal and window is None:
+            upper = max(min(n_k, (i + 1) * bq // bk + (1 if bq % bk else 0)),
+                        1)
+        for j in range(upper):
+            kt, vt = kf[:, :, j * bk:(j + 1) * bk], vf[:, :, j * bk:(j + 1) * bk]
+            s = torch.einsum("bkgqd,bknd->bkgqn", qt, kt)
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            k_pos = j * bk + torch.arange(bk, device=q.device)
+            mask = (k_pos < Skv)[None, :]
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1).to(adt))
+            p = torch.exp(s - m_new.float()[..., None])
+            alpha = torch.exp((m - m_new).float())
+            l = l * alpha.to(adt) + p.sum(dim=-1).to(adt)
+            acc = acc * alpha[..., None].to(adt) \
+                + torch.einsum("bkgqn,bknd->bkgqd", p, vt).to(adt)
+            m = m_new
+        out[:, :, :, i * bq:(i + 1) * bq] = \
+            acc.float() / torch.clamp(l.float(), min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq + pad_q, H, D)
+    return out[:, :Sq].to(q.dtype)

@@ -1,18 +1,21 @@
-"""Serve a model through the port's paged engine.
+"""Serve a model through the port's slot engine, or its paged engine.
 
-  python -m repro_torch.launch.serve --arch gemma2-2b              # full width, on the card
+  python -m repro_torch.launch.serve --arch gemma2-2b              # slot engine, full width, on the card
+  python -m repro_torch.launch.serve --arch gemma2-2b --paged      # paged engine
   python -m repro_torch.launch.serve --arch gemma2-2b --profile    # + where the time goes
   python -m repro_torch.launch.serve --arch gemma2-2b --reduced --device cpu
 
 The traffic is chip_smoke.py's: 8 requests of 16 to 900 prompt tokens,
-32 new tokens each, through ``PagedServingEngine(max_batch=8,
-max_len=1024, block_size=16, chunk_size=64)``.  Weights are random, drawn
-from ``--seed``; so are the prompts.  After a one-request warm-up (kernel
+32 new tokens each, through ``ServingEngine(max_batch=8, max_len=1024)``
+or, with ``--paged``, ``PagedServingEngine(max_batch=8, max_len=1024,
+block_size=16, chunk_size=64)``.  Weights are random, drawn from
+``--seed``; so are the prompts.  After a one-request warm-up (kernel
 build, library start-up) the traffic is served once, timed step by step;
 one JSON line reports it.  With ``--profile`` it is served again under
 ``torch.profiler``, which adds the device's busy share of the wall time,
-the kernels by device time, and the engine's spans (``prefill_chunk``,
-``decode_step``, ``sync``) with their host time and their kernels' time.
+the kernels by device time, and the engine's spans (``prefill`` or
+``prefill_chunk``, ``decode_step``, ``sync``) with their host time and
+their kernels' time.
 """
 from __future__ import annotations
 
@@ -22,38 +25,47 @@ import statistics
 import time
 
 
-def _serve(model, params, prompts):
+def _prefill_work(stats):
+    """Prefill work done so far: chunks (paged) or whole prefills (slot)."""
+    return stats.prefill_chunks + stats.prefills
+
+
+def _serve(model, params, prompts, paged):
     """Serve ``prompts`` to the end; returns the stats, the wall time and
-    each step's (wall ms, prefill chunks run in it)."""
+    each step's (wall ms, prefill chunks or prefills run in it)."""
     import torch
 
-    from repro_torch.serve.engine import PagedServingEngine
+    from repro_torch.serve.engine import PagedServingEngine, ServingEngine
 
-    eng = PagedServingEngine(model, params, max_batch=8, max_len=1024,
-                             block_size=16, chunk_size=64)
+    if paged:
+        eng = PagedServingEngine(model, params, max_batch=8, max_len=1024,
+                                 block_size=16, chunk_size=64)
+    else:
+        eng = ServingEngine(model, params, max_batch=8, max_len=1024)
     for p in prompts:
         eng.submit(p, max_new_tokens=MAX_NEW)
     steps = []
     t_run = time.perf_counter()
     while True:
-        t0, c0 = time.perf_counter(), eng.stats.prefill_chunks
+        t0, c0 = time.perf_counter(), _prefill_work(eng.stats)
         active = eng.step()
         steps.append((1e3 * (time.perf_counter() - t0),
-                      eng.stats.prefill_chunks - c0))
+                      _prefill_work(eng.stats) - c0))
         if active == 0 and not eng.queue:
             break
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    eng.allocator.check()
+    if paged:
+        eng.allocator.check()
     return eng.stats, wall, steps
 
 
-SPANS = ("prefill_chunk", "decode_step", "sync")
+SPANS = ("prefill", "prefill_chunk", "decode_step", "sync")
 MAX_NEW = 32
 
 
-def _profile(model, params, prompts):
+def _profile(model, params, prompts, paged):
     """Serve again under ``torch.profiler``: the device's busy share of the
     wall time (union of kernel intervals), the kernels by device time, and
     per engine span its host time and the device time of its kernels."""
@@ -64,7 +76,7 @@ def _profile(model, params, prompts):
     if model.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        _, wall, _ = _serve(model, params, prompts)
+        _, wall, _ = _serve(model, params, prompts, paged)
     events = prof.events()
     kernels = [e for e in events if e.device_type != DeviceType.CPU
                and not e.is_user_annotation]
@@ -107,6 +119,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny same-family config instead of full width")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged engine (block pool + "
+                         "chunked prefill) instead of the slot engine")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
 
@@ -124,12 +139,14 @@ def main(argv=None):
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.integers(16, 901, size=8)]
     # warm-up: builds the kernels and initialises the libraries
-    _serve(model, params, prompts[:1])
-    stats, secs, steps = _serve(model, params, prompts)
-    out = {"arch": cfg.name, "device": str(model.device),
+    _serve(model, params, prompts[:1], args.paged)
+    stats, secs, steps = _serve(model, params, prompts, args.paged)
+    out = {"arch": cfg.name, "engine": "paged" if args.paged else "slot",
+           "device": str(model.device),
            "layers": cfg.n_layers, "prompt_tokens": int(sum(map(len, prompts))),
            "completed": stats.completed,
            "decoded_tokens": stats.decoded_tokens,
+           "prefills": stats.prefills,
            "prefill_chunks": stats.prefill_chunks,
            "decode_dispatches": stats.decode_dispatches,
            "preemptions": stats.preemptions, "steps": stats.steps,
@@ -137,10 +154,10 @@ def main(argv=None):
            "decoded_tok_per_s": stats.decoded_tokens / secs,
            "median_decode_only_step_ms": _median(
                [ms for ms, c in steps if c == 0]),
-           "median_step_with_chunks_ms": _median(
+           "median_step_with_prefill_ms": _median(
                [ms for ms, c in steps if c > 0])}
     if args.profile:
-        out["profile"] = _profile(model, params, prompts)
+        out["profile"] = _profile(model, params, prompts, args.paged)
     print(json.dumps(out))
 
 

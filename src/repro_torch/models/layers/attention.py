@@ -1,18 +1,26 @@
-"""GQA attention over the paged KV pool, ported from
-``repro.models.layers.attention``.
+"""GQA attention, ported from ``repro.models.layers.attention``: the
+uncached prefill, the dense slot cache and the paged KV pool.
 
-Only the paged path exists in this slice: every call writes its new K/V
-into the layer's block pool and attends through the block table.
+* **Uncached prefill** (``cache=None``): project, rope Q and K, and attend
+  through ``kernels.ops.flash_attention`` (the CUDA kernel on the card,
+  its plain version on the CPU), causal, with the layer's window and the
+  attention softcap.  Returns rope'd K and raw V as the layer's cache.
+* **Dense slot cache** (``cache={'k','v': [B, Smax, KH, hd]}``): write the
+  new K/V at ``write_pos`` in place, clamped as ``dynamic_update_slice``
+  clamps, then the plain masked ``attend``; the JAX package runs no kernel
+  here either.
+* **Paged pool** (``block_tables`` given): every call writes its new K/V
+  into the layer's block pool.  ``Sq == 1`` (a decode step) goes to
+  ``kernels.ops.paged_attention``; ``Sq > 1`` (a chunked-prefill chunk)
+  gathers the logical K/V view and runs the plain masked attention, as the
+  JAX package does.
 
-* ``Sq == 1`` (a decode step) goes to ``kernels.ops.paged_attention``:
-  the CUDA kernel on the card, its plain version on the CPU.  The layers
-  run as a Python loop, so ``is_global`` is a plain bool and the window is
-  a run-time argument of the kernel (4096 on gemma2's local layers, none on
-  its global ones).  The JAX package instead scans its layers with
-  ``is_global`` traced, which keeps its TPU kernel gated off for windowed
-  models; that changes how attention is dispatched, not what it computes.
-* ``Sq > 1`` (a chunked-prefill chunk) gathers the logical K/V view and
-  runs the plain masked attention, as the JAX package does.
+The layers run as a Python loop, so ``is_global`` is a plain bool and the
+window is a run-time argument of both kernels (4096 on gemma2's local
+layers, none on its global ones).  The JAX package instead scans its
+layers with ``is_global`` traced, which keeps its TPU kernels gated off for
+windowed models; that changes how attention is dispatched, not what it
+computes.
 """
 from __future__ import annotations
 
@@ -109,21 +117,43 @@ def paged_gather(pool, block_tables, write_pos, Sq):
     return kv, torch.where(written, lslot[None], -1)
 
 
-def attention(p, x, *, cfg, positions, is_global: bool, pool_k, pool_v,
-              write_pos, block_tables, paged_fn=None):
-    """One paged attention layer.
+def dense_write(cache_k, cache_v, k_new, v_new, write_pos):
+    """Write ``Sq`` new tokens per row into one layer's slot cache
+    ``[B, Smax, KH, hd]``, in place (standing in for JAX's donation).
+
+    Each row's start is clamped to ``[0, Smax - Sq]``, as
+    ``lax.dynamic_update_slice`` clamps it: a free slot whose position has
+    run past ``max_len`` writes into its own last slot instead of indexing
+    past the end (which raises on the CPU and asserts on the card)."""
+    B, Sq = k_new.shape[:2]
+    start = torch.clamp(write_pos.long(), 0, cache_k.shape[1] - Sq)
+    rows = torch.arange(B, device=k_new.device)[:, None]
+    cols = start[:, None] + torch.arange(Sq, device=k_new.device)[None]
+    cache_k[rows, cols] = k_new.to(cache_k.dtype)
+    cache_v[rows, cols] = v_new.to(cache_v.dtype)
+
+
+def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
+              write_pos=None, block_tables=None, paged_fn=None,
+              flash_fn=None):
+    """One attention layer.
 
     x             [B,Sq,D] layer input (post-norm)
     positions     [B,Sq] absolute positions of the tokens
     is_global     plain bool; local layers use ``cfg.window``
-    pool_k/v      this layer's pool [n_blocks + 1, bs, KH, hd] (trash page
-                  last), written in place
+    cache         None (uncached prefill); this layer's slot cache
+                  {'k','v': [B, Smax, KH, hd]}; or, with ``block_tables``,
+                  its pool {'k','v': [n_blocks + 1, bs, KH, hd]} (trash
+                  page last).  Caches are written in place.
     write_pos     [B] int32 position of each row's first new token
-    block_tables  [B,NB] int32
-    paged_fn      the decode-attention function for ``Sq == 1`` (default
-                  ``kernels.ops.paged_attention``); a check can pass the
-                  plain version to compare the kernel inside the model
-    Returns out [B,Sq,D].
+    block_tables  [B,NB] int32 (paged pool only)
+    paged_fn      the decode attention for a paged ``Sq == 1`` call
+                  (default ``kernels.ops.paged_attention``)
+    flash_fn      the prefill attention (default
+                  ``kernels.ops.flash_attention``); a check can pass either
+                  plain version to compare a kernel inside the model
+    Returns (out [B,Sq,D], new_kv): the prefill's {'k': rope'd K,
+    'v': V} [B,Sq,KH,hd], None for the cached paths.
     """
     cdt = x.dtype
     B, Sq, _ = x.shape
@@ -136,18 +166,49 @@ def attention(p, x, *, cfg, positions, is_global: bool, pool_k, pool_v,
     q = apply_rope(q, sin, cos)
     k_new, v_new = _project_kv(p, x, cfg)
     k_new = apply_rope(k_new, sin, cos)
-    paged_write(pool_k, pool_v, k_new, v_new, block_tables, write_pos)
 
-    n_blocks = pool_k.shape[0] - 1
-    if Sq == 1:
-        fn = paged_fn or kops.paged_attention
-        out_h = fn(q[:, 0].contiguous(), pool_k[:n_blocks], pool_v[:n_blocks],
-                   block_tables, write_pos + 1, scale=scale, window=window,
-                   softcap=cfg.attn_softcap)[:, None]
-    else:
-        k, kpos = paged_gather(pool_k[:n_blocks], block_tables, write_pos, Sq)
-        v, _ = paged_gather(pool_v[:n_blocks], block_tables, write_pos, Sq)
-        out_h = attend(q, k.to(cdt), v.to(cdt), positions, kpos, scale=scale,
+    new_kv = None
+    if cache is None:
+        fn = flash_fn or kops.flash_attention
+        out_h = fn(q.contiguous(), k_new.contiguous(), v_new.contiguous(),
+                   causal=True, window=window, softcap=cfg.attn_softcap,
+                   scale=scale)
+        new_kv = {"k": k_new, "v": v_new}
+    elif block_tables is None:
+        dense_write(cache["k"], cache["v"], k_new, v_new, write_pos)
+        Smax = cache["k"].shape[1]
+        slot = torch.arange(Smax, device=x.device)[None]
+        # slots past the write head are unwritten -> kpos = -1 (masked)
+        written = slot <= write_pos.long()[:, None] + Sq - 1
+        out_h = attend(q, cache["k"].to(cdt), cache["v"].to(cdt), positions,
+                       torch.where(written, slot, -1), scale=scale,
                        window=window, cap=cfg.attn_softcap)
+    else:
+        pool_k, pool_v = cache["k"], cache["v"]
+        paged_write(pool_k, pool_v, k_new, v_new, block_tables, write_pos)
+        n_blocks = pool_k.shape[0] - 1
+        if Sq == 1:
+            fn = paged_fn or kops.paged_attention
+            out_h = fn(q[:, 0].contiguous(), pool_k[:n_blocks],
+                       pool_v[:n_blocks], block_tables, write_pos + 1,
+                       scale=scale, window=window,
+                       softcap=cfg.attn_softcap)[:, None]
+        else:
+            k, kpos = paged_gather(pool_k[:n_blocks], block_tables,
+                                   write_pos, Sq)
+            v, _ = paged_gather(pool_v[:n_blocks], block_tables, write_pos,
+                                Sq)
+            out_h = attend(q, k.to(cdt), v.to(cdt), positions, kpos,
+                           scale=scale, window=window, cap=cfg.attn_softcap)
     out_h = out_h.reshape(B, Sq, cfg.n_heads * hd)
-    return torch.matmul(out_h, p["wo"].to(cdt).reshape(cfg.n_heads * hd, -1))
+    out = torch.matmul(out_h, p["wo"].to(cdt).reshape(cfg.n_heads * hd, -1))
+    return out, new_kv
+
+
+def init_kv_cache(cfg, batch, max_len, n_layers, device,
+                  dtype=torch.bfloat16):
+    """The dense slot cache: {'k','v': [n_layers, batch, max_len, KH, hd]}
+    of zeros, bf16 whatever the compute dtype (as the JAX cache)."""
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,12 +1,17 @@
-"""Model API of the port (dense GQA decoders over the paged KV pool).
+"""Model API of the port (dense GQA decoders).
 
 ``build_model(cfg, device=None)`` returns a ``Model`` whose members are
 plain functions on tensors, with the JAX package's signatures:
 
-  init(seed)                                  -> params
-  decode(params, cache, tokens, pos, bt)      -> (logits [B,Vpad], cache)
-  decode_step(params, cache, tokens, pos, bt) -> (next tokens [B], cache)
-  init_paged_cache(n_blocks, block_size)      -> the paged pool
+  init(seed)                                       -> params
+  prefill(params, batch, max_len)                  -> (logits [B,Vpad], cache)
+  decode(params, cache, tokens, pos, bt=None)      -> (logits [B,Vpad], cache)
+  decode_step(params, cache, tokens, pos, bt=None) -> (next tokens [B], cache)
+  init_cache(batch, max_len)                       -> the dense slot cache
+  init_paged_cache(n_blocks, block_size)           -> the paged pool
+
+``decode`` runs over the paged pool when given block tables, else over the
+dense slot cache; both are updated in place.
 
 ``device=None`` means the card; without CUDA it raises (pass
 ``device="cpu"`` for the plain versions on the host).
@@ -28,7 +33,7 @@ def fused_decode_step(decode):
     caller moves ``[B]`` tokens instead of ``[B, vocab]`` logits.  Padded
     vocab columns are already at -1e9; argmax takes the first maximum, as
     ``jnp.argmax`` does."""
-    def decode_step(params, cache, tokens, pos, block_tables, **kw):
+    def decode_step(params, cache, tokens, pos, block_tables=None, **kw):
         logits, cache = decode(params, cache, tokens, pos, block_tables, **kw)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
     return decode_step
@@ -39,8 +44,10 @@ class Model:
     cfg: ModelCfg
     device: torch.device
     init: Callable
+    prefill: Callable
     decode: Callable
     decode_step: Callable
+    init_cache: Callable
     init_paged_cache: Callable
 
 
@@ -88,14 +95,25 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
     def init(seed=0):
         return init_params(cfg, seed, dev)
 
-    def decode(params, cache, tokens, pos, block_tables, paged_fn=None):
-        logits = lm_mod.lm_apply(params, cfg, tokens=tokens, cache=cache,
-                                 write_pos=pos, block_tables=block_tables,
-                                 paged_fn=paged_fn)
+    def prefill(params, batch, max_len=None, flash_fn=None):
+        logits, cache = lm_mod.lm_apply(params, cfg, tokens=batch["tokens"],
+                                        mode="prefill", max_len=max_len,
+                                        flash_fn=flash_fn)
         return logits[:, -1, :], cache
+
+    def decode(params, cache, tokens, pos, block_tables=None, paged_fn=None):
+        logits, cache = lm_mod.lm_apply(params, cfg, tokens=tokens,
+                                        mode="decode", cache=cache,
+                                        write_pos=pos,
+                                        block_tables=block_tables,
+                                        paged_fn=paged_fn)
+        return logits[:, -1, :], cache
+
+    def init_cache(batch, max_len):
+        return lm_mod.init_decode_cache(cfg, batch, max_len, dev)
 
     def init_paged_cache(n_blocks, block_size):
         return lm_mod.init_paged_decode_cache(cfg, n_blocks, block_size, dev)
 
-    return Model(cfg, dev, init, decode, fused_decode_step(decode),
-                 init_paged_cache)
+    return Model(cfg, dev, init, prefill, decode, fused_decode_step(decode),
+                 init_cache, init_paged_cache)

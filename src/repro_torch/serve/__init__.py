@@ -1,2 +1,2 @@
-"""Serving stack of the port: the paged engine, its allocator and its
-chunked-prefill scheduler."""
+"""Serving stack of the port: the slot and paged engines, the block
+allocator and the chunked-prefill scheduler."""

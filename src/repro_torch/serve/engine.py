@@ -1,10 +1,33 @@
-"""Paged serving engine: continuous batching over a block-paged KV pool
-with chunked prefill, ported from ``repro.serve.engine.PagedServingEngine``
-(its fused path).
+"""Serving engines, ported from ``repro.serve.engine`` (their fused
+paths): ``ServingEngine`` with slot-granular KV stripes, and
+``PagedServingEngine`` with a block-paged pool and chunked prefill.
 
-* The KV store is one pool of ``n_blocks`` blocks (``serve.paging``),
-  preallocated on the device and updated in place by every step (this
-  stands in for JAX's buffer donation).  Requests own block tables.
+Both keep the fused hot path of the JAX engines:
+
+* The KV store is preallocated on the device and updated in place by every
+  step and every admission (this stands in for JAX's buffer donation).
+* The decode step samples greedily on the device, tokens (and, for the
+  slot engine, positions) stay resident on the device between steps, and
+  the loop is pipelined one step ahead: step N+1 is dispatched before step
+  N's ``[2, B]`` token echo (inputs and outputs) is read back.  Every
+  device->host read goes through ``_sync`` (``stats.host_syncs``), so a
+  run can be checked for one sync per step; under
+  ``torch.cuda.set_sync_debug_mode("error")`` any other sync raises.
+
+``ServingEngine``: every admitted request reserves a full ``max_len``
+stripe of the ``[L, max_batch, max_len, KH, hd]`` slot cache.  Admission
+runs one uncached prefill per request (``Model.prefill``, whose attention
+is the flash-attention kernel on the card), splices its cache into the
+slot and sets the slot's device token (argmax) and position, with nothing
+crossing to the host.  The step decodes every slot, free ones included,
+as the JAX engine's does; rows are independent, so a free slot's writes
+(clamped to its own stripe) touch no live row.
+
+``PagedServingEngine``:
+
+* The KV store is one pool of ``n_blocks`` blocks (``serve.paging``);
+  requests own block tables, uploaded only when a row mutates
+  (``stats.table_uploads``).
 * Prompts prefill in fixed ``chunk_size`` chunks through the decode path
   (``serve.scheduler``): the final chunk overlaps already written
   positions, short prompts are left-padded with negative write positions,
@@ -13,24 +36,20 @@ with chunked prefill, ported from ``repro.serve.engine.PagedServingEngine``
   replayed from scratch later; the oldest is never evicted, so the engine
   always makes progress.  Retiring a request may compact the pool
   (copy-on-retire) so the allocated blocks stay dense.
-* The decode step samples greedily on the device, tokens stay resident on
-  the device between steps, block tables upload only when a row mutates
-  (``stats.table_uploads``), and the loop is pipelined one step ahead:
-  step N+1 is dispatched before step N's ``[2, B]`` token echo (inputs and
-  outputs) is read back.  Every device->host read goes through ``_sync``
-  (``stats.host_syncs``), so a run can be checked for one sync per step;
-  under ``torch.cuda.set_sync_debug_mode("error")`` any other sync raises.
-* Profiler spans: ``prefill_chunk``, ``decode_step`` and ``sync`` mark
-  the engine's three kinds of work for ``torch.profiler``
-  (``launch/serve.py --profile`` reads them).
+
+Profiler spans: ``prefill`` (slot admission), ``prefill_chunk``,
+``decode_step`` and ``sync`` mark the engines' kinds of work for
+``torch.profiler`` (``launch/serve.py --profile`` reads them).
 
 Not ported yet (each raises ``NotImplementedError`` when passed):
-``cost_model=``, ``autotuner=``, ``telemetry=``, ``mesh=``, ``fused=False``.
+``cost_model=``, ``step_budget_s=`` (slot), ``autotuner=``,
+``telemetry=``, ``mesh=`` (paged), ``fused=False``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -68,6 +87,7 @@ class EngineStats:
     preemptions: int = 0
     compactions: int = 0
     peak_blocks_in_use: int = 0
+    admission_order: List[int] = dataclasses.field(default_factory=list)
     integrity_failures: int = 0     # corrupted step echoes dropped
 
 
@@ -76,6 +96,81 @@ def _echo_ok(arr: np.ndarray) -> bool:
     non-negative by construction, so a negative value means a corrupt
     step."""
     return bool((arr >= 0).all())
+
+
+def _refuse_unported(fused: bool, **options) -> None:
+    for name, val in options.items():
+        if val is not None:
+            raise NotImplementedError(f"{name}= is not ported yet")
+    if not fused:
+        raise NotImplementedError("fused=False is not ported yet")
+
+
+class _DeviceLoop:
+    """What both engines share: the run loop, the KV store's size, and
+    the host<->device boundary (uploads through ``_dev``, staged
+    read-backs through ``_stage`` / ``_sync``)."""
+
+    device: torch.device
+    stats: EngineStats
+    cache: Dict[str, torch.Tensor]
+
+    def run_until_done(self, max_steps: int = 10_000) -> EngineStats:
+        """Step until every request is done (or ``max_steps``), then
+        drain a step still in flight."""
+        for _ in range(max_steps):
+            active = self.step()
+            if active == 0 and not self.queue:
+                break
+        if self._pending is not None:        # max_steps exhausted mid-flight
+            self._drain(self._pending)
+            self._pending = None
+        return self.stats
+
+    def kv_cache_bytes(self) -> int:
+        """Resident bytes of the preallocated KV store: the slot stripes,
+        or the paged pool with its trash page.  Steps update it in place,
+        so this is also its peak."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.cache.values()))
+
+    def _dev(self, x) -> torch.Tensor:
+        """THE host->device boundary for per-step operands.  On the card
+        the copy is asynchronous from pinned memory (the caching host
+        allocator keeps the buffer alive until the copy ran), so an upload
+        never blocks the host on the device."""
+        t = torch.from_numpy(np.array(x, copy=True))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _stage(self, x: torch.Tensor):
+        """Start the device->host copy of ``x`` right behind the work that
+        produces it, so a later ``_sync`` waits for that work only, not for
+        steps dispatched after it."""
+        if self.device.type != "cuda":
+            return x.clone(), None
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf.copy_(x, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return buf, ev
+
+    def _sync(self, staged) -> np.ndarray:
+        """THE device->host boundary: every value the engine reads back
+        crosses here, counted.  The wait is on the staged copy's event, with
+        sync debugging lifted for that one declared wait."""
+        self.stats.host_syncs += 1
+        buf, ev = staged
+        if ev is not None:
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                with record_function("sync"):
+                    ev.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return buf.numpy().copy()
 
 
 @dataclasses.dataclass
@@ -89,7 +184,7 @@ class _Row:
     dispatched: int = 0             # decode dispatches incl. in-flight
 
 
-class PagedServingEngine:
+class PagedServingEngine(_DeviceLoop):
     """Continuous batching over a paged KV cache with chunked prefill.
 
     ``n_blocks`` defaults to the slot-equivalent pool (``max_batch x
@@ -155,50 +250,6 @@ class PagedServingEngine:
     @property
     def queue(self):
         return self.scheduler.queue
-
-    def kv_cache_bytes(self) -> int:
-        """Resident bytes of the paged pool (trash page included)."""
-        return int(sum(t.numel() * t.element_size()
-                       for t in self.cache.values()))
-
-    # -- host <-> device ------------------------------------------------------
-    def _dev(self, x) -> torch.Tensor:
-        """THE host->device boundary for per-step operands.  On the card
-        the copy is asynchronous from pinned memory (the caching host
-        allocator keeps the buffer alive until the copy ran), so an upload
-        never blocks the host on the device."""
-        t = torch.from_numpy(np.array(x, copy=True))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
-    def _stage(self, x: torch.Tensor):
-        """Start the device->host copy of ``x`` right behind the work that
-        produces it, so a later ``_sync`` waits for that work only, not for
-        steps dispatched after it."""
-        if self.device.type != "cuda":
-            return x.clone(), None
-        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        buf.copy_(x, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return buf, ev
-
-    def _sync(self, staged) -> np.ndarray:
-        """THE device->host boundary: every value the engine reads back
-        crosses here, counted.  The wait is on the staged copy's event, with
-        sync debugging lifted for that one declared wait."""
-        self.stats.host_syncs += 1
-        buf, ev = staged
-        if ev is not None:
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode(0)
-            try:
-                with record_function("sync"):
-                    ev.synchronize()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        return buf.numpy().copy()
 
     def _bt_device(self):
         """The device block tables, uploaded only after a row mutated."""
@@ -452,12 +503,129 @@ class PagedServingEngine:
         self._maybe_compact()
 
     def run_until_done(self, max_steps: int = 10_000) -> EngineStats:
-        for _ in range(max_steps):
-            active = self.step()
-            if active == 0 and not self.scheduler.queue:
-                break
-        if self._pending is not None:        # max_steps exhausted mid-flight
-            self._drain(self._pending)
-            self._pending = None
+        stats = super().run_until_done(max_steps)
         self.allocator.check()
-        return self.stats
+        return stats
+
+
+class ServingEngine(_DeviceLoop):
+    """Slot-granular continuous batching (see the module docstring)."""
+
+    def __init__(self, model: Model, params, *, max_batch: int = 8,
+                 max_len: int = 512, cost_model=None, step_budget_s=None,
+                 autotuner=None, telemetry=None, fused: bool = True):
+        _refuse_unported(fused, cost_model=cost_model,
+                         step_budget_s=step_budget_s, autotuner=autotuner,
+                         telemetry=telemetry)
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.queue: deque[Request] = deque()
+        self.done: Dict[int, Request] = {}
+        self.stats = EngineStats()
+        self._rid = itertools.count()
+        self.cache = model.init_cache(max_batch, max_len)
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self.slot_pos = np.zeros(max_batch, np.int32)     # host mirror
+        self._pending = None
+        # device-resident loop state: the step consumes and advances it,
+        # so nothing but the [2, B] token echo crosses to the host
+        self._toks = self._dev(np.zeros(max_batch, np.int32))
+        self._pos = self._dev(np.zeros(max_batch, np.int32))
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
+               eos_id: Optional[int] = None) -> int:
+        prompt = np.asarray(prompt, np.int32)
+        if len(prompt) >= self.max_len:
+            raise ValueError(f"prompt of {len(prompt)} tokens cannot fit "
+                             f"max_len={self.max_len} (needs >= 1 decode "
+                             "slot)")
+        rid = next(self._rid)
+        self.queue.append(Request(rid, prompt, max_new_tokens, eos_id))
+        return rid
+
+    def _admit(self) -> None:
+        """Prefill queued requests into the free slots, oldest first."""
+        for slot in [i for i, r in enumerate(self.slot_req) if r is None]:
+            if not self.queue:
+                break
+            self._prefill_into_slot(slot, self.queue.popleft())
+
+    def _prefill_into_slot(self, slot: int, req: Request) -> None:
+        """One uncached prefill, spliced into ``slot`` in place, with the
+        slot's device token set to the prefill's argmax and its device
+        position to the prompt length.  Nothing crosses to the host: the
+        first token reaches ``req.tokens`` through the next step's echo."""
+        S = len(req.prompt)
+        with record_function("prefill"):
+            logits, cache1 = self.model.prefill(
+                self.params, {"tokens": self._dev(req.prompt[None, :])},
+                max_len=self.max_len)
+            for key, big in self.cache.items():
+                big[:, slot:slot + 1].copy_(cache1[key])
+            # flattened, as jnp.argmax over logits[0] is
+            tok0 = torch.argmax(logits[0].reshape(-1)).to(torch.int32)
+            self._toks[slot:slot + 1].copy_(tok0.reshape(1))
+            self._pos[slot:slot + 1].fill_(S)
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = S
+        self.stats.prefills += 1
+        self.stats.admission_order.append(req.rid)
+
+    def _retire(self, slot: int) -> None:
+        req = self.slot_req[slot]
+        self.done[req.rid] = req
+        self.slot_req[slot] = None
+        self.stats.completed += 1
+
+    def _drain(self, pending) -> None:
+        """Sync and book one in-flight step: append its tokens (plus the
+        echoed prefill token for rows on their first decode), advance the
+        host position mirror, retire.  Rows whose slot changed hands since
+        dispatch were retired in an earlier drain: their shadow tokens are
+        dropped."""
+        if pending is None:
+            return
+        staged, snap = pending
+        arr = self._sync(staged)
+        if not _echo_ok(arr):
+            self.stats.integrity_failures += 1
+            return
+        in_t, out_t = arr[0], arr[1]
+        for i, req in snap:
+            if self.slot_req[i] is not req:
+                continue                     # shadow step of a retired row
+            if not req.tokens:
+                req.tokens.append(int(in_t[i]))      # prefill's first token
+            req.tokens.append(int(out_t[i]))
+            self.stats.decoded_tokens += 1
+            self.slot_pos[i] += 1
+            hit_eos = req.eos_id is not None and req.tokens[-1] == req.eos_id
+            out_of_budget = len(req.tokens) >= req.max_new_tokens
+            out_of_cache = self.slot_pos[i] >= self.max_len - 1
+            if hit_eos or out_of_budget or out_of_cache:
+                self._retire(i)
+
+    def step(self) -> int:
+        """One iteration: admit (host work in the shadow of the in-flight
+        step), dispatch step N over every slot, then drain step N-1, so a
+        step's tokens are read only after the next step is queued on the
+        device.  Returns the number of occupied slots at dispatch."""
+        prev, self._pending = self._pending, None
+        self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if active:
+            with record_function("decode_step"):
+                nxt, _ = self.model.decode_step(
+                    self.params, self.cache, self._toks[:, None], self._pos)
+                io = torch.stack([self._toks, nxt])  # input echo + outputs
+                # every row advances, free slots included, as in JAX
+                self._toks, self._pos = nxt, self._pos + 1
+            self._pending = (self._stage(io),
+                             [(i, self.slot_req[i]) for i in active])
+            self.stats.steps += 1
+            self.stats.decode_dispatches += 1
+        self._drain(prev)
+        return len(active)

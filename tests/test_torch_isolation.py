@@ -24,7 +24,7 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro.")
                 or m == "jax" and sys.modules[m] is not None)
-print(len(names), leaked)
+print(",".join(names), leaked)
 """
 
 
@@ -34,8 +34,13 @@ def test_port_imports_without_jax_or_repro():
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n, leaked = proc.stdout.split(" ", 1)
-    assert int(n) >= 15
+    names, leaked = proc.stdout.split(" ", 1)
+    names = names.split(",")
+    assert len(names) >= 16
+    for mod in ("kernels.flash_attention", "kernels.paged_attention",
+                "kernels.ref", "kernels.ops", "models.transformer",
+                "serve.engine", "launch.serve"):
+        assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 
 

@@ -1,0 +1,184 @@
+"""The port's slot-engine path against the JAX package, on the CPU.
+
+``reduced(gemma2-2b, n_layers=2, vocab_size=128)`` in f32 compute (one
+local layer with window 8, one global layer, softcaps, post-norms): the
+JAX parameters are converted with ``params_from_jax`` and both packages
+run the uncached prefill (``Model.prefill``; in the port its attention is
+``flash_attention``, here its plain version), decode over the dense slot
+cache, and the fused ``ServingEngine``.  Tolerances: logits atol 1e-4 (f32,
+other summation order over 2 layers); caches atol 2e-2 (bf16 storage: one
+bf16 ulp where the f32 values round differently).  Greedy tokens must be
+identical.
+"""
+import functools
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS, reduced as jreduced
+from repro.models.zoo import build_model as jbuild
+from repro.serve.engine import ServingEngine as JServingEngine
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels import ref as tref
+from repro_torch.launch import serve as tserve
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.zoo import build_model
+from repro_torch.serve.engine import ServingEngine
+
+KW = dict(n_layers=2, vocab_size=128, compute_dtype="float32")
+
+
+@functools.lru_cache(maxsize=None)
+def _models():
+    jcfg = jreduced(JARCHS["gemma2-2b"], **KW)
+    cfg = reduced(ARCHS["gemma2-2b"], **KW)
+    jm = jbuild(jcfg)
+    tree = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(3)
+
+    def perturb(path, x):           # exercise 1 + scale in every norm
+        if getattr(path[-1], "key", None) == "scale":
+            return (x + rng.normal(size=x.shape) * 0.3).astype(np.float32)
+        return x
+    tree = jax.tree_util.tree_map_with_path(perturb, tree)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    tm = build_model(cfg, device="cpu")
+    return cfg, jm, jparams, tm, params_from_jax(tree, cfg, "cpu")
+
+
+def _prompts(seed, n, lo, hi):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 128, size=int(rng.integers(lo, hi)))
+            .astype(np.int32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("S,max_len", [(19, 24), (13, None), (1, 8)])
+def test_prefill_logits_and_padded_cache_match(S, max_len):
+    """Prompts past the window of 8; the cache comes back stacked
+    [L, B, max_len, KH, hd] in bf16, zero past the prompt."""
+    cfg, jm, jparams, tm, tparams = _models()
+    toks = np.random.default_rng(S).integers(0, 128, size=(2, S)) \
+        .astype(np.int32)
+    lj, cj = jm.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                        max_len=max_len)
+    lt, ct = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                        max_len=max_len)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
+    L = max_len or S
+    for key in ("k", "v"):
+        assert ct[key].shape == (2, 2, L, cfg.n_kv_heads, cfg.head_dim)
+        assert ct[key].dtype == torch.bfloat16
+        np.testing.assert_allclose(ct[key].float().numpy(),
+                                   np.asarray(cj[key], np.float32), atol=2e-2)
+        assert torch.all(ct[key][:, :, S:] == 0)
+
+
+def test_prefill_through_plain_and_ref_attention_agree():
+    """``flash_fn=`` swaps the prefill attention: the full-softmax oracle
+    gives the same logits as the blocked plain version."""
+    _, _, _, tm, tparams = _models()
+    toks = torch.from_numpy(np.arange(30, dtype=np.int32)[None] % 128)
+    a, _ = tm.prefill(tparams, {"tokens": toks}, max_len=32)
+    b, _ = tm.prefill(tparams, {"tokens": toks}, max_len=32,
+                      flash_fn=tref.flash_attention_ref)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+def test_dense_decode_after_prefill_matches_including_the_clamp():
+    """Decode over the dense slot cache after a prefill, past the window;
+    row 1 sits at a position past max_len, so its write is clamped to the
+    last slot exactly as ``dynamic_update_slice`` clamps it."""
+    cfg, jm, jparams, tm, tparams = _models()
+    max_len = 24
+    toks = np.random.default_rng(4).integers(0, 128, size=(2, 13)) \
+        .astype(np.int32)
+    lj, cj = jm.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                        max_len=max_len)
+    lt, ct = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                        max_len=max_len)
+    nxt = np.asarray(lj).argmax(-1).astype(np.int32)
+    pos = np.asarray([13, 30], np.int32)
+    for _ in range(6):
+        lj, cj = jm.decode(jparams, cj, jnp.asarray(nxt[:, None]),
+                           jnp.asarray(pos))
+        lt, ct = tm.decode(tparams, ct, torch.from_numpy(nxt[:, None]),
+                           torch.from_numpy(pos))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
+        nxt = np.asarray(lj).argmax(-1).astype(np.int32)
+        pos = pos + 1
+    for key in ("k", "v"):
+        np.testing.assert_allclose(ct[key].float().numpy(),
+                                   np.asarray(cj[key], np.float32), atol=2e-2)
+
+
+def _serve(engine_cls, model, params, prompts, max_new, eos_id=None, **kw):
+    eng = engine_cls(model, params, **kw)
+    rids = [eng.submit(p, max_new_tokens=max_new, eos_id=eos_id)
+            for p in prompts]
+    eng.run_until_done()
+    return eng, [eng.done[r].tokens for r in rids]
+
+
+@pytest.mark.parametrize("seed,n_req,max_new,max_batch,max_len", [
+    (11, 12, 5, 4, 48),      # three times as many requests as slots
+    (5, 6, 40, 2, 32),       # requests retire on the cache ceiling
+])
+def test_engine_tokens_identical_to_jax(seed, n_req, max_new, max_batch,
+                                        max_len):
+    cfg, jm, jparams, tm, tparams = _models()
+    prompts = _prompts(seed, n_req, 1, 20)
+    kw = dict(max_batch=max_batch, max_len=max_len)
+    jeng, jtoks = _serve(JServingEngine, jm, jparams, prompts, max_new, **kw)
+    teng, ttoks = _serve(ServingEngine, tm, tparams, prompts, max_new, **kw)
+    assert ttoks == jtoks
+    s, js = teng.stats, jeng.stats
+    assert s.completed == n_req
+    assert (s.steps, s.prefills, s.admission_order, s.host_syncs,
+            s.decoded_tokens) == (js.steps, js.prefills, js.admission_order,
+                                  js.host_syncs, js.decoded_tokens)
+    assert s.host_syncs <= s.steps
+    assert teng.kv_cache_bytes() == jeng.kv_cache_bytes()
+
+
+def test_engine_eos_retires_like_jax():
+    cfg, jm, jparams, tm, tparams = _models()
+    prompts = _prompts(2, 5, 3, 18)
+    kw = dict(max_batch=2, max_len=40)
+    _, free = _serve(ServingEngine, tm, tparams, prompts, 8, **kw)
+    eos = free[1][3]
+    _, jtoks = _serve(JServingEngine, jm, jparams, prompts, 8, eos_id=eos,
+                      **kw)
+    teng, ttoks = _serve(ServingEngine, tm, tparams, prompts, 8, eos_id=eos,
+                         **kw)
+    assert ttoks == jtoks
+    assert ttoks[1] == free[1][:free[1].index(eos) + 1]
+    assert teng.stats.completed == len(prompts)
+
+
+def test_engine_refuses_unported_options_and_long_prompts():
+    _, _, _, tm, tparams = _models()
+    for kw in (dict(cost_model=object()), dict(step_budget_s=0.1),
+               dict(autotuner=object()), dict(telemetry=object()),
+               dict(fused=False)):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(tm, tparams, max_batch=2, max_len=16, **kw)
+    eng = ServingEngine(tm, tparams, max_batch=2, max_len=16)
+    with pytest.raises(ValueError):
+        eng.submit(np.zeros(16, np.int32))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_launcher_serves_reduced_model_on_cpu(paged, capsys):
+    """``python -m repro_torch.launch.serve --arch gemma2-2b --reduced
+    --device cpu [--paged]``: the slot engine by default, the paged engine
+    with ``--paged``; 8 requests of 32 tokens each."""
+    argv = ["--arch", "gemma2-2b", "--reduced", "--device", "cpu"]
+    tserve.main(argv + ["--paged"] if paged else argv)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["engine"] == ("paged" if paged else "slot")
+    assert out["completed"] == 8 and out["decoded_tokens"] == 8 * 31
+    assert out["host_syncs"] <= out["steps"] + 1
