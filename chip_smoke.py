@@ -38,6 +38,21 @@ exits non-zero):
 8. reference: a reduced f32 gemma2 served on the card and on the CPU
    (where attention runs the plain versions), through the paged and the
    slot engine, must give identical tokens.
+9. probes: the paper's three probe kernels against their plain versions:
+   ``alu_chain`` for every (op, dtype, dependent) the harness runs, at
+   length 12; ``pointer_chase`` in shared memory and in global memory under
+   ``.ca``/``.cg``/``.cv``, on cycles of 64, 4096 and 2^20 entries (shared
+   where the array fits); ``mxu_probe`` on the JAX kernel tests' sweep and
+   the ``mxu_shapes`` grid's shapes; with times for the kernel, the plain
+   version, ``torch.matmul`` (``mxu_probe`` at chain 1) and the bound.
+10. calibration: the port's campaign runs the full grids of the four
+   calibration experiments (alu_chain, memory_chase, mxu_shapes,
+   roofline_calibration) through the probe kernels into
+   ``chiprun_out/campaign/`` and writes the table they make to
+   ``chiprun_out/hopper_h100.json``; it fails on an error cell other than
+   the three ``(512,512,128)`` dependent ``mxu_shapes`` cells that the
+   reference fails too, a dependent ALU cell under 1 cycle per op (a folded
+   chain), or a 64 MiB chase no slower per hop than a 16 KiB one.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -58,6 +73,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+OUT = ROOT / "chiprun_out"
 KERNEL_TOL = dict(atol=1e-2, rtol=1e-2)
 LOGIT_ATOL = 0.1
 
@@ -270,19 +287,24 @@ def phase_flash_kernel(torch, dev, seed):
     return out_cases, max_err
 
 
+def _wrappers():
+    from repro_torch.kernels.alu_chain import alu_chain
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mxu_probe import mxu_probe
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.pointer_chase import pointer_chase
+    return {f.__name__: f for f in (paged_attention, flash_attention,
+                                    alu_chain, pointer_chase, mxu_probe)}
+
+
 def reset_launches():
     """Zero every kernel's launch count, just before a path is driven."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
-    paged_attention.launches = 0
-    flash_attention.launches = 0
+    for f in _wrappers().values():
+        f.launches = 0
 
 
 def launch_counts():
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
-    return {"paged_attention": paged_attention.launches,
-            "flash_attention": flash_attention.launches}
+    return {name: f.launches for name, f in _wrappers().items()}
 
 
 def phase_serve(torch, np, dev, seed):
@@ -501,6 +523,215 @@ def phase_reference(torch, np, seed):
           "requests": len(prompts), "tokens_identical": same})
 
 
+def _bound(nbytes, ops, ops_per_s):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_probes(torch, np, dev, seed):
+    """Each probe kernel against its plain version on the card; one timed
+    case per kernel for the kernels line."""
+    from repro_torch.core.microbench.memory import _random_cycle
+    from repro_torch.core.microbench.mxu import dependent_block
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.alu_chain import tolerance
+    from repro_torch.kernels.mxu_probe import REL_TOL
+
+    rng = np.random.default_rng(seed)
+    c = 1.0009765625
+    worst = {"alu_chain": 0.0, "pointer_chase": 0.0, "mxu_probe": 0.0}
+    n_alu = 0
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        if dt == torch.int32:
+            x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (8, 128))
+                                 .astype(np.int32)).to(dev)
+        else:
+            x = torch.from_numpy((rng.normal(size=(8, 128)) + 2.0)
+                                 .astype(np.float32)).to(dt).to(dev)
+        cv = torch.tensor(c).to(dt).to(dev)
+        for op in ref.ALU_OPS:
+            if not ref.alu_legal(op, dt):
+                continue
+            for dep in (True, False):
+                out = ops.alu_chain(x, cv, op=op, length=12, dependent=dep)
+                torch.cuda.synchronize()
+                want = ref.alu_chain_plain(x, cv, op=op, length=12,
+                                           dependent=dep)
+                torch.testing.assert_close(out.double(), want.double(),
+                                           equal_nan=True,
+                                           **tolerance(op, dt, 12))
+                worst["alu_chain"] = max(worst["alu_chain"], (
+                    out.double() - want.double()).abs().max().item())
+                n_alu += 1
+    # the kernels line's case: the f32 fma chain of the harness's longest
+    # length, dependent, on its (8,128) tile
+    x = torch.linspace(0.5, 1.5, 1024, device=dev).reshape(8, 128)
+    cv = torch.tensor(c, device=dev)
+    kw = dict(op="fma", length=256, dependent=True)
+    alu = {"case": "fma f32 dependent, length 256, (8,128)",
+           "ms": gpu_ms(torch, lambda: ops.alu_chain(x, cv, **kw), 30),
+           "plain_ms": gpu_ms(torch, lambda: ref.alu_chain_plain(x, cv, **kw),
+                              5),
+           "library_ms": None}
+    alu["bound_ms"], alu["bound_by"] = _bound(2 * 1024 * 4 + 12,
+                                              2 * 1024 * 256, F32_OPS_PER_S)
+    emit({"phase": "probes", "name": "alu_chain", "cases": n_alu,
+          "length": 12, "max_abs_err": worst["alu_chain"], **alu})
+
+    chase = None
+    n_chase = 0
+    for n in (64, 4096, 1 << 20):
+        nxt = torch.from_numpy(_random_cycle(n, seed + n)).to(dev)
+        hops = min(4 * n, 4096)
+        want = int(ref.pointer_chase_plain(nxt, 1, hops))
+        for space, cop in (("shared", "ca"), ("global", "ca"),
+                           ("global", "cg"), ("global", "cv")):
+            if space == "shared" and n > 50000:
+                continue                    # 4 MiB does not fit 227 KB
+            got = int(ops.pointer_chase(nxt, 1, hops=hops, space=space,
+                                        cache_op=cop))
+            if got != want:
+                raise AssertionError(f"pointer_chase {space}/{cop} n={n}: "
+                                     f"{got} != {want}")
+            n_chase += 1
+        if n == 1 << 20:
+            kw = dict(hops=4096, space="global", cache_op="ca")
+            chase = {"case": "global .ca, 2^20 entries (4 MiB), 4096 hops",
+                     "ms": gpu_ms(torch, lambda: ops.pointer_chase(
+                         nxt, 1, **kw), 20),
+                     "plain_ms": gpu_ms(torch, lambda: ref.pointer_chase_plain(
+                         nxt, 1, 4096), 3),
+                     "library_ms": None}
+            chase["bound_ms"], chase["bound_by"] = _bound(4096 * 4 + 4, 0,
+                                                          F32_OPS_PER_S)
+    # the paper's Fig. 2: cycles per hop in each space and under each
+    # cache operator, on a warmed 16 KiB cycle (L1-, L2- and smem-sized)
+    from repro_torch.core.microbench.harness import steady_slope, time_kernel
+    nxt = torch.from_numpy(_random_cycle(4096, seed)).to(dev)
+    fig2 = {}
+    for space, cop in (("shared", "ca"), ("global", "ca"), ("global", "cg"),
+                       ("global", "cv")):
+        hops = (256, 1024, 4096)
+        cyc = [float(np.median(time_kernel(lambda t, h=h: ops.pointer_chase(
+            nxt, 0, hops=h, space=space, cache_op=cop, timing=t), 10,
+            device=dev)[1])) for h in hops]
+        fig2[space if space == "shared" else f"global.{cop}"] = \
+            steady_slope(hops, cyc)
+    emit({"phase": "probes", "name": "pointer_chase", "cases": n_chase,
+          "max_abs_err": 0.0, "cycles_per_hop_16KiB": fig2, **chase})
+    worst["pointer_chase"] = 0.0
+
+    cases = [(128, 128, 128, 1), (128, 128, 128, 4), (256, 256, 128, 1),
+             (256, 256, 256, 1), (256, 256, 256, 8), (512, 128, 512, 1)]
+    worst_rel = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for m, k, n, chain in cases:
+            a = torch.from_numpy(rng.normal(size=(m, k)) * 0.1).to(dt).to(dev)
+            b = torch.from_numpy(rng.normal(size=(k, n)) * 0.1).to(dt).to(dev)
+            block = dependent_block(m, n, k, dt, chain) if chain > 1 else None
+            out = ops.mxu_probe(a, b, chain=chain, block=block)
+            torch.cuda.synchronize()
+            want = ref.mxu_probe_plain(a, b, chain=chain).float()
+            err = (out.float() - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not rel <= REL_TOL:
+                raise AssertionError(f"mxu_probe {dt} {(m, k, n, chain)}: "
+                                     f"error {rel} of max > {REL_TOL}")
+            worst["mxu_probe"] = max(worst["mxu_probe"], err)
+            worst_rel = max(worst_rel, rel)
+    a = torch.randn((256, 256), device=dev).bfloat16()
+    b = torch.randn((256, 256), device=dev).bfloat16()
+    mxu = {"case": "bf16 256x256x256, chain 1, block (128,128)",
+           "ms": gpu_ms(torch, lambda: ops.mxu_probe(a, b, chain=1), 30),
+           "plain_ms": gpu_ms(torch, lambda: ref.mxu_probe_plain(a, b), 30),
+           "library_ms": gpu_ms(torch, lambda: torch.matmul(a, b), 30)}
+    mxu["bound_ms"], mxu["bound_by"] = _bound(3 * 256 * 256 * 2,
+                                              2 * 256 ** 3, BF16_OPS_PER_S)
+    emit({"phase": "probes", "name": "mxu_probe", "cases": 2 * len(cases),
+          "max_abs_err": worst["mxu_probe"], "max_err_of_max": worst_rel,
+          "rel_tol": REL_TOL, **mxu})
+    return {"alu_chain": alu, "pointer_chase": chase, "mxu_probe": mxu}, worst
+
+
+# the cells the reference fails too: a [512,512] product cannot feed
+# A [512,128] @ . in a dependent chain
+REFERENCE_ERRORS = {f"dependent=true,dtype={d},shape=512x512x128"
+                    for d in ("bfloat16", "float32", "int8")}
+
+
+def phase_calibration(torch, dev, card):
+    """The port's campaign: the four calibration experiments' full grids
+    through the probe kernels, and the table they make."""
+    import shutil
+
+    from repro_torch.core.campaign.results import load_results_dir
+    from repro_torch.core.microbench import tables
+
+    results = OUT / "campaign"
+    shutil.rmtree(results, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    table = tables.calibrate(quick=False, results_dir=results, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    docs = load_results_dir(results, tables.CALIBRATION_EXPERIMENTS)
+    errors = sorted(f"{name}:{key}" for name, doc in docs.items()
+                    for key, rec in doc["cells"].items()
+                    if rec.get("status") != "ok")
+    expected = sorted(f"mxu_shapes:{k}" for k in REFERENCE_ERRORS)
+    if errors != expected:
+        bad = [e for e in errors if e not in expected]
+        raise AssertionError(f"calibration cells in error: {bad or errors}; "
+                             f"expected exactly {expected}")
+    alu = {(r["params"]["op"], r["params"]["dtype"], r["params"]["dependent"]):
+           r["metrics"] for r in docs["alu_chain"]["cells"].values()}
+    folded = sorted(f"{op}.{dt}" for (op, dt, dep), m in alu.items()
+                    if dep and m["per_op_cycles"] < 1.0)
+    if folded:
+        raise AssertionError(f"dependent ALU cells under 1 cycle per op "
+                             f"(a folded chain): {folded}")
+    chase = {r["params"]["size_kib"]: r["metrics"]
+             for r in docs["memory_chase"]["cells"].values()
+             if r["params"]["access"] == "chase"}
+    if not chase[65536]["per_hop_ns"] > chase[16]["per_hop_ns"]:
+        raise AssertionError("the 64 MiB chase is not slower per hop than "
+                             "the 16 KiB chase")
+    for name in ("alu_chain", "pointer_chase", "mxu_probe"):
+        if counts[name] == 0:
+            raise AssertionError(f"the calibration never launched {name}")
+    cycles = {f"{op}.{dt}": {"dependent": alu[(op, dt, True)]["per_op_cycles"],
+                             "independent": alu[(op, dt, False)][
+                                 "per_op_cycles"]}
+              for op, dt in (("add", "float32"), ("mul", "float32"),
+                             ("fma", "float32"), ("add", "int32"),
+                             ("mul", "int32"), ("rsqrt", "float32"),
+                             ("exp", "float32"), ("sin", "float32"),
+                             ("tanh", "float32"), ("add", "bfloat16"),
+                             ("fma", "bfloat16"))}
+    hops = {f"{kib}KiB": {"per_hop_ns": m["per_hop_ns"],
+                          "per_hop_cycles": m["per_hop_cycles"]}
+            for kib, m in sorted(chase.items())}
+    mxu = {key: {k: rec["metrics"].get(k) for k in
+                 ("tflops", "per_op_us", "per_op_cycles", "block")}
+           for key, rec in sorted(docs["mxu_shapes"]["cells"].items())
+           if rec["status"] == "ok"}
+    table["source"] = (f"measured on one {card} by `python3 chip_smoke.py` "
+                       "(phase calibration: the full grids of alu_chain, "
+                       "memory_chase, mxu_shapes and roofline_calibration "
+                       "through the port's probe kernels)")
+    (OUT / "hopper_h100.json").write_text(json.dumps(table, indent=1))
+    emit({"phase": "calibration", "run_s": run_s, "launches": counts,
+          "cells": {n: len(d["cells"]) for n, d in docs.items()},
+          "seconds": {n: sum(r["elapsed_s"] for r in d["cells"].values())
+                      for n, d in docs.items()},
+          "errors": errors, "clock_mhz": table["clock_mhz"],
+          "alu_cycles": cycles, "chase": hops, "mxu": mxu,
+          "roofline": {k: v["value"] for k, v in table["roofline"].items()}})
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -526,7 +757,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    phase_card(torch)
+    card = phase_card(torch)
     cases, max_err = phase_kernel(torch, np, dev, args.seed)
     fa_cases, fa_err = phase_flash_kernel(torch, dev, args.seed)
     model, params, prompts, launches = phase_serve(torch, np, dev, args.seed)
@@ -536,6 +767,8 @@ def main(argv=None) -> int:
     del model, params
     torch.cuda.empty_cache()
     phase_reference(torch, np, args.seed)
+    probes, probe_err = phase_probes(torch, np, dev, args.seed)
+    cal_counts = phase_calibration(torch, dev, card)
 
     # the kernel line: the serving shapes with neither window nor softcap
     # and one split, the one case where SDPA computes the same function
@@ -557,7 +790,16 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:80",
          "launches": fa_launches, "max_abs_err": fa_err,
-         **{k: fa_case[k] for k in keys}}]})
+         **{k: fa_case[k] for k in keys}}] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": replaces, "launches": cal_counts[name],
+         "max_abs_err": probe_err[name],
+         **{k: probes[name][k] for k in keys}}
+        for name, replaces in (
+            ("alu_chain", "src/repro/kernels/microbench_alu.py:51"),
+            ("pointer_chase", "src/repro/kernels/microbench_chase.py:28"),
+            ("mxu_probe", "src/repro/kernels/mxu_probe.py:26"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,6 +4,8 @@
 ``csrc/paged_attention.cu``) is the decode attention of the paged serving
 path; ``flash_attention`` (``kernels/flash_attention.py``,
 ``csrc/flash_attention.cu``) is the uncached forward attention of the slot
-engine's prefill.  ``ops`` resolves their launch configurations; ``ref``
-holds the plain versions.
+engine's prefill.  The paper's probes ``alu_chain``, ``pointer_chase`` and
+``mxu_probe`` (``kernels/<name>.py``, ``csrc/<name>.cu``) are the kernels
+of the measurement layer (``core/microbench``).  ``ops`` resolves their
+launch configurations; ``ref`` holds the plain versions.
 """

@@ -3,18 +3,32 @@
 Resolution order, as in ``repro.kernels.ops``: explicit argument >
 ``config=`` mapping > default.  The tuned-cache lookup of the JAX package
 waits for the port's autotune slice.  Defaults are the port's own copy of
-``repro.core.autotune.space``'s ``flash_attention`` and ``paged_attention``
-entries.
+``repro.core.autotune.space``'s ``flash_attention``, ``paged_attention``
+and ``mxu_probe`` entries, and of its ``divisor_clamp``.
 """
 from __future__ import annotations
 
+import math
+
+from repro_torch.kernels import alu_chain as _alu
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mxu_probe as _mxu
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import pointer_chase as _chase
 
 KERNEL_DEFAULTS = {
     "flash_attention": {"block_q": 128, "block_k": 128, "acc_dtype": "f32"},
     "paged_attention": {"block_size": 16, "num_splits": 1},
+    "mxu_probe": {"block_m": 128, "block_n": 128},
 }
+
+
+def divisor_clamp(value: int, n: int) -> int:
+    """Largest launchable block for a divisor-constrained axis: min-clamp
+    to the problem size, then fall back to a common divisor when it does
+    not divide."""
+    v = max(min(int(value), n), 1)
+    return v if n % v == 0 else math.gcd(v, n)
 
 
 def resolve_kernel_config(kernel, *, config=None, explicit=None):
@@ -59,3 +73,38 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     return _pa.paged_attention(q, k_pages, v_pages, block_tables,
                                context_lens, scale=scale, window=window,
                                softcap=softcap, num_splits=splits)
+
+
+def alu_chain(x, c, op="fma", length=64, dependent=True, timing=None):
+    """The paper's ALU chain on one (8,128) tile (``kernels.alu_chain``)."""
+    return _alu.alu_chain(x, c, op=op, length=length, dependent=dependent,
+                          timing=timing)
+
+
+def pointer_chase(nxt, start, hops=1024, space="global", cache_op="ca",
+                  warm=True, timing=None):
+    """The paper's pointer chase (``kernels.pointer_chase``)."""
+    return _chase.pointer_chase(nxt, start, hops=hops, space=space,
+                                cache_op=cache_op, warm=warm, timing=timing)
+
+
+def resolve_mxu_block(m, n, block=None, config=None):
+    """``(block_m, block_n)``: an explicit ``block`` as given (the kernel
+    holds it strictly: for measurement callers the tile is the measured
+    quantity); a ``config=`` or default block clamped to a divisor of the
+    problem, as ``repro.kernels.ops.mxu_probe`` does."""
+    explicit = None if block is None else {"block_m": block[0],
+                                           "block_n": block[1]}
+    c = resolve_kernel_config("mxu_probe", config=config, explicit=explicit)
+    bm, bn = int(c["block_m"]), int(c["block_n"])
+    if block is None:
+        bm, bn = divisor_clamp(bm, m), divisor_clamp(bn, n)
+    return bm, bn
+
+
+def mxu_probe(a, b, chain=4, block=None, config=None, timing=None):
+    """The tensor-core probe (``kernels.mxu_probe``) with its block
+    resolved explicit > ``config=`` > default (128, 128)."""
+    blk = resolve_mxu_block(a.shape[0], b.shape[1], block=block,
+                            config=config)
+    return _mxu.mxu_probe(a, b, chain=chain, block=blk, timing=timing)

@@ -7,7 +7,13 @@ CPU.
 * flash attention: ``flash_attention_ref`` (full softmax, a port of
   ``repro.kernels.ref.flash_attention_ref``) and ``flash_attention_plain``
   (the blocked online softmax of ``repro.kernels.flash_attention``, with
-  its rounding points).
+  its rounding points);
+* the paper's probes: ``alu_chain_plain`` over the 21-op table ``ALU_OPS``
+  (a port of ``repro.core.microbench.harness.OPS``, with jnp's semantics:
+  ``%`` is a floor-mod, ``popc``/``clz`` count the int32 bit pattern),
+  ``pointer_chase_plain`` and ``mxu_probe_plain`` (ports of
+  ``repro.kernels.ref.alu_chain_ref``, ``pointer_chase_ref`` and
+  ``mxu_probe_ref``).
 """
 from __future__ import annotations
 
@@ -214,3 +220,103 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
             acc.float() / torch.clamp(l.float(), min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq + pad_q, H, D)
     return out[:, :Sq].to(q.dtype)
+
+
+# --- the paper's probes ----------------------------------------------------
+
+def _u32(y):
+    """The int32 bit pattern of ``y`` as a non-negative int64."""
+    return y.to(torch.int64) & 0xFFFFFFFF
+
+
+def _popc(y):
+    """Population count of each int32 (``lax.population_count``)."""
+    v = _u32(y)
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24 & 0xFF).to(y.dtype)
+
+
+def _clz(y):
+    """Leading zeros of each int32 (``lax.clz``): 32 for 0."""
+    v = _u32(y)
+    n = torch.zeros_like(v)
+    for s in (16, 8, 4, 2, 1):
+        top_clear = v < (1 << (32 - s))
+        n = n + top_clear * s
+        v = torch.where(top_clear, v << s, v)
+    return (n + (v == 0)).to(y.dtype)
+
+
+# op name -> elementwise function of (y, c): the harness's 21 ops, a
+# superset of the Pallas kernel's 11 (``microbench_alu._KERNEL_OPS``)
+ALU_OPS = {
+    "add": lambda y, c: y + c,
+    "sub": lambda y, c: y - c,
+    "mul": lambda y, c: y * c,
+    "fma": lambda y, c: y * c + c,
+    "max": lambda y, c: torch.maximum(y, c),
+    "min": lambda y, c: torch.minimum(y, c),
+    "abs": lambda y, c: torch.abs(y) + c * 0,
+    "and": lambda y, c: y & c,
+    "xor": lambda y, c: y ^ c,
+    "popc": lambda y, c: _popc(y) + c * 0,
+    "clz": lambda y, c: _clz(y) + c * 0,
+    "div": lambda y, c: y / c,
+    "rem": lambda y, c: torch.remainder(y, c),
+    "rsqrt": lambda y, c: torch.rsqrt(torch.abs(y) + c * 0 + 1e-6),
+    "sqrt": lambda y, c: torch.sqrt(torch.abs(y)) + c * 0,
+    "exp": lambda y, c: torch.exp(y * 0.001) + c * 0,
+    "log": lambda y, c: torch.log(torch.abs(y) + 1.0) + c * 0,
+    "sin": lambda y, c: torch.sin(y) + c * 0,
+    "tanh": lambda y, c: torch.tanh(y) + c * 0,
+    "sigmoid": lambda y, c: torch.sigmoid(y) + c * 0,
+    "select": lambda y, c: torch.where(y > c, y, c),
+}
+INT_OPS = {"and", "xor", "popc", "clz"}
+FLOAT_ONLY = {"rsqrt", "sqrt", "exp", "log", "sin", "tanh", "sigmoid",
+              "div", "fma"}
+
+
+def alu_legal(op, dtype) -> bool:
+    """Whether the harness runs ``op`` in ``dtype`` (int ops on ints,
+    MUFU-class ops, ``div`` and ``fma`` on floats)."""
+    is_int = not torch.empty((), dtype=dtype).is_floating_point()
+    return not ((is_int and op in FLOAT_ONLY)
+                or (not is_int and op in INT_OPS))
+
+
+def alu_chain_plain(x, c, *, op="fma", length=64, dependent=True):
+    """A ``length``-long chain of one op: threaded through one value
+    (dependent) or over ``x + i`` for each i and kept live by
+    ``out + y * 0`` (independent).  ``c`` is a 0-d tensor of x's dtype."""
+    f = ALU_OPS[op]
+    c = torch.as_tensor(c, dtype=x.dtype, device=x.device)
+    if dependent:
+        y = x
+        for _ in range(length):
+            y = f(y, c)
+        return y
+    out = f(x + 0, c)
+    for i in range(1, length):
+        out = out + f(x + i, c) * 0
+    return out
+
+
+def pointer_chase_plain(nxt, start, hops):
+    """``hops`` dependent loads ``i <- nxt[i]`` from ``start`` -> the
+    final index as a 0-d int32 tensor."""
+    i = torch.as_tensor(start, dtype=torch.long, device=nxt.device)
+    for _ in range(int(hops)):
+        i = nxt[i].long()
+    return i.to(torch.int32)
+
+
+def mxu_probe_plain(a, b, *, chain=1):
+    """Dependent tile-matmul chain: C <- (A @ C) * 0.001 in f32, cast to
+    b's dtype after every step, ``chain`` times."""
+    c = b
+    for _ in range(chain):
+        c = (a.float() @ c.float() * 0.001).to(b.dtype)
+    return c

@@ -11,9 +11,15 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCHS, reduced
-from repro_torch.kernels import ref
+from repro_torch.core.microbench import harness, memory, mxu, tables
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.alu_chain import alu_chain
+from repro_torch.kernels.alu_chain import tolerance as alu_tolerance
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mxu_probe import REL_TOL as MXU_REL_TOL
+from repro_torch.kernels.mxu_probe import mxu_probe
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.pointer_chase import pointer_chase
 from repro_torch.models.convert import params_to
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
@@ -217,3 +223,145 @@ def test_slot_engine_on_card_matches_cpu(dev):
             assert flash_attention.launches - before == (
                 cfg.n_layers * eng.stats.prefills) > 0
     assert out["cuda"] == out["cpu"]
+
+
+# --- the paper's probes ------------------------------------------------------
+
+ALU_CASES = [(op, dt, dep)
+             for dt in (torch.float32, torch.bfloat16, torch.int32)
+             for op in ref.ALU_OPS if ref.alu_legal(op, dt)
+             for dep in (True, False)]
+
+
+def _alu_input(dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        x = rng.integers(-2 ** 31, 2 ** 31, size=(8, 128), dtype=np.int64)
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+    x = (rng.normal(size=(8, 128)) + 2.0).astype(np.float32)
+    return torch.from_numpy(x).to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("length", [12, 1, 37])
+@pytest.mark.parametrize("op,dtype,dependent", ALU_CASES)
+def test_alu_chain_kernel_matches_plain(dev, op, dtype, dependent, length):
+    x = _alu_input(dev, dtype)
+    c = torch.tensor(1.0009765625).to(dtype)
+    before = alu_chain.launches
+    out = alu_chain(x, c, op=op, length=length, dependent=dependent)
+    torch.cuda.synchronize()
+    assert alu_chain.launches == before + 1
+    want = ref.alu_chain_plain(x, c.to(dev), op=op, length=length,
+                               dependent=dependent)
+    torch.testing.assert_close(out.double(), want.double(), equal_nan=True,
+                               **alu_tolerance(op, dtype, length))
+
+
+def test_alu_chain_kernel_writes_its_clock(dev):
+    x = _alu_input(dev, torch.float32)
+    rows = []
+    for k in (16, 256):
+        t = torch.zeros(2, dtype=torch.int64, device=dev)
+        alu_chain(x, 1.0, op="add", length=k, timing=t)
+        rows.append(t.tolist())
+    assert rows[1][0] > rows[0][0] > 0
+    assert rows[1][0] - rows[0][0] >= 240       # >= 1 cycle per dependent op
+
+
+def test_alu_chain_wrapper_refusals(dev):
+    x = _alu_input(dev, torch.float32)
+    with pytest.raises(ValueError):
+        alu_chain(x, 1.0, op="xor")                   # int op on floats
+    with pytest.raises(ValueError):
+        alu_chain(torch.zeros((16, 128), device=dev), 1.0, op="add")
+    with pytest.raises(ValueError):
+        alu_chain(x, 1.0, op="nope")
+    with pytest.raises(TypeError):
+        alu_chain(x.double(), 1.0, op="add")
+
+
+@pytest.mark.parametrize("n", [64, 4096, 1 << 20])
+@pytest.mark.parametrize("space,cache_op", [("shared", "ca"),
+                                            ("global", "ca"),
+                                            ("global", "cg"),
+                                            ("global", "cv")])
+def test_pointer_chase_kernel_matches_plain(dev, n, space, cache_op):
+    if space == "shared" and n == 1 << 20:
+        pytest.skip("4 MiB does not fit a block's shared memory")
+    nxt = torch.from_numpy(memory._random_cycle(n, seed=n)).to(dev)
+    for start, hops in ((0, 257), (n // 3, 1000), (5, 0)):
+        got = pointer_chase(nxt, start, hops=hops, space=space,
+                            cache_op=cache_op)
+        want = ref.pointer_chase_plain(nxt, start, hops)
+        assert got.dtype == torch.int32 and int(got) == int(want)
+
+
+def test_pointer_chase_kernel_any_table_and_refusals(dev):
+    rng = np.random.default_rng(3)
+    nxt = torch.from_numpy(rng.integers(0, 500, 500).astype(np.int32)).to(dev)
+    for space in ("shared", "global"):
+        got = pointer_chase(nxt, 7, hops=300, space=space)
+        assert int(got) == int(ref.pointer_chase_plain(nxt, 7, 300))
+    with pytest.raises(ValueError):
+        pointer_chase(torch.zeros(60000, dtype=torch.int32, device=dev), 0,
+                      space="shared")
+    with pytest.raises(TypeError):
+        pointer_chase(nxt.long(), 0)
+    with pytest.raises(ValueError):
+        pointer_chase(nxt, 500)
+
+
+def _mxu_close(out, want):
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= MXU_REL_TOL * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,chain,block", [
+    (128, 128, 128, 1, None), (128, 128, 128, 4, None),
+    (256, 256, 128, 1, None), (256, 256, 256, 1, None),
+    (512, 128, 512, 1, None), (256, 256, 256, 3, (256, 64)),
+    (128, 128, 256, 2, (128, 32)), (64, 64, 192, 5, (64, 64))])
+def test_mxu_probe_kernel_matches_plain(dev, dtype, m, k, n, chain, block):
+    rng = np.random.default_rng(m + n + chain)
+    a = torch.from_numpy(rng.normal(size=(m, k)) * 0.1).to(dtype).to(dev)
+    b = torch.from_numpy(rng.normal(size=(k, n)) * 0.1).to(dtype).to(dev)
+    before = mxu_probe.launches
+    out = ops.mxu_probe(a, b, chain=chain, block=block)
+    torch.cuda.synchronize()
+    assert mxu_probe.launches == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (m, n)
+    _mxu_close(out, ref.mxu_probe_plain(a, b, chain=chain))
+
+
+def test_mxu_probe_kernel_refusals(dev):
+    a = torch.randn(192, 192, device=dev)
+    with pytest.raises(ValueError, match="must divide the problem"):
+        ops.mxu_probe(a, a, chain=1, block=(128, 128))
+    with pytest.raises(AssertionError, match="square A"):
+        ops.mxu_probe(a[:, :64].contiguous(), a[:64].contiguous(), chain=2)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.mxu_probe(a[:40, :40].contiguous(), a[:40, :40].contiguous(),
+                      chain=1)
+    big = torch.randn(512, 512, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.mxu_probe(big, big, chain=3, block=(512, 128))
+
+
+def test_harness_on_card_reads_cycles(dev):
+    r = harness.run_chain(harness.OPS["fma"], "fma", torch.float32,
+                          lengths=(4, 16, 64), device=dev)
+    assert r.cycles_per_op >= 1 and 0.5e9 < r.clock_hz < 3e9
+    assert r.per_op_s == pytest.approx(r.cycles_per_op / r.clock_hz)
+    c = memory.run_chase(16 * 1024, hop_counts=(64, 256), device=dev)
+    assert c.cycles_per_hop >= 1 and c.clock_hz > 0
+    m = mxu.run_mxu("bfloat16", (128, 128, 128), True, (1, 2), device=dev)
+    assert m.cycles_per_op > 0 and m.tflops > 0
+    with pytest.raises(AssertionError):
+        mxu.run_mxu("bfloat16", (512, 512, 128), True, (1, 2), device=dev)
+
+
+def test_quick_calibration_on_card(dev, tmp_path):
+    table = tables.calibrate(quick=True, results_dir=tmp_path, device=dev)
+    assert table["hardware"] == "gpu" and table["clock_mhz"] > 500
+    assert all(np.isfinite(r["per_op_ns"]) for r in table["ops"].values())

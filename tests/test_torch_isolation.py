@@ -38,8 +38,15 @@ def test_port_imports_without_jax_or_repro():
     names = names.split(",")
     assert len(names) >= 16
     for mod in ("kernels.flash_attention", "kernels.paged_attention",
-                "kernels.ref", "kernels.ops", "models.transformer",
-                "serve.engine", "launch.serve"):
+                "kernels.alu_chain", "kernels.pointer_chase",
+                "kernels.mxu_probe", "kernels.ref", "kernels.ops",
+                "models.transformer", "serve.engine", "launch.serve",
+                "core.microbench.harness", "core.microbench.memory",
+                "core.microbench.mxu", "core.microbench.tables",
+                "core.campaign.spec", "core.campaign.results",
+                "core.campaign.runner", "core.campaign.registry",
+                "core.campaign.report", "core.campaign.cli",
+                "core.campaign.__main__"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 
