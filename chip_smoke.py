@@ -53,8 +53,37 @@ exits non-zero):
    the three ``(512,512,128)`` dependent ``mxu_shapes`` cells that the
    reference fails too, a dependent ALU cell under 1 cycle per op (a folded
    chain), or a 64 MiB chase no slower per hop than a 16 KiB one.
+11. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
+   the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
+   f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
+   f32) with block_h 1 and 2; with times for the kernel, the plain version
+   (once, at the eval shape) and the bound.  In bf16 at most 1% of the
+   outputs may differ from the plain version's at all; beside the checks,
+   controls (w one step late, w rounded to bf16) that they must catch.
+12. ssm_kernel: the selective-scan kernel against its plain version on the
+   sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
+   at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
+   f32; block_d 256 -> 64); with the same times and checks (controls:
+   dt or B one step late, dt rounded to bf16).
+13. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+   weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
+   4 x 4096 tokens, under sync debugging; the loss must be finite and
+   ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
+   (median, least, most).  Then parity_eval: one 1 x 512 forward through
+   the kernel and through its plain version, in f32 and in bf16; logits
+   and loss must agree (``PARITY_*``, ``LOSS_RTOL``; in bf16 also the
+   mean distance to the f32 forward, ``PARITY_BF16_EXCESS``).  Each line
+   holds controls, the plain version with a fault injected (an input one
+   step late; in bf16 also the decay rounded to bf16 and ``u`` left in
+   f32); the gates must catch those ``MUST_CATCH`` names.
+14. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+   tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
+   its parity_eval.
+15. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+   on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
-The line before the last holds every kernel's numbers; the last line is
+A ``timing`` line gives each phase's seconds; the line before the last
+holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
 sources beside this script, it exits non-zero and prints no result.
 """
@@ -62,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -77,6 +107,28 @@ F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 OUT = ROOT / "chiprun_out"
 KERNEL_TOL = dict(atol=1e-2, rtol=1e-2)
 LOGIT_ATOL = 0.1
+# parity of the full-width recurrent forward, kernel vs plain version,
+# each gate run beside faults it must catch (``_faults``, ``MUST_CATCH``).
+# In f32 only the summation order inside the recurrence differs: the
+# strict check, for every fault that is not bf16's own.  In bf16 an
+# output of the recurrence one bf16 ulp apart is carried through every
+# later layer, so the largest of 512 x 65536 logits moves by about a tenth
+# (0.113 on rwkv6): the max gate, a quarter of the logits' scale, catches
+# gross faults only.  The bf16 faults are held by the mean distance to the
+# f32 forward on the same weights: the kernel's may exceed the plain
+# version's by 5% (sound runs: 0.45% and -0.09%; ``w`` staged in bf16:
+# +85%).
+PARITY_BF16_ATOL = 0.25
+LOSS_RTOL = 1e-3
+PARITY_BF16_EXCESS = 1.05
+PARITY_F32_ATOL = 1e-3
+PARITY_F32_LOSS_RTOL = 1e-5
+# the controls each parity gate must catch in every run
+MUST_CATCH = {"rwkv6-1.6b": {"float32": ("k_late", "w_late"),
+                             "bfloat16": ("k_late", "w_bf16")},
+              "hymba-1.5b": {"float32": ("B_late", "dt_late"),
+                             "bfloat16": ()}}
+EVAL_REPS = 5                     # timed eval steps after the checked one
 
 
 def emit(obj) -> None:
@@ -293,8 +345,11 @@ def _wrappers():
     from repro_torch.kernels.mxu_probe import mxu_probe
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.pointer_chase import pointer_chase
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.wkv6 import wkv6
     return {f.__name__: f for f in (paged_attention, flash_attention,
-                                    alu_chain, pointer_chase, mxu_probe)}
+                                    alu_chain, pointer_chase, mxu_probe,
+                                    wkv6, ssm_scan)}
 
 
 def reset_launches():
@@ -732,6 +787,402 @@ def phase_calibration(torch, dev, card):
     return counts
 
 
+def timed_once(torch, fn):
+    """One call of ``fn`` between a CUDA event pair: (result, ms)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+NO_LIBRARY = ("no PyTorch call computes the recurrence in one call "
+              "(it is a serial scan, not a product or an attention)")
+# recurrence kernel vs plain version, relative to the output's scale: f32
+# differs in summation order only; bf16 outputs by up to one bf16 ulp
+REC_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# ... and in bf16 at most this share of outputs not bit-equal to the plain
+# version's: 0.016% (wkv6) and 0.013% (ssm_scan) at the eval shapes, where
+# the f32 decay staged in bf16 reads 49% and 41% and stays inside REC_TOL
+REC_MISMATCH_BF16 = 0.01
+
+
+def _check_close(torch, out, want):
+    """|out - want| <= tol * (|want| + max|want|), tol by out's dtype, and
+    in bf16 at most ``REC_MISMATCH_BF16`` of the outputs not bit-equal;
+    returns the largest absolute error."""
+    tol = REC_TOL[str(out.dtype).split(".")[-1]]
+    if out.dtype == torch.bfloat16:
+        share = _mismatch(torch, out, want)
+        if share > REC_MISMATCH_BF16:
+            raise AssertionError(f"{share:.2%} of bf16 outputs differ from "
+                                 f"the plain version's")
+    out, want = out.float(), want.float()
+    torch.testing.assert_close(out, want, rtol=tol,
+                               atol=tol * want.abs().max().item())
+    return (out - want).abs().max().item()
+
+
+def _mismatch(torch, out, want):
+    """The share of outputs not bit-equal to the plain version's."""
+    return (out != want).float().mean().item()
+
+
+def _late(torch, t):
+    """``t`` [B, S, ...] read one step late: step s sees step s-1's."""
+    return torch.cat([t[:, :1], t[:, :-1]], dim=1)
+
+
+def _bf16(torch, t):
+    return t.to(torch.bfloat16).float()
+
+
+def _kernel_controls(torch, want, faults):
+    """The kernel phase's checks beside faults (bf16 ``want``): each
+    fault's output (the plain version with one input changed) against
+    ``want``, as the largest |out - want| / (tol (|want| + max|want|)) and
+    the share of outputs not bit-equal.  Every fault must be caught."""
+    tol = REC_TOL["bfloat16"]
+    scale = tol * (want.float().abs() + want.float().abs().max())
+    out = {}
+    for name, fn in faults.items():
+        got = fn()
+        ratio = ((got.float() - want.float()).abs() / scale).max().item()
+        share = _mismatch(torch, got, want)
+        out[name] = {"tol_ratio": ratio, "mismatch": share,
+                     "caught": ratio > 1 or share > REC_MISMATCH_BF16}
+    missed = [n for n, c in out.items() if not c["caught"]]
+    if missed:
+        raise AssertionError(f"kernel checks miss {missed}: {out}")
+    return out
+
+
+def phase_wkv6_kernel(torch, dev, seed):
+    """The wkv6 kernel against its plain version: the sweep's shapes in
+    f32 and the eval shape in bf16; times at the eval shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.wkv6 import wkv6
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs(B, S, H, N, dtype):
+        r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev)
+                   .mul(0.3).to(dtype) for _ in range(3))
+        w = torch.rand((B, S, H, N), generator=g, device=dev) * 0.299 + 0.7
+        u = torch.randn((H, N), generator=g, device=dev).mul(0.3).to(dtype)
+        return r, k, v, w, u
+
+    max_err = 0.0
+    for H, N in ((2, 32), (4, 64)):
+        args = inputs(2, 24, H, N, torch.float32)
+        out = wkv6(*args)
+        torch.cuda.synchronize()
+        err = _check_close(torch, out, ref.wkv6_plain(*args))
+        max_err = max(max_err, err)
+        emit({"phase": "wkv6_kernel", "B": 2, "S": 24, "H": H, "N": N,
+              "dtype": "float32", "max_abs_err": err})
+    B, S, H, N = 4, 4096, 32, 64
+    args = inputs(B, S, H, N, torch.bfloat16)
+    want, plain_ms = timed_once(torch, lambda: ref.wkv6_plain(*args))
+    r, k, v, w, u = args
+    controls = _kernel_controls(torch, want, {
+        "w_late": lambda: ref.wkv6_plain(r, k, v, _late(torch, w), u),
+        "w_bf16": lambda: ref.wkv6_plain(r, k, v, _bf16(torch, w), u)})
+    case = None
+    for block_h in (1, 2):
+        out = ops.wkv6(*args, block_h=block_h)
+        torch.cuda.synchronize()
+        err = _check_close(torch, out, want)
+        max_err = max(max_err, err)
+        mismatch = _mismatch(torch, out, want)
+        ms = gpu_ms(torch, lambda: ops.wkv6(*args, block_h=block_h), 10)
+        n = B * S * H * N
+        nbytes = n * (3 * 2 + 4 + 2) + H * N * 2
+        # what the recurrence needs per (row, step, head): r.S 2N^2,
+        # S <- w S + k v^T 3N^2 (product, FMA), r.(u*k) 3N and v*that 2N
+        bound, bound_by = _bound(nbytes, (5 * N * N + 5 * N) * B * S * H,
+                                 F32_OPS_PER_S)
+        c = {"B": B, "S": S, "H": H, "N": N, "dtype": "bfloat16",
+             "block_h": block_h, "max_abs_err": err, "mismatch": mismatch,
+             "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+             "library_ms": None, "library": NO_LIBRARY,
+             "max_abs_out": want.float().abs().max().item(),
+             "controls": controls}
+        emit({"phase": "wkv6_kernel", **c})
+        case = case or c
+    return case, max_err
+
+
+def phase_ssm_kernel(torch, dev, seed):
+    """The ssm_scan kernel against its plain version: the sweep's shapes
+    in f32 and bf16 and the eval shape in bf16; times at the eval
+    shape."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs(Bt, S, Di, N, dtype, std=0.2, model_a=False):
+        x = torch.randn((Bt, S, Di), generator=g, device=dev).mul(std)
+        dt = torch.rand((Bt, S, Di), generator=g, device=dev) * 0.099 + 0.001
+        B, C = (torch.randn((Bt, S, N), generator=g, device=dev).mul(std)
+                .to(dtype) for _ in range(2))
+        if model_a:                      # -exp(a_log) of init_mamba
+            A = -torch.arange(1, N + 1, dtype=torch.float32,
+                              device=dev).repeat(Di, 1)
+        else:
+            A = -torch.randn((Di, N), generator=g, device=dev).abs()
+        return x.to(dtype), dt, B, C, A
+
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for Di, N, block in ((256, 8, 128), (512, 16, 256)):
+            args = inputs(2, 32, Di, N, dtype)
+            out = ops.ssm_scan(*args, block_d=block)
+            torch.cuda.synchronize()
+            err = _check_close(torch, out, ref.ssm_scan_plain(*args))
+            max_err = max(max_err, err)
+            emit({"phase": "ssm_kernel", "Bt": 2, "S": 32, "Di": Di, "N": N,
+                  "block_d": block, "dtype": str(dtype).split(".")[-1],
+                  "max_abs_err": err})
+    Bt, S, Di, N = 4, 4224, 1600, 16
+    # inputs of unit scale, so y is too (the model's x, B, C are)
+    args = inputs(Bt, S, Di, N, torch.bfloat16, std=1.0, model_a=True)
+    want, plain_ms = timed_once(torch, lambda: ref.ssm_scan_plain(*args))
+    x, dt, Bm, Cm, A = args
+    controls = _kernel_controls(torch, want, {
+        "dt_late": lambda: ref.ssm_scan_plain(x, _late(torch, dt), Bm, Cm, A),
+        "B_late": lambda: ref.ssm_scan_plain(x, dt, _late(torch, Bm), Cm, A),
+        "dt_bf16": lambda: ref.ssm_scan_plain(x, _bf16(torch, dt), Bm, Cm,
+                                              A)})
+    out = ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    err = _check_close(torch, out, want)
+    max_err = max(max_err, err)
+    mismatch = _mismatch(torch, out, want)
+    ms = gpu_ms(torch, lambda: ops.ssm_scan(*args), 10)
+    n = Bt * S * Di
+    nbytes = n * (2 + 4 + 2) + 2 * Bt * S * N * 2 + Di * N * 4
+    bound, bound_by = _bound(nbytes, n * (7 * N + 1), F32_OPS_PER_S)
+    case = {"Bt": Bt, "S": S, "Di": Di, "N": N, "dtype": "bfloat16",
+            "block_d": ops.divisor_clamp(256, Di), "max_abs_err": err,
+            "mismatch": mismatch,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None, "library": NO_LIBRARY,
+            "max_abs_out": want.float().abs().max().item(),
+            "controls": controls}
+    emit({"phase": "ssm_kernel", **case})
+    return case, max_err
+
+
+def phase_eval(torch, dev, seed, arch, kernel):
+    """Full-width ``arch`` through ``make_eval_step`` on one 4 x 4096
+    ``SyntheticLM`` batch (the train_4k cell's per-shard microbatch),
+    under sync debugging, with the launch counts zeroed just before; then
+    the kernel-vs-plain parity of one 1 x 512 forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.step import make_eval_step
+
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows, seq = cfg.microbatch, 4096
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, rows, seed=seed))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(0).items()}
+    step = make_eval_step(model)
+    step(params, batch)                      # warm-up: library handles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(params, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # the step's time: EVAL_REPS more steps, each between a CUDA event
+    # pair and synchronised (host time included: the events wait for it)
+    times = []
+    for _ in range(EVAL_REPS):
+        _, ms = timed_once(torch, lambda: step(params, batch))
+        times.append(ms)
+    step_ms = statistics.median(times)
+    loss = out["loss"].item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"{arch}: eval loss {loss}")
+    if counts[kernel] != cfg.n_layers:
+        raise AssertionError(f"{arch}: {counts[kernel]} {kernel} launches in "
+                             f"one step != {cfg.n_layers} layers")
+    emit({"phase": f"eval_{arch.split('-')[0]}", "arch": arch,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "rows": rows,
+          "seq": seq, "positions": seq + cfg.meta_tokens, "loss": loss,
+          "ln_vocab": math.log(cfg.vocab_size), "kernel_launches": counts,
+          "init_s": init_s, "step_ms": step_ms, "step_ms_min": min(times),
+          "step_ms_max": max(times), "step_reps": EVAL_REPS,
+          "eval_tok_per_s": 1e3 * rows * seq / step_ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    toks, labels = (batch[k][:1, :512].contiguous()
+                    for k in ("tokens", "labels"))
+    faults = _faults(torch, arch, params)
+    c32 = cfg.replace(compute_dtype="float32")
+    p32 = params_to(params, dtype=torch.float32)
+    k32 = _forward(torch, c32, p32, toks, labels, {})
+    r = _compare(torch, k32, _forward(torch, c32, p32, toks, labels,
+                                      _plain_fns()))
+    gates = (PARITY_F32_ATOL, PARITY_F32_LOSS_RTOL, None)
+    controls = {name: _compare(torch, k32, _forward(torch, c32, p32, toks,
+                                                    labels, fns))
+                for name, fns in faults.items() if name.endswith("_late")}
+    _parity_gates(arch, "float32", r, controls, gates)
+    del p32
+    # bf16, each forward also against the f32 one on the same weights
+    kern = _forward(torch, cfg, params, toks, labels, {})
+    r = _compare(torch, kern, _forward(torch, cfg, params, toks, labels,
+                                       _plain_fns()), k32)
+    gates = (PARITY_BF16_ATOL, LOSS_RTOL, PARITY_BF16_EXCESS)
+    controls = {name: _compare(torch, kern, _forward(torch, cfg, params,
+                                                     toks, labels, fns), k32)
+                for name, fns in faults.items()}
+    _parity_gates(arch, "bfloat16", r, controls, gates)
+    del kern, k32, model, params, batch
+    torch.cuda.empty_cache()
+    return counts[kernel]
+
+
+def _plain_fns():
+    from repro_torch.kernels import ref
+    return {"wkv_fn": ref.wkv6_plain, "ssm_fn": ref.ssm_scan_plain}
+
+
+def _faults(torch, arch, params):
+    """Faulty recurrences for the parity controls, as ``lm_apply``
+    keyword arguments: an input read one step late (a staging index off
+    by one), the f32 decay rounded to bf16 (staged in the compute dtype)
+    and, for rwkv6, ``u`` not rounded to r's dtype (the scan path's)."""
+    from repro_torch.kernels import ref
+
+    def late(t):
+        return _late(torch, t)
+
+    def bf16(t):
+        return _bf16(torch, t)
+
+    if arch.startswith("rwkv6"):
+        f = ref.wkv6_plain
+        u32 = iter([lp["tmix"]["u_bonus"].float() for lp in params["layers"]])
+        return {"k_late": {"wkv_fn": lambda r, k, v, w, u:
+                           f(r, late(k), v, w, u)},
+                "w_late": {"wkv_fn": lambda r, k, v, w, u:
+                           f(r, k, v, late(w), u)},
+                "w_bf16": {"wkv_fn": lambda r, k, v, w, u:
+                           f(r, k, v, bf16(w), u)},
+                "u_f32": {"wkv_fn": lambda r, k, v, w, u:
+                          f(r, k, v, w, next(u32))}}
+    f = ref.ssm_scan_plain
+    return {"B_late": {"ssm_fn": lambda x, dt, B, C, A:
+                       f(x, dt, late(B), C, A)},
+            "dt_late": {"ssm_fn": lambda x, dt, B, C, A:
+                        f(x, late(dt), B, C, A)},
+            "dt_bf16": {"ssm_fn": lambda x, dt, B, C, A:
+                        f(x, bf16(dt), B, C, A)}}
+
+
+def _forward(torch, cfg, params, toks, labels, fns):
+    """One train-mode forward: (logits over the vocabulary, loss)."""
+    from repro_torch.models import transformer as lm_mod
+    from repro_torch.models.zoo import cross_entropy
+
+    with torch.no_grad():
+        logits, _ = lm_mod.lm_apply(params, cfg, tokens=toks, mode="train",
+                                    **fns)
+    return logits[..., :cfg.vocab_size], cross_entropy(logits, labels).item()
+
+
+def _compare(torch, kern, other, truth=None):
+    """The kernels' forward against another on the same weights and
+    tokens; with ``truth`` (an f32 forward) each also against that."""
+    (lk, loss_k), (lp, loss_p) = kern, other
+    vs = {}
+    if truth is not None:
+        for name, lx in (("kernel", lk), ("other", lp)):
+            d = (lx.float() - truth[0]).abs()
+            vs[f"{name}_vs_f32_max"] = d.max().item()
+            vs[f"{name}_vs_f32_mean"] = d.mean().item()
+    return {**vs, "finite": bool(torch.isfinite(lk).all().item()),
+            "logit_max_abs_diff": (lk - lp).abs().max().item(),
+            "logit_mean_abs_diff": (lk - lp).abs().mean().item(),
+            "logit_max_abs": lp.abs().max().item(),
+            "logit_std": lp.std().item(),
+            "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p)}
+
+
+def _parity_gates(arch, dtype, r, controls, gates):
+    """Emit the parity line; fail if the kernels' forward is past a gate
+    or a control in ``MUST_CATCH`` is not.  ``excess`` compares the mean
+    distance to the f32 forward with the sound plain version's: the
+    kernel's, or the faulty version's for a control."""
+    atol, rtol, excess = gates
+    base = r.get("other_vs_f32_mean")
+
+    def caught(c, mean_vs_f32):
+        c["excess"] = mean_vs_f32 / base if excess else None
+        return (not c["finite"] or c["logit_max_abs_diff"] > atol
+                or c["loss_rel_diff"] > rtol
+                or (excess is not None and c["excess"] > excess))
+
+    bad = caught(r, r.get("kernel_vs_f32_mean"))
+    for c in controls.values():
+        c["caught"] = caught(c, c.get("other_vs_f32_mean"))
+    emit({"phase": "parity_eval", "arch": arch, "dtype": dtype,
+          "tokens": 512, **r, "logit_atol": atol, "loss_rtol": rtol,
+          "excess_gate": excess, "controls": controls})
+    missed = [n for n in MUST_CATCH[arch][dtype] if not controls[n]["caught"]]
+    if bad or missed:
+        raise AssertionError(f"{arch} {dtype}: kernel vs plain {r}, gates "
+                             f"{gates}; controls not caught: {missed}")
+
+
+def phase_reference_eval(torch, np, seed):
+    """Reduced f32 rwkv6 and hymba: the eval loss on the card (kernels)
+    and on the CPU (plain versions) must agree to 1e-5 relative."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.step import make_eval_step
+
+    out = {}
+    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
+        cfg = reduced(get_config(arch), compute_dtype="float32")
+        batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 2,
+                                       seed=seed)).batch(0)
+        cpu_params = build_model(cfg, device="cpu").init(seed)
+        loss = {d: make_eval_step(build_model(cfg, device=d))(
+            params_to(cpu_params, d), batch)["loss"].item()
+            for d in ("cuda", "cpu")}
+        rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        if not rel <= 1e-5:
+            raise AssertionError(f"{arch}: card loss {loss['cuda']} vs CPU "
+                                 f"{loss['cpu']}")
+        out[arch] = {"loss_cuda": loss["cuda"], "loss_cpu": loss["cpu"],
+                     "rel_diff": rel}
+    emit({"phase": "reference_eval", "tokens": 64, "rows": 2, **out})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -757,18 +1208,47 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    seconds, t0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        t = time.perf_counter()
+        seconds[name] = t - t0[0]
+        t0[0] = t
+
     card = phase_card(torch)
+    lap("card")
     cases, max_err = phase_kernel(torch, np, dev, args.seed)
+    lap("kernel")
     fa_cases, fa_err = phase_flash_kernel(torch, dev, args.seed)
+    lap("flash_kernel")
     model, params, prompts, launches = phase_serve(torch, np, dev, args.seed)
+    lap("serve")
     fa_launches = phase_serve_slot(torch, model, params, prompts)
+    lap("serve_slot")
     phase_parity(torch, np, model, params, args.seed)
     phase_parity_slot(torch, np, model, params, args.seed)
     del model, params
     torch.cuda.empty_cache()
+    lap("parity")
     phase_reference(torch, np, args.seed)
+    lap("reference")
     probes, probe_err = phase_probes(torch, np, dev, args.seed)
+    lap("probes")
     cal_counts = phase_calibration(torch, dev, card)
+    lap("calibration")
+    wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
+    lap("wkv6_kernel")
+    ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)
+    lap("ssm_kernel")
+    wkv_launches = phase_eval(torch, dev, args.seed, "rwkv6-1.6b", "wkv6")
+    lap("eval_rwkv6")
+    ssm_launches = phase_eval(torch, dev, args.seed, "hymba-1.5b",
+                              "ssm_scan")
+    lap("eval_hymba")
+    phase_reference_eval(torch, np, args.seed)
+    lap("reference_eval")
+    emit({"phase": "timing", "seconds": seconds,
+          "total_s": sum(seconds.values())})
 
     # the kernel line: the serving shapes with neither window nor softcap
     # and one split, the one case where SDPA computes the same function
@@ -799,7 +1279,16 @@ def main(argv=None) -> int:
         for name, replaces in (
             ("alu_chain", "src/repro/kernels/microbench_alu.py:51"),
             ("pointer_chase", "src/repro/kernels/microbench_chase.py:28"),
-            ("mxu_probe", "src/repro/kernels/mxu_probe.py:26"))]})
+            ("mxu_probe", "src/repro/kernels/mxu_probe.py:26"))] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": replaces, "launches": launches, "max_abs_err": err,
+         **{k: case[k] for k in keys}}
+        for name, replaces, launches, err, case in (
+            ("wkv6", "src/repro/kernels/wkv6.py:46", wkv_launches, wkv_err,
+             wkv_case),
+            ("ssm_scan", "src/repro/kernels/ssm_scan.py:39", ssm_launches,
+             ssm_err, ssm_case))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

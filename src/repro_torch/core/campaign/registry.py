@@ -15,7 +15,8 @@ experiments, with the same grids, quick grids, constraint and cell keys
 
 Cell runners take ``(params, quick=..., device=...)`` and return a flat-ish
 metrics dict: the reference's metrics, plus on the card the in-kernel
-cycles and the SM clock the probe kernel measured.  The scheduler in
+cycles and the SM clock the probe kernel measured.  ``device=None`` is the
+card (``resolve_device``), as at every entry point of the port.  The scheduler in
 ``runner.py`` owns ordering, persistence and resume.
 """
 from __future__ import annotations
@@ -24,13 +25,15 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.campaign.spec import Experiment
 from repro_torch.kernels.ref import ALU_OPS, alu_legal
 
 
 def run_alu_cell(params: Dict[str, Any], quick: bool = False,
-                 device="cpu") -> Dict[str, Any]:
+                 device=None) -> Dict[str, Any]:
     from repro_torch.core.microbench import harness
+    device = resolve_device(device)
 
     lengths = (4, 16, 64) if quick else (4, 16, 64, 256)
     r = harness.run_chain(harness.OPS[params["op"]], params["op"],
@@ -51,8 +54,9 @@ def run_alu_cell(params: Dict[str, Any], quick: bool = False,
 
 
 def run_chase_cell(params: Dict[str, Any], quick: bool = False,
-                   device="cpu") -> Dict[str, Any]:
+                   device=None) -> Dict[str, Any]:
     from repro_torch.core.microbench import memory
+    device = resolve_device(device)
 
     size_bytes = params["size_kib"] * 1024
     if params.get("access", "chase") == "stream":
@@ -74,8 +78,9 @@ def run_chase_cell(params: Dict[str, Any], quick: bool = False,
 
 
 def run_mxu_cell(params: Dict[str, Any], quick: bool = False,
-                 device="cpu") -> Dict[str, Any]:
+                 device=None) -> Dict[str, Any]:
     from repro_torch.core.microbench import mxu
+    device = resolve_device(device)
 
     lengths = (1, 2, 4) if quick else (1, 2, 4, 8)
     # no s8 product in the probe: int8 cells measure the bf16 path and
@@ -101,8 +106,9 @@ def run_mxu_cell(params: Dict[str, Any], quick: bool = False,
 
 
 def run_roofline_cal_cell(params: Dict[str, Any], quick: bool = False,
-                          device="cpu") -> Dict[str, Any]:
+                          device=None) -> Dict[str, Any]:
     """Measure one achieved-peak term of the roofline on this device."""
+    device = resolve_device(device)
     term = params["term"]
     if term == "mxu_peak_tflops":
         from repro_torch.core.microbench import mxu

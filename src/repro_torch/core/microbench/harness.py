@@ -44,7 +44,13 @@ def time_fn(fn, *args, iters: int = 30, warmup: int = 5,
             device="cpu") -> float:
     """Median time of fn(*args) in seconds: CUDA events around each call on
     a CUDA device (synchronised after each, so a call's dispatch counts),
-    ``perf_counter`` on the CPU."""
+    ``perf_counter`` on the CPU.
+
+    The timer of the plain versions: the CPU branches of ``run_chain``,
+    ``memory.run_chase`` and ``mxu.run_mxu`` call it without a device, so
+    its default stays ``"cpu"`` (the probe kernels on the card go through
+    ``time_kernel``).  ``memory.streaming_bandwidth`` is its one caller on
+    the card, and passes its device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         for _ in range(warmup):

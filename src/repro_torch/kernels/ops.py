@@ -3,8 +3,9 @@
 Resolution order, as in ``repro.kernels.ops``: explicit argument >
 ``config=`` mapping > default.  The tuned-cache lookup of the JAX package
 waits for the port's autotune slice.  Defaults are the port's own copy of
-``repro.core.autotune.space``'s ``flash_attention``, ``paged_attention``
-and ``mxu_probe`` entries, and of its ``divisor_clamp``.
+``repro.core.autotune.space``'s ``flash_attention``, ``paged_attention``,
+``ssm_scan``, ``wkv6`` and ``mxu_probe`` entries, and of its
+``divisor_clamp``.
 """
 from __future__ import annotations
 
@@ -15,10 +16,14 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mxu_probe as _mxu
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import pointer_chase as _chase
+from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels import wkv6 as _wkv
 
 KERNEL_DEFAULTS = {
     "flash_attention": {"block_q": 128, "block_k": 128, "acc_dtype": "f32"},
     "paged_attention": {"block_size": 16, "num_splits": 1},
+    "ssm_scan": {"block_d": 256},
+    "wkv6": {"block_h": 1},
     "mxu_probe": {"block_m": 128, "block_n": 128},
 }
 
@@ -73,6 +78,26 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     return _pa.paged_attention(q, k_pages, v_pages, block_tables,
                                context_lens, scale=scale, window=window,
                                softcap=softcap, num_splits=splits)
+
+
+def ssm_scan(x, dt, B, C, A, block_d=None, config=None):
+    """The selective scan (``kernels.ssm_scan``) with ``block_d`` resolved
+    explicit > ``config=`` > default 256, then clamped to a divisor of
+    d_inner as the Pallas kernel clamps it (256 -> 64 at d_inner 1600)."""
+    c = resolve_kernel_config("ssm_scan", config=config,
+                              explicit={"block_d": block_d})
+    bd = divisor_clamp(int(c["block_d"]), x.shape[2])
+    return _ssm.ssm_scan(x, dt, B, C, A, block_d=bd)
+
+
+def wkv6(r, k, v, w, u, block_h=None, config=None):
+    """The RWKV6 recurrence (``kernels.wkv6``) with ``block_h`` resolved
+    explicit > ``config=`` > default 1, then clamped to a divisor of the
+    head count as the Pallas kernel clamps it."""
+    c = resolve_kernel_config("wkv6", config=config,
+                              explicit={"block_h": block_h})
+    bh = divisor_clamp(int(c["block_h"]), r.shape[2])
+    return _wkv.wkv6(r, k, v, w, u, block_h=bh)
 
 
 def alu_chain(x, c, op="fma", length=64, dependent=True, timing=None):

@@ -8,6 +8,9 @@ CPU.
   ``repro.kernels.ref.flash_attention_ref``) and ``flash_attention_plain``
   (the blocked online softmax of ``repro.kernels.flash_attention``, with
   its rounding points);
+* the recurrences: ``wkv6_plain`` and ``ssm_scan_plain`` (ports of
+  ``repro.kernels.ref``'s scans, with the dtypes of the Pallas kernels
+  ``repro.kernels.wkv6`` and ``repro.kernels.ssm_scan``);
 * the paper's probes: ``alu_chain_plain`` over the 21-op table ``ALU_OPS``
   (a port of ``repro.core.microbench.harness.OPS``, with jnp's semantics:
   ``%`` is a floor-mod, ``popc``/``clz`` count the int32 bit pattern),
@@ -220,6 +223,55 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
             acc.float() / torch.clamp(l.float(), min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq + pad_q, H, D)
     return out[:, :Sq].to(q.dtype)
+
+
+# --- the recurrences -------------------------------------------------------
+
+def wkv6_plain(r, k, v, w, u, *, block_h=1):
+    """RWKV6, a port of ``repro.kernels.ref.wkv6_ref`` with the Pallas
+    kernel's dtypes.  r,k,v,w [B,S,H,N]; u [H,N] -> y [B,S,H,N]: an f32
+    state [B,H,N,N], every input read in f32 (the model rounds ``u`` to
+    r's dtype before the call, as the Pallas path does; an f32 ``u``, as
+    on the reference's scan path, is used as it is); y in r's dtype.
+
+      y_t = r_t . (S + diag(u) k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T
+
+    ``block_h`` heads share a block in the kernel; heads are independent,
+    so the blocking changes no value and this runs all heads at once."""
+    del block_h
+    B, S, H, N = r.shape
+    rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, w, u))
+    s = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    y = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]       # [B,H,N,N]
+        y[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t],
+                               s + uf[..., None] * kv)
+        s = wf[:, t, :, :, None] * s + kv
+    return y.to(r.dtype)
+
+
+def ssm_scan_plain(x, dt, B, C, A, *, block_d=256):
+    """Selective scan, a port of ``repro.kernels.ref.ssm_scan_ref`` with
+    the Pallas kernel's dtypes.  x,dt [Bt,S,Di]; B,C [Bt,S,N]; A [Di,N] ->
+    y [Bt,S,Di] in x's dtype: an f32 state h [Bt,Di,N], every input read
+    in f32.
+
+      h_t = exp(dt_t A) h + (dt_t x_t) B_t;   y_t = h_t . C_t
+
+    Channels are independent, so the kernel's ``block_d`` tiling changes
+    no value."""
+    del block_d
+    Bt, S, Di = x.shape
+    xf, dtf, bf, cf, Af = (t.float() for t in (x, dt, B, C, A))
+    h = torch.zeros((Bt, Di, Af.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    y = torch.empty((Bt, S, Di), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        dA = torch.exp(dtf[:, t, :, None] * Af)
+        h = dA * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t])
+    return y.to(x.dtype)
 
 
 # --- the paper's probes ----------------------------------------------------

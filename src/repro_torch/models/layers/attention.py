@@ -1,10 +1,14 @@
 """GQA attention, ported from ``repro.models.layers.attention``: the
-uncached prefill, the dense slot cache and the paged KV pool.
+uncached prefill (and hymba's train-mode forward), the dense slot cache
+and the paged KV pool.
 
 * **Uncached prefill** (``cache=None``): project, rope Q and K, and attend
   through ``kernels.ops.flash_attention`` (the CUDA kernel on the card,
   its plain version on the CPU), causal, with the layer's window and the
   attention softcap.  Returns rope'd K and raw V as the layer's cache.
+  With meta tokens (hymba) it runs the plain query-chunked ``attend``
+  instead, the tokens attendable from every query (sinks), as the
+  reference does.
 * **Dense slot cache** (``cache={'k','v': [B, Smax, KH, hd]}``): write the
   new K/V at ``write_pos`` in place, clamped as ``dynamic_update_slice``
   clamps, then the plain masked ``attend``; the JAX package runs no kernel
@@ -25,6 +29,7 @@ computes.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.basic import apply_rope, rmsnorm, rope_tables
@@ -32,28 +37,67 @@ from repro_torch.models.layers.basic import apply_rope, rmsnorm, rope_tables
 NEG_INF = -2.0e38
 
 
-def _mask(qpos, kpos, *, window):
+def _mask(qpos, kpos, *, window, n_sink=0):
     """qpos [B,Sq], kpos [B,Skv] -> bool [B,Sq,Skv] (True = attendable):
-    causal, inside ``window`` when set, and ``kpos >= 0`` (-1 marks an
-    unwritten or unbacked slot)."""
+    causal, inside ``window`` when set (the first ``n_sink`` positions,
+    hymba's meta tokens, stay attendable outside it), and ``kpos >= 0``
+    (-1 marks an unwritten or unbacked slot)."""
     q = qpos[:, :, None]
     k = kpos[:, None, :]
     m = (k <= q) & (k >= 0)
     if window is not None:
-        m &= (q - k) < window
+        inside = (q - k) < window
+        if n_sink:
+            inside |= k < n_sink
+        m &= inside
     return m
 
 
-def attend(q, k, v, qpos, kpos, *, scale, window=None, cap=None):
-    """Masked attention.  q [B,Sq,H,D]; k,v [B,Skv,KH,D] -> [B,Sq,H,D]."""
+def _pick_chunk(sq: int, chunk: int):
+    """(chunk used, padded length): an exact divisor of ``sq`` in
+    ``[chunk/2, chunk]`` where there is one, else ``chunk`` with ``sq``
+    padded up to a multiple of it (``repro``'s ``_pick_chunk``)."""
+    if sq % chunk == 0:
+        return chunk, sq
+    for c in range(chunk, chunk // 2 - 1, -1):
+        if sq % c == 0:
+            return c, sq
+    return chunk, -(-sq // chunk) * chunk
+
+
+def attend(q, k, v, qpos, kpos, *, scale, window=None, n_sink=0, cap=None,
+           chunk=None):
+    """Masked attention.  q [B,Sq,H,D]; k,v [B,Skv,KH,D] -> [B,Sq,H,D].
+
+    With ``chunk`` the queries run in chunks of about that many rows, as
+    the reference's query-chunked ``attend`` runs them, so the f32 scores
+    are [chunk, Skv] at a time; padded query rows sit at position -2^30,
+    attend nowhere and are sliced off."""
     H, KH = q.shape[2], k.shape[2]
     if KH != H:                       # GQA: broadcast kv heads over groups
         k = torch.repeat_interleave(k, H // KH, dim=2)
         v = torch.repeat_interleave(v, H // KH, dim=2)
+    Sq = q.shape[1]
+    if chunk is None or Sq <= chunk:
+        return _attend_chunk(q, k, v, qpos, kpos, scale=scale, window=window,
+                             n_sink=n_sink, cap=cap)
+    c, padded = _pick_chunk(Sq, chunk)
+    if padded != Sq:
+        q = F.pad(q, (0, 0, 0, 0, 0, padded - Sq))
+        qpos = F.pad(qpos, (0, padded - Sq), value=-(2 ** 30))
+    out = torch.cat([
+        _attend_chunk(q[:, i:i + c], k, v, qpos[:, i:i + c], kpos,
+                      scale=scale, window=window, n_sink=n_sink, cap=cap)
+        for i in range(0, padded, c)], dim=1)
+    return out[:, :Sq]
+
+
+def _attend_chunk(q, k, v, qpos, kpos, *, scale, window, n_sink, cap):
+    """One chunk of queries over all keys, k and v already [B,Skv,H,D]."""
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if cap is not None:
         s = cap * torch.tanh(s / cap)
-    m = _mask(qpos, kpos, window=window)
+    m = _mask(qpos, kpos, window=window, n_sink=n_sink)
     s = torch.where(m[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
@@ -135,7 +179,7 @@ def dense_write(cache_k, cache_v, k_new, v_new, write_pos):
 
 def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
               write_pos=None, block_tables=None, paged_fn=None,
-              flash_fn=None):
+              flash_fn=None, pre_output=False):
     """One attention layer.
 
     x             [B,Sq,D] layer input (post-norm)
@@ -152,6 +196,8 @@ def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
     flash_fn      the prefill attention (default
                   ``kernels.ops.flash_attention``); a check can pass either
                   plain version to compare a kernel inside the model
+    pre_output    return the heads' outputs [B,Sq,H*hd] before ``wo``
+                  (hymba fuses them with its SSM path first)
     Returns (out [B,Sq,D], new_kv): the prefill's {'k': rope'd K,
     'v': V} [B,Sq,KH,hd], None for the cached paths.
     """
@@ -168,7 +214,12 @@ def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
     k_new = apply_rope(k_new, sin, cos)
 
     new_kv = None
-    if cache is None:
+    if cache is None and cfg.meta_tokens:
+        out_h = attend(q, k_new, v_new, positions, positions, scale=scale,
+                       window=window, n_sink=cfg.meta_tokens,
+                       cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+        new_kv = {"k": k_new, "v": v_new}
+    elif cache is None:
         fn = flash_fn or kops.flash_attention
         out_h = fn(q.contiguous(), k_new.contiguous(), v_new.contiguous(),
                    causal=True, window=window, softcap=cfg.attn_softcap,
@@ -201,6 +252,8 @@ def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
             out_h = attend(q, k.to(cdt), v.to(cdt), positions, kpos,
                            scale=scale, window=window, cap=cfg.attn_softcap)
     out_h = out_h.reshape(B, Sq, cfg.n_heads * hd)
+    if pre_output:
+        return out_h, new_kv
     out = torch.matmul(out_h, p["wo"].to(cdt).reshape(cfg.n_heads * hd, -1))
     return out, new_kv
 

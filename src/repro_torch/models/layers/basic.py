@@ -4,8 +4,9 @@ functions on tensors, ported from ``repro.models.layers.basic``.
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts, so ``models.convert.params_from_jax`` maps one onto the other.
 Matrices are held in the compute dtype (JAX casts them at every use; the
-port casts once); norm scales stay f32 because JAX computes ``1 + scale``
-in f32.
+port casts once); norm scales and biases stay f32 because JAX computes
+the norms in f32.  ``uniform``/``normal`` draw the seeded on-device
+initialisation from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,48 @@ def rmsnorm(p, x, eps=1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + p["scale"])).to(dt)
+
+
+def layernorm(p, x, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
+def groupnorm_heads(p, x, n_heads, eps=1e-5):
+    """Per-head group norm of the RWKV wkv output.  x [..., H*hd]."""
+    dt = x.dtype
+    shp = x.shape
+    x = x.reshape(shp[:-1] + (n_heads, shp[-1] // n_heads)).float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = ((x - mu) * torch.rsqrt(var + eps)).reshape(shp)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
+def init_rmsnorm(d, device):
+    return {"scale": torch.zeros(d, device=device)}
+
+
+def init_layernorm(d, device):
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def uniform(gen, shape, lim, device, dtype=torch.float32):
+    """U(-lim, lim) drawn in f32 from ``gen`` (``jax.random.uniform``'s
+    law), then stored in ``dtype``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return t.uniform_(-lim, lim, generator=gen).to(dtype)
+
+
+def normal(gen, shape, std, device, dtype=torch.float32):
+    """N(0, std^2) drawn in f32 from ``gen``, then stored in ``dtype``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return t.normal_(generator=gen).mul_(std).to(dtype)
 
 
 def rope_tables(positions, dim, theta):
@@ -60,11 +103,14 @@ def embed_tokens(p, tokens, cdt, scale_by_dim=False):
 
 
 def unembed(p, x, cdt, logit_cap=None, vocab=None):
-    """x [B,S,D] -> f32 logits [B,S,Vpad] through the tied table, with
-    the final softcap and the padded-vocab columns masked to -1e9 (so
-    softmax and argmax never pick them)."""
-    w = p["table"].to(cdt)
-    logits = torch.matmul(x, w.t()).float()
+    """x [B,S,D] -> f32 logits [B,S,Vpad] through ``p["unembed"]`` [D,Vpad]
+    where the model has one (untied), else the tied table, with the final
+    softcap and the padded-vocab columns masked to -1e9 (so softmax and
+    argmax never pick them)."""
+    if "unembed" in p:
+        logits = torch.matmul(x, p["unembed"].to(cdt)).float()
+    else:
+        logits = torch.matmul(x, p["table"].to(cdt).t()).float()
     if logit_cap:
         logits = softcap(logits, logit_cap)
     vpad = logits.shape[-1]

@@ -1,11 +1,17 @@
-"""Decoder-only LM trunk, dense family only: a port of
-``repro.models.transformer``'s prefill and decode modes, over the dense
-slot cache or the paged KV pool.
+"""Decoder-only LM trunk: a port of ``repro.models.transformer``.
+
+* the dense family: the prefill and decode modes, over the dense slot
+  cache or the paged KV pool;
+* the ``ssm`` (rwkv6) and ``hybrid`` (hymba) families: the train-mode
+  forward (``mode="train"``: logits of every position, from a zero
+  recurrent state), the path on which the reference runs its ``wkv6`` and
+  ``ssm_scan`` kernels.  Their prefill and decode carry recurrent state
+  and wait for a later slice.
 
 The layers run as a Python loop over per-layer parameter dicts, so each
 layer's local/global flag (``cfg.layer_is_global(i)``) is a plain bool.
-Other families (moe, mla, ssm, hybrid, rwkv, encoder-decoder), meta tokens
-and modality frontends raise ``NotImplementedError``.
+Other families (moe, mla, encoder-decoder), modality frontends and padded
+heads raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,23 +20,41 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import basic
+from repro_torch.models.layers import mamba as mamba_mod
+from repro_torch.models.layers import rwkv as rwkv_mod
 
 
-def check_supported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.attn_impl != "gqa" or cfg.moe
-            or cfg.mla or cfg.ssm or cfg.rwkv or cfg.encdec
-            or cfg.meta_tokens or cfg.frontend is not None
+def supported_modes(cfg) -> tuple:
+    """The modes of ``lm_apply`` the port runs for ``cfg``."""
+    if (cfg.moe or cfg.mla or cfg.encdec or cfg.frontend is not None
             or cfg.n_prefix_embeds or cfg.padded_heads != cfg.n_heads):
+        return ()
+    if (cfg.family == "dense" and cfg.attn_impl == "gqa" and not cfg.ssm
+            and not cfg.rwkv and not cfg.meta_tokens):
+        return ("prefill", "decode")
+    if cfg.family == "ssm" and cfg.rwkv and cfg.attn_impl == "none":
+        return ("train",)
+    if cfg.family == "hybrid" and cfg.ssm and cfg.attn_impl == "gqa":
+        return ("train",)
+    return ()
+
+
+def check_supported(cfg, mode=None) -> None:
+    """Raise ``NotImplementedError`` unless the port runs ``cfg`` in
+    ``mode`` (in some mode, when ``mode`` is None)."""
+    modes = supported_modes(cfg)
+    if not modes or (mode is not None and mode not in modes):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA decoders only "
-            "(no moe, mla, ssm, hybrid, rwkv, encoder-decoder, meta tokens, "
-            "frontends or padded heads yet)")
+            f"{cfg.name}: the port runs dense GQA decoders in prefill and "
+            "decode, and rwkv6 (ssm) and hymba (hybrid) in train mode; "
+            f"not {cfg.family} in {mode or 'any'} mode (no moe, mla, "
+            "encoder-decoder, frontends or padded heads yet)")
 
 
 def init_decode_cache(cfg, batch, max_len, device):
     """The dense slot cache ``{'k','v': [L, batch, max_len, KH, hd]}`` in
     bf16 (``attention.init_kv_cache``)."""
-    check_supported(cfg)
+    check_supported(cfg, "decode")
     return attn_mod.init_kv_cache(cfg, batch, max_len, cfg.n_layers, device)
 
 
@@ -40,7 +64,7 @@ def init_paged_decode_cache(cfg, n_blocks, block_size, device):
     ``n_blocks`` of each layer is a trash page that takes the writes JAX
     drops (``attention.paged_write``); pages ``[0, n_blocks)`` are the
     pool proper."""
-    check_supported(cfg)
+    check_supported(cfg, "decode")
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -54,14 +78,78 @@ def _layer(x, lp, *, cfg, positions, is_global, cache, write_pos,
         lp["attn"], h, cfg=cfg, positions=positions, is_global=is_global,
         cache=cache, write_pos=write_pos, block_tables=block_tables,
         paged_fn=paged_fn, flash_fn=flash_fn)
+    return _residual_mlp(x, a, lp, cfg), new_kv
+
+
+def _residual_mlp(x, a, lp, cfg):
+    """The attention output ``a`` (post-normed where the model has post
+    norms) added to ``x``, then the gated-MLP block with its residual."""
     if cfg.post_norms:
         a = basic.rmsnorm(lp["post_ln1"], a, cfg.norm_eps)
     x = x + a
-    h = basic.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    f = basic.mlp(lp["ffn"], h, cfg.act)
+    f = basic.mlp(lp["ffn"], basic.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                  cfg.act)
     if cfg.post_norms:
         f = basic.rmsnorm(lp["post_ln2"], f, cfg.norm_eps)
-    return x + f, new_kv
+    return x + f
+
+
+def _ssm_layer(x, lp, *, cfg, wkv_fn):
+    """One rwkv6 layer: time mix and channel mix, each on a layernormed
+    input (eps 1e-5, the reference's default there) with a residual."""
+    x = x + rwkv_mod.rwkv_time_mix(lp["tmix"], basic.layernorm(lp["ln1"], x),
+                                   cfg, wkv_fn=wkv_fn)
+    return x + rwkv_mod.rwkv_channel_mix(
+        lp["cmix"], basic.layernorm(lp["ln2"], x), cfg)
+
+
+def _hybrid_layer(x, lp, *, cfg, positions, is_global, ssm_fn):
+    """One hymba layer: attention heads and SSM heads in parallel on the
+    same normed input, each path RMS-normed and the two averaged before
+    the shared ``wo``; then the gated MLP."""
+    cdt = x.dtype
+    h = basic.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a_pre, _ = attn_mod.attention(lp["attn"], h, cfg=cfg, positions=positions,
+                                  is_global=is_global, pre_output=True)
+    s_out = mamba_mod.mamba_mixer(lp["mamba"], h, cfg, ssm_fn=ssm_fn)
+    real = cfg.n_heads * cfg.head_dim
+    fused = 0.5 * (basic.rmsnorm(lp["norm_attn"], a_pre[..., :real],
+                                 cfg.norm_eps)
+                   + basic.rmsnorm(lp["norm_ssm"], s_out, cfg.norm_eps))
+    wo = lp["attn"]["wo"].to(cdt)[:cfg.n_heads].reshape(real, cfg.d_model)
+    return _residual_mlp(x, torch.matmul(fused, wo), lp, cfg)
+
+
+def _train_forward(params, cfg, tokens, wkv_fn, ssm_fn):
+    """Logits of every position [B,S,Vpad] (f32) from zero recurrent
+    state: rwkv6's ``ln0`` after the embedding; hymba's meta tokens
+    prepended before the layers and sliced off after the final norm."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    B, S = tokens.shape
+    x = basic.embed_tokens(params["embed"], tokens, cdt,
+                           scale_by_dim=cfg.scale_embeds)
+    if cfg.family == "ssm":
+        x = basic.layernorm(params["ln0"], x)
+    n_meta = cfg.meta_tokens
+    if n_meta:
+        meta = params["meta"].to(cdt).expand(B, n_meta, cfg.d_model)
+        x = torch.cat([meta, x], dim=1)
+    St = x.shape[1]
+    positions = torch.arange(St, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, St)
+    for i, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x = _ssm_layer(x, lp, cfg=cfg, wkv_fn=wkv_fn)
+        else:
+            x = _hybrid_layer(x, lp, cfg=cfg, positions=positions,
+                              is_global=cfg.layer_is_global(i),
+                              ssm_fn=ssm_fn)
+    norm = basic.layernorm if cfg.family == "ssm" else basic.rmsnorm
+    x = norm(params["ln_f"], x, cfg.norm_eps)
+    if n_meta:
+        x = x[:, n_meta:]
+    return basic.unembed(params["embed"], x, cdt, cfg.logit_softcap,
+                         vocab=cfg.vocab_size)
 
 
 def _prefill_pad_cache(kv, max_len):
@@ -80,11 +168,17 @@ def _last_pos_head(x):
 
 
 def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
-             block_tables=None, max_len=None, paged_fn=None, flash_fn=None):
+             block_tables=None, max_len=None, paged_fn=None, flash_fn=None,
+             wkv_fn=None, ssm_fn=None):
     """Run the trunk.
 
     tokens        [B,S] int
-    mode          "prefill": the uncached forward from position 0; returns
+    mode          "train" (rwkv6, hymba): the forward of every position
+                  from zero recurrent state; returns (f32 logits
+                  [B, S, Vpad], None).  ``wkv_fn``/``ssm_fn`` replace the
+                  recurrences' kernels (a check passes their plain
+                  versions).
+                  "prefill": the uncached forward from position 0; returns
                   the new cache {'k','v': [L, B, max_len, KH, hd]} (bf16,
                   zero-padded; ``max_len`` defaults to S).
                   "decode": S new tokens per row at ``write_pos`` (S == 1,
@@ -97,8 +191,9 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
     block_tables  [B,NB] int32 (paged pool only)
     Returns (f32 logits [B, 1, Vpad] of the last position, cache).
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode={mode!r} is not ported yet")
+    check_supported(cfg, mode)
+    if mode == "train":
+        return _train_forward(params, cfg, tokens, wkv_fn, ssm_fn), None
     cdt = getattr(torch, cfg.compute_dtype)
     B, S = tokens.shape
     x = basic.embed_tokens(params["embed"], tokens, cdt,

@@ -1,9 +1,11 @@
-"""Model API of the port (dense GQA decoders).
+"""Model API of the port: dense GQA decoders (prefill, decode), rwkv6 and
+hymba (the train-mode forward and its loss).
 
 ``build_model(cfg, device=None)`` returns a ``Model`` whose members are
 plain functions on tensors, with the JAX package's signatures:
 
   init(seed)                                       -> params
+  loss(params, batch)                              -> (scalar loss, aux)
   prefill(params, batch, max_len)                  -> (logits [B,Vpad], cache)
   decode(params, cache, tokens, pos, bt=None)      -> (logits [B,Vpad], cache)
   decode_step(params, cache, tokens, pos, bt=None) -> (next tokens [B], cache)
@@ -11,7 +13,9 @@ plain functions on tensors, with the JAX package's signatures:
   init_paged_cache(n_blocks, block_size)           -> the paged pool
 
 ``decode`` runs over the paged pool when given block tables, else over the
-dense slot cache; both are updated in place.
+dense slot cache; both are updated in place.  A member whose mode the
+family does not run yet (``transformer.supported_modes``) raises
+``NotImplementedError`` when called.
 
 ``device=None`` means the card; without CUDA it raises (pass
 ``device="cpu"`` for the plain versions on the host).
@@ -26,6 +30,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import transformer as lm_mod
+from repro_torch.models.layers import basic
+from repro_torch.models.layers import mamba as mamba_mod
+from repro_torch.models.layers import rwkv as rwkv_mod
 
 
 def fused_decode_step(decode):
@@ -49,43 +56,85 @@ class Model:
     decode_step: Callable
     init_cache: Callable
     init_paged_cache: Callable
+    loss: Callable
 
 
-def _uniform(gen, shape, lim, device):
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    return t.uniform_(-lim, lim, generator=gen)
+def cross_entropy(logits, labels, mask=None):
+    """logits [B,S,V] (f32), labels [B,S] -> mean nll over the unmasked
+    tokens."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _init_attention(gen, cfg, device, dtype):
+    d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {k: basic.uniform(gen, shape, lim, device, dtype)
+            for k, shape, lim in (("wq", (d, H, hd), d ** -0.5),
+                                  ("wk", (d, KH, hd), d ** -0.5),
+                                  ("wv", (d, KH, hd), d ** -0.5),
+                                  ("wo", (H, hd, d), (H * hd) ** -0.5))}
+
+
+def _init_mlp(gen, d, f, device, dtype):
+    return {k: basic.uniform(gen, shape, lim, device, dtype)
+            for k, shape, lim in (("w_gate", (d, f), d ** -0.5),
+                                  ("w_up", (d, f), d ** -0.5),
+                                  ("w_down", (f, d), f ** -0.5))}
+
+
+def _init_layer(gen, cfg, device, dtype):
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": basic.init_layernorm(d, device),
+                "tmix": rwkv_mod.init_rwkv_tmix(gen, cfg, device, dtype),
+                "ln2": basic.init_layernorm(d, device),
+                "cmix": rwkv_mod.init_rwkv_cmix(gen, cfg, device, dtype)}
+    lp = {"ln1": basic.init_rmsnorm(d, device),
+          "ln2": basic.init_rmsnorm(d, device),
+          "attn": _init_attention(gen, cfg, device, dtype)}
+    if cfg.family == "hybrid":
+        lp["mamba"] = mamba_mod.init_mamba(gen, cfg, device, dtype)
+        lp["norm_attn"] = basic.init_rmsnorm(cfg.n_heads * cfg.head_dim,
+                                             device)
+        lp["norm_ssm"] = basic.init_rmsnorm(d, device)
+    lp["ffn"] = _init_mlp(gen, d, cfg.d_ff, device, dtype)
+    if cfg.post_norms:
+        lp["post_ln1"] = basic.init_rmsnorm(d, device)
+        lp["post_ln2"] = basic.init_rmsnorm(d, device)
+    return lp
 
 
 def init_params(cfg, seed, device):
-    """Seeded random parameters with ``init_lm``'s distributions: uniform
-    +-d^-0.5 projections (+-(H*hd)^-0.5 for wo, +-d_ff^-0.5 for w_down),
-    normal * 0.02 embedding, zero norm scales.  Drawn in f32 on ``device``
-    one tensor at a time; matrices are then stored in the compute dtype
-    (JAX casts them at every use), norm scales in f32."""
+    """Seeded random parameters with ``init_lm``'s distributions (uniform
+    +-fan_in^-0.5 projections, normal * 0.02 embedding, unembedding and
+    meta tokens, the norms' and recurrences' constants), drawn in f32 on
+    ``device`` one tensor at a time from a ``torch.Generator``.  Matrices
+    are then stored in the compute dtype (JAX casts them at every use);
+    1-D leaves and the leaves the reference uses in f32 (``a_log``,
+    ``u_bonus``) stay f32."""
     lm_mod.check_supported(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    d, f, H, KH, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim)
-    zeros = lambda n: {"scale": torch.zeros(n, device=device)}  # noqa: E731
-    mat = lambda shape, lim: _uniform(gen, shape, lim, device).to(dtype)  # noqa: E731
-    table = torch.empty((cfg.padded_vocab, d), device=device)
-    table.normal_(generator=gen).mul_(0.02)
-    layers = []
-    for _ in range(cfg.n_layers):
-        lp = {"ln1": zeros(d), "ln2": zeros(d),
-              "attn": {"wq": mat((d, H, hd), d ** -0.5),
-                       "wk": mat((d, KH, hd), d ** -0.5),
-                       "wv": mat((d, KH, hd), d ** -0.5),
-                       "wo": mat((H, hd, d), (H * hd) ** -0.5)},
-              "ffn": {"w_gate": mat((d, f), d ** -0.5),
-                      "w_up": mat((d, f), d ** -0.5),
-                      "w_down": mat((f, d), f ** -0.5)}}
-        if cfg.post_norms:
-            lp["post_ln1"], lp["post_ln2"] = zeros(d), zeros(d)
-        layers.append(lp)
-    return {"embed": {"table": table.to(dtype)}, "ln_f": zeros(d),
-            "layers": layers}
+    d, vpad = cfg.d_model, cfg.padded_vocab
+    ssm = cfg.family == "ssm"
+    embed = {"table": basic.normal(gen, (vpad, d), 0.02, device, dtype)}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = basic.normal(gen, (d, vpad), 0.02, device, dtype)
+    norm = basic.init_layernorm if ssm else basic.init_rmsnorm
+    params = {"embed": embed, "ln_f": norm(d, device)}
+    if ssm:
+        params["ln0"] = basic.init_layernorm(d, device)
+    if cfg.meta_tokens:
+        params["meta"] = basic.normal(gen, (cfg.meta_tokens, d), 0.02,
+                                      device, dtype)
+    params["layers"] = [_init_layer(gen, cfg, device, dtype)
+                        for _ in range(cfg.n_layers)]
+    return params
 
 
 def build_model(cfg: ModelCfg, device=None) -> Model:
@@ -115,5 +164,15 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
     def init_paged_cache(n_blocks, block_size):
         return lm_mod.init_paged_decode_cache(cfg, n_blocks, block_size, dev)
 
+    def loss(params, batch, wkv_fn=None, ssm_fn=None):
+        """Mean next-token cross entropy of ``batch`` ({'tokens',
+        'labels'}: [B,S] int tensors on the model's device) through the
+        train-mode forward; ``wkv_fn``/``ssm_fn`` as in ``lm_apply``."""
+        logits, _ = lm_mod.lm_apply(params, cfg, tokens=batch["tokens"],
+                                    mode="train", wkv_fn=wkv_fn,
+                                    ssm_fn=ssm_fn)
+        l = cross_entropy(logits, batch["labels"])
+        return l, {"ce": l}
+
     return Model(cfg, dev, init, prefill, decode, fused_decode_step(decode),
-                 init_cache, init_paged_cache)
+                 init_cache, init_paged_cache, loss)

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA kernels against their
-plain versions, the wrappers' refusals, and the engines on the card
-against the engines on the CPU.  Every test carries the ``cuda`` marker and skips where
+plain versions, the wrappers' refusals, the engines on the card against
+the engines on the CPU, and the recurrent models' eval step on the card
+against the CPU.  Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
@@ -20,8 +21,11 @@ from repro_torch.kernels.mxu_probe import REL_TOL as MXU_REL_TOL
 from repro_torch.kernels.mxu_probe import mxu_probe
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.pointer_chase import pointer_chase
+from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.convert import params_to
 from repro_torch.models.zoo import build_model
+from repro_torch.train.step import make_eval_step
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -365,3 +369,110 @@ def test_quick_calibration_on_card(dev, tmp_path):
     table = tables.calibrate(quick=True, results_dir=tmp_path, device=dev)
     assert table["hardware"] == "gpu" and table["clock_mhz"] > 500
     assert all(np.isfinite(r["per_op_ns"]) for r in table["ops"].values())
+
+
+# --- the recurrences: wkv6 and ssm_scan --------------------------------------
+
+def _wkv_inputs(dev, B, S, H, N, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev).mul(0.3)
+               .to(dtype) for _ in range(3))
+    w = torch.rand((B, S, H, N), generator=g, device=dev) * 0.3 + 0.699
+    u = torch.randn((H, N), generator=g, device=dev).mul(0.3).to(dtype)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("block_h", [1, 2])
+@pytest.mark.parametrize("shape", [(2, 24, 2, 32), (2, 24, 4, 64),
+                                   (1, 70, 4, 16), (3, 33, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain(dev, dtype, shape, block_h):
+    """Chunks of the kernel's staging (70 and 33 steps: ragged last chunk)
+    and one or two heads a block."""
+    args = _wkv_inputs(dev, *shape, dtype)
+    before = wkv6.launches
+    out = wkv6(*args, block_h=block_h)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want = ref.wkv6_plain(*args)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(),
+                               **(F32_TOL if dtype == torch.float32
+                                  else BF16_TOL))
+
+
+def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    r, k, v, w, u = _wkv_inputs(dev, 1, 4, 32, 64, torch.bfloat16)
+    with pytest.raises(ValueError):                    # 32 x 64 threads
+        wkv6(r, k, v, w, u, block_h=32)
+    with pytest.raises(TypeError):
+        wkv6(r, k.float(), v, w, u)
+    with pytest.raises(ValueError):
+        wkv6(r, k, v, w, u.cpu())
+    with pytest.raises(ValueError):
+        wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    r, k, v, w, u = _wkv_inputs(dev, 1, 4, 2, 48, torch.float32)
+    with pytest.raises(ValueError):                    # N = 48 not built
+        wkv6(r, k, v, w, u)
+
+
+def _ssm_inputs(dev, Bt, S, Di, N, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((Bt, S, Di), generator=g, device=dev).mul(0.2).to(dtype)
+    dt = torch.rand((Bt, S, Di), generator=g, device=dev) * 0.099 + 0.001
+    B, C = (torch.randn((Bt, S, N), generator=g, device=dev).mul(0.2)
+            .to(dtype) for _ in range(2))
+    A = -torch.randn((Di, N), generator=g, device=dev).abs()
+    return x, dt, B, C, A
+
+
+@pytest.mark.parametrize("shape,block_d", [
+    ((2, 32, 256, 8), 128), ((2, 32, 512, 16), 256), ((1, 100, 1600, 16), 64),
+    ((2, 45, 64, 4), 64), ((1, 9, 96, 8), 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_matches_plain(dev, dtype, shape, block_d):
+    args = _ssm_inputs(dev, *shape, dtype)
+    before = ssm_scan.launches
+    out = ssm_scan(*args, block_d=block_d)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    want = ref.ssm_scan_plain(*args)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(),
+                               **(F32_TOL if dtype == torch.float32
+                                  else BF16_TOL))
+
+
+def test_ssm_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, dt, B, C, A = _ssm_inputs(dev, 1, 4, 2048, 16, torch.bfloat16)
+    with pytest.raises(ValueError):                    # 2048 threads
+        ssm_scan(x, dt, B, C, A, block_d=2048)
+    with pytest.raises(TypeError):
+        ssm_scan(x, dt, B.float(), C, A)
+    with pytest.raises(ValueError):
+        ssm_scan(x, dt, B, C, A.cpu())
+    x, dt, B, C, A = _ssm_inputs(dev, 1, 4, 64, 32, torch.float32)
+    with pytest.raises(ValueError):                    # N = 32 not built
+        ssm_scan(x, dt, B, C, A)
+
+
+@pytest.mark.parametrize("arch,kernel", [("rwkv6-1.6b", wkv6),
+                                         ("hymba-1.5b", ssm_scan)])
+def test_eval_step_on_card_matches_cpu(dev, arch, kernel):
+    """Reduced f32 models: the eval loss on the card (kernels) and on the
+    CPU (plain versions) agree to 1e-5 relative, with the kernel launched
+    once a layer."""
+    cfg = reduced(ARCHS[arch], compute_dtype="float32")
+    cpu_params = build_model(cfg, device="cpu").init(0)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 41)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss = {}
+    for d in ("cpu", "cuda"):
+        m = build_model(cfg, device=d)
+        before = kernel.launches
+        loss[d] = float(make_eval_step(m)(params_to(cpu_params, d),
+                                          batch)["loss"])
+        if d == "cuda":
+            assert kernel.launches - before == cfg.n_layers
+    assert loss["cuda"] == pytest.approx(loss["cpu"], rel=1e-5)

@@ -1,0 +1,238 @@
+"""The port's recurrences against the JAX package on the CPU, from the same
+numpy inputs: the plain versions of the ``wkv6`` and ``ssm_scan`` kernels
+against ``repro.kernels.ref`` and the Pallas kernels in interpret mode (the
+sweeps of ``tests/test_kernels.py``), the launch-parameter resolution, and
+the rwkv6 and mamba layers in train mode against ``use_pallas=False`` and
+``use_pallas=True``.
+
+Tolerances: f32 atol/rtol 1e-5 (the same f32 arithmetic in another
+summation order); bf16 atol/rtol 1e-2 (outputs rounded to bf16 may differ
+by one bf16 ulp where the f32 values straddle a rounding boundary).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS, reduced as jreduced
+from repro.core.autotune.space import divisor_clamp as jdivisor_clamp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.layers import mamba as jmamba
+from repro.models.layers import rwkv as jrwkv
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssm_scan as tssm
+from repro_torch.kernels import wkv6 as twkv
+from repro_torch.models.layers import mamba as tmamba
+from repro_torch.models.layers import rwkv as trwkv
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+DTYPES = {"float32": (jnp.float32, torch.float32, F32_TOL),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+
+
+def _pair(a, jdt, tdt):
+    """One numpy array as a JAX array and a torch tensor of one dtype
+    (bf16 rounded once, in numpy order, on both sides)."""
+    j = jnp.asarray(a, jdt)
+    return j, torch.from_numpy(np.array(j, np.float32)).to(tdt)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,n", [(2, 32), (4, 64)])
+def test_wkv6_plain_matches_ref_and_pallas(dtype, h, n):
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    B, S = 2, 24
+    arrs = [rng.normal(size=(B, S, h, n)) * 0.3 for _ in range(3)]
+    arrs.append(rng.uniform(0.7, 0.999, size=(B, S, h, n)))
+    arrs.append(rng.normal(size=(h, n)) * 0.3)
+    pairs = [_pair(a, jdt, tdt) for a in arrs]
+    js, ts = [p[0] for p in pairs], [p[1] for p in pairs]
+    want_ref = jref.wkv6_ref(*js)
+    want_pallas = jops.wkv6(*js, interpret=True)
+    for got in (ref.wkv6_plain(*ts), ops.wkv6(*ts)):
+        assert got.dtype == tdt and tuple(got.shape) == (B, S, h, n)
+        _close(got, want_ref, tol)
+        _close(got, want_pallas, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("di,n,block", [(256, 8, 128), (512, 16, 256)])
+def test_ssm_scan_plain_matches_ref_and_pallas(dtype, di, n, block):
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(12)
+    Bt, S = 2, 32
+    x, dt, Bm, Cm = (_pair(a, jdt, tdt) for a in (
+        rng.normal(size=(Bt, S, di)) * 0.2,
+        rng.uniform(0.001, 0.1, size=(Bt, S, di)),
+        rng.normal(size=(Bt, S, n)) * 0.2,
+        rng.normal(size=(Bt, S, n)) * 0.2))
+    A = _pair(-np.abs(rng.normal(size=(di, n))), jnp.float32, torch.float32)
+    js = (x[0], dt[0], Bm[0], Cm[0], A[0])
+    ts = (x[1], dt[1], Bm[1], Cm[1], A[1])
+    want_ref = jref.ssm_scan_ref(*js)
+    want_pallas = jops.ssm_scan(*js, block_d=block, interpret=True)
+    for got in (ref.ssm_scan_plain(*ts, block_d=block),
+                ops.ssm_scan(*ts, block_d=block)):
+        assert got.dtype == tdt and tuple(got.shape) == (Bt, S, di)
+        _close(got, want_ref, tol)
+        _close(got, want_pallas, tol)
+
+
+@pytest.mark.parametrize("kernel,n,explicit,config", [
+    ("ssm_scan", 1600, None, None),          # hymba: 256 -> 64
+    ("ssm_scan", 512, 128, None),
+    ("ssm_scan", 1600, None, {"block_d": 96}),
+    ("ssm_scan", 64, 512, {"block_d": 32}),  # explicit wins, clamped to 64
+    ("wkv6", 32, None, None),                # rwkv6: 1
+    ("wkv6", 32, 3, None),
+    ("wkv6", 4, None, {"block_h": 8}),
+    ("wkv6", 32, None, {"block_h": 12}),
+])
+def test_launch_parameter_resolves_as_in_jax(monkeypatch, kernel, n,
+                                             explicit, config):
+    """explicit > config= > default, then clamped to a divisor of the axis:
+    the block the port launches is the block the Pallas kernel runs."""
+    seen = {}
+    if kernel == "ssm_scan":
+        monkeypatch.setattr(ops._ssm, "ssm_scan",
+                            lambda *a, block_d: seen.setdefault("b", block_d))
+        x = torch.zeros(1, 2, n)
+        ops.ssm_scan(x, x, torch.zeros(1, 2, 4), torch.zeros(1, 2, 4),
+                     torch.zeros(n, 4), block_d=explicit, config=config)
+        shapes = {"batch": 1, "seq": 2, "d_inner": n, "state_dim": 4}
+        key = "block_d"
+    else:
+        monkeypatch.setattr(ops._wkv, "wkv6",
+                            lambda *a, block_h: seen.setdefault("b", block_h))
+        r = torch.zeros(1, 2, n, 16)
+        ops.wkv6(r, r, r, r, torch.zeros(n, 16), block_h=explicit,
+                 config=config)
+        shapes = {"batch": 1, "seq": 2, "heads": n, "head_dim": 16}
+        key = "block_h"
+    c = jops.resolve_kernel_config(kernel, shapes, jnp.float32, config=config,
+                                   explicit={key: explicit})
+    assert seen["b"] == jdivisor_clamp(c[key], n)
+
+
+def test_wrappers_refuse_bad_shapes_on_cpu():
+    r = torch.zeros(1, 3, 4, 16)
+    with pytest.raises(ValueError):
+        twkv.wkv6(r, r, r, r, torch.zeros(4, 8))
+    with pytest.raises(ValueError):
+        twkv.wkv6(r, r, r, r, torch.zeros(4, 16), block_h=3)
+    x = torch.zeros(1, 3, 8)
+    with pytest.raises(ValueError):
+        tssm.ssm_scan(x, x, torch.zeros(1, 3, 4), torch.zeros(1, 3, 5),
+                      torch.zeros(8, 4))
+    with pytest.raises(ValueError):
+        tssm.ssm_scan(x, x, torch.zeros(1, 3, 4), torch.zeros(1, 3, 4),
+                      torch.zeros(8, 4), block_d=3)
+
+
+# --- layers ----------------------------------------------------------------
+
+def _perturbed(tree, seed):
+    """A JAX layer tree as numpy, with its constant leaves (norm scales and
+    biases, mixes, decay base, dt bias, skip) perturbed so each is
+    exercised."""
+    rng = np.random.default_rng(seed)
+    noisy = {"scale", "bias", "mu", "mu_k", "mu_r", "w_base", "dt_bias",
+             "d_skip"}
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        a = np.asarray(node, np.float32)
+        if name in noisy:
+            a = a + (rng.normal(size=a.shape) * 0.3).astype(np.float32)
+        return a
+    return walk(jax.device_get(tree))
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(tree.copy())
+
+
+def _jax_tree(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def _cfgs(arch, use_pallas):
+    jcfg = jreduced(JARCHS[arch], compute_dtype="float32",
+                    use_pallas=use_pallas)
+    return jcfg, reduced(ARCHS[arch], compute_dtype="float32")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_rwkv_time_mix_matches_jax(use_pallas):
+    jcfg, cfg = _cfgs("rwkv6-1.6b", use_pallas)
+    tree = _perturbed(jrwkv.init_rwkv_tmix(jax.random.PRNGKey(1), jcfg), 1)
+    x = np.random.default_rng(2).normal(size=(2, 16, cfg.d_model))
+    x = x.astype(np.float32)
+    want, _ = jrwkv.rwkv_time_mix(_jax_tree(tree), jnp.asarray(x), jcfg,
+                                  need_state=False)
+    got = trwkv.rwkv_time_mix(_torch_tree(tree), torch.from_numpy(x), cfg)
+    _close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_rwkv_channel_mix_matches_jax(use_pallas):
+    jcfg, cfg = _cfgs("rwkv6-1.6b", use_pallas)
+    tree = _perturbed(jrwkv.init_rwkv_cmix(jax.random.PRNGKey(3), jcfg), 3)
+    x = np.random.default_rng(4).normal(size=(2, 16, cfg.d_model))
+    x = x.astype(np.float32)
+    want, _ = jrwkv.rwkv_channel_mix(_jax_tree(tree), jnp.asarray(x), jcfg)
+    got = trwkv.rwkv_channel_mix(_torch_tree(tree), torch.from_numpy(x), cfg)
+    _close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_mamba_mixer_matches_jax(use_pallas):
+    jcfg, cfg = _cfgs("hymba-1.5b", use_pallas)
+    tree = _perturbed(jmamba.init_mamba(jax.random.PRNGKey(5), jcfg), 5)
+    x = np.random.default_rng(6).normal(size=(2, 16, cfg.d_model))
+    x = x.astype(np.float32)
+    want, _ = jmamba.mamba_mixer(_jax_tree(tree), jnp.asarray(x), jcfg,
+                                 need_state=False)
+    got = tmamba.mamba_mixer(_torch_tree(tree), torch.from_numpy(x), cfg)
+    _close(got, want, F32_TOL)
+
+
+def test_layers_pass_the_recurrence_to_the_injected_fn():
+    """``wkv_fn``/``ssm_fn`` replace the kernel: each layer calls its fn
+    once, with the kernel's arguments."""
+    calls = []
+
+    def spy(plain):
+        def fn(*args):
+            calls.append(tuple(a.dtype for a in args))
+            return plain(*args)
+        return fn
+    cfg = reduced(ARCHS["rwkv6-1.6b"])           # bf16 compute
+    tree = _perturbed(jrwkv.init_rwkv_tmix(jax.random.PRNGKey(1),
+                                           jreduced(JARCHS["rwkv6-1.6b"])), 1)
+    p = _torch_tree(tree)
+    x = torch.randn(1, 5, cfg.d_model).bfloat16()
+    trwkv.rwkv_time_mix(p, x, cfg, wkv_fn=spy(ref.wkv6_plain))
+    assert calls == [(torch.bfloat16,) * 3 + (torch.float32, torch.bfloat16)]
+    cfg = reduced(ARCHS["hymba-1.5b"])
+    tree = _perturbed(jmamba.init_mamba(jax.random.PRNGKey(5),
+                                        jreduced(JARCHS["hymba-1.5b"])), 5)
+    x = torch.randn(1, 5, cfg.d_model).bfloat16()
+    calls.clear()
+    tmamba.mamba_mixer(_torch_tree(tree), x, cfg,
+                       ssm_fn=spy(ref.ssm_scan_plain))
+    assert calls == [(torch.bfloat16, torch.float32, torch.bfloat16,
+                      torch.bfloat16, torch.float32)]
