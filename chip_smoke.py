@@ -23,21 +23,37 @@ exits non-zero):
    every layer must go through the kernel.
 4. parity: one batched full-width decode step through the kernel and
    through the plain version; logits must agree.
-5. flash_kernel: the flash-attention kernel against its plain version,
-   bf16, B=1, H=8, KH=4, D=256, Sq=Skv in {1, 52, 768, 900} (ragged
-   tails of the serve trace) and B=8, Sq=Skv=512, each causal with window
-   {None, 64, 4096} x softcap {None, 50}; plus one non-causal case and
-   one ``acc_dtype="bf16"`` case; with times for the kernel, the plain
-   version, ``F.scaled_dot_product_attention`` where it computes the
-   same function (no window, no softcap; a yardstick only) and the bound.
+5. flash_kernel: the flash-attention kernels against their plain
+   version: the tensor-core kernel (``flash_attention_mma.cu``) on bf16,
+   B=1, H=8, KH=4, D=256, Sq=Skv in {1, 52, 768, 900} (ragged tails of
+   the serve trace) and B=8, Sq=Skv=512, each causal with window {None,
+   64, 4096} x softcap {None, 50}, one non-causal case and one case where
+   the softcap binds (q scaled so raw scores pass +-50); the CUDA-core
+   kernel (``flash_attention.cu``) on one f32 case and one
+   ``acc_dtype="bf16"`` case.  Each case gives the share of outputs not
+   bit-equal to the plain version's and times for the kernel, the plain
+   version, ``F.scaled_dot_product_attention`` where it computes the same
+   function (no window, no softcap; a yardstick only) and the bound.
+   ``ms`` and ``library_ms`` are one call between a CUDA event pair,
+   median of 20, the host's cost of the call included, as every kernel
+   on the ``kernels`` line is timed; ``stream_ms`` and
+   ``library_stream_ms`` are 20 calls back to back between one event
+   pair, over 20, where that cost hides behind the card's work.  Beside the
+   checks, fault controls the gate must catch (``FLASH_MUST_CATCH``): the
+   plain version with the window one key wider, with the softcap dropped
+   where it binds, and with the diagonal key excluded.
 6. serve_slot: the same model and prompts through ``ServingEngine``
    (max_batch 8, max_len 1024), under sync debugging; every layer of
-   every prefill must go through the flash kernel.
+   every prefill must go through the tensor-core flash kernel.
 7. parity_slot: one full-width prefill of a 900-token prompt through the
-   flash kernel and through its plain version; logits must agree.
+   flash kernel and through its plain version; logits must agree.  Beside
+   it, readings (not gates) of two faults in every layer: the plain
+   version with the softcap dropped and with the diagonal key excluded,
+   each against the sound plain prefill.
 8. reference: a reduced f32 gemma2 served on the card and on the CPU
    (where attention runs the plain versions), through the paged and the
-   slot engine, must give identical tokens.
+   slot engine, must give identical tokens; the f32 prefills must go
+   through the CUDA-core flash kernel, none through the tensor-core one.
 9. probes: the paper's three probe kernels against their plain versions:
    ``alu_chain`` for every (op, dtype, dependent) the harness runs, at
    length 12; ``pointer_chase`` in shared memory and in global memory under
@@ -269,10 +285,12 @@ def phase_kernel(torch, np, dev, seed):
     return cases, max_err
 
 
-def _flash_bound_ms(B, Sq, Skv, H, KH, D, causal, window, elem=2):
+def _flash_bound_ms(B, Sq, Skv, H, KH, D, causal, window, elem=2,
+                    ops_per_s=BF16_OPS_PER_S):
     """Least time for the work these inputs need: Q, K, V read once and
-    the output written once, against the bf16 operations of the (query,
-    key) pairs the mask keeps (2 * D for the score, 2 * D for P @ V)."""
+    the output written once, against the operations of the (query, key)
+    pairs the mask keeps (2 * D for the score, 2 * D for P @ V) at the
+    inputs' type's peak."""
     import numpy as np
     qp = np.arange(Sq)
     hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
@@ -280,9 +298,61 @@ def _flash_bound_ms(B, Sq, Skv, H, KH, D, causal, window, elem=2):
     pairs = int(np.clip(hi - lo + 1, 0, None).sum())
     nbytes = elem * D * (2 * B * Sq * H + 2 * B * Skv * KH)
     ops = 4 * D * H * B * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def stream_ms(torch, fn, n=20, reps=5):
+    """Device time of ``fn``: ``n`` launches back to back between one CUDA
+    event pair, over ``n``; the median of ``reps`` such runs.  The host's
+    cost of a launch hides behind the device's work wherever it is the
+    smaller of the two."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+# the flash gate's fault controls, each the plain version with one fault,
+# and the case that runs it: the window one key wider, the softcap dropped
+# where raw scores pass +-50, and the diagonal key excluded (keys < q_pos)
+FLASH_MUST_CATCH = {"window_65": dict(B=1, S=900, window=64, softcap=None,
+                                      q_mul=1.0),
+                    "softcap_dropped": dict(B=1, S=900, window=None,
+                                            softcap=50.0, q_mul=30.0),
+                    "diagonal_excluded": dict(B=1, S=900, window=None,
+                                              softcap=None, q_mul=1.0)}
+
+
+def _flash_fault(torch, ref, name, q, k, v, kw, want):
+    """The plain version with fault ``name`` on the case's inputs."""
+    if name == "window_65":
+        return ref.flash_attention_plain(q, k, v, **{**kw, "window": 65})
+    if name == "softcap_dropped":
+        return ref.flash_attention_plain(q, k, v, **{**kw, "softcap": None})
+    # row i at position i - 1 over keys 0 .. i-1: a strict causal mask;
+    # row 0, which it leaves with no key, keeps the sound output
+    strict = ref.flash_attention_plain(q[:, 1:], k[:, :-1], v[:, :-1], **kw)
+    return torch.cat([want[:, :1], strict], dim=1)
+
+
+def _tol_ratio(got, want):
+    """max |got - want| / (atol + rtol |want|) under ``KERNEL_TOL``: the
+    gate passes at <= 1."""
+    got, want = got.float(), want.float()
+    lim = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * want.abs()
+    return ((got - want).abs() / lim).max().item()
 
 
 def phase_flash_kernel(torch, dev, seed):
@@ -290,52 +360,83 @@ def phase_flash_kernel(torch, dev, seed):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                      kernel_for,
                                                       kernel_tiles)
 
     H, KH, D = 8, 4, 256
     scale = D ** -0.5
-    cases = [dict(B=B, S=S, window=w, softcap=c, causal=True, acc="f32")
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [dict(B=B, S=S, window=w, softcap=c, causal=True, acc="f32",
+                  dtype=bf16, q_mul=1.0)
              for B, S in ((1, 1), (1, 52), (1, 768), (1, 900), (8, 512))
              for w in (None, 64, 4096) for c in (None, 50.0)]
     cases += [dict(B=1, S=900, window=None, softcap=None, causal=False,
-                   acc="f32"),
+                   acc="f32", dtype=bf16, q_mul=1.0),
+              dict(B=1, S=900, window=None, softcap=50.0, causal=True,
+                   acc="f32", dtype=bf16, q_mul=30.0),
+              dict(B=1, S=900, window=None, softcap=None, causal=True,
+                   acc="f32", dtype=f32, q_mul=1.0),
               dict(B=1, S=900, window=4096, softcap=50.0, causal=True,
-                   acc="bf16")]
+                   acc="bf16", dtype=bf16, q_mul=1.0)]
     g = torch.Generator(device=dev).manual_seed(seed)
-    out_cases, max_err = [], 0.0
+    out_cases, max_err, controls = [], {}, {}
     for c in cases:
-        B, S = c["B"], c["S"]
-        q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
-        k = torch.randn((B, S, KH, D), generator=g, device=dev).bfloat16()
-        v = torch.randn((B, S, KH, D), generator=g, device=dev).bfloat16()
+        B, S, dt, q_mul = c["B"], c["S"], c["dtype"], c["q_mul"]
+        q = (torch.randn((B, S, H, D), generator=g, device=dev)
+             * q_mul).to(dt)
+        k = torch.randn((B, S, KH, D), generator=g, device=dev).to(dt)
+        v = torch.randn((B, S, KH, D), generator=g, device=dev).to(dt)
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"], scale=scale, acc_dtype=c["acc"])
+        kernel = kernel_for(dt, c["acc"], D)
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = ref.flash_attention_plain(q, k, v, **kw)
         err = (out.float() - want.float()).abs().max().item()
         torch.testing.assert_close(out.float(), want.float(), **KERNEL_TOL)
-        max_err = max(max_err, err)
+        max_err[kernel] = max(max_err.get(kernel, 0.0), err)
+        for name, at in FLASH_MUST_CATCH.items():
+            if (c["causal"] and c["acc"] == "f32" and dt == bf16
+                    and all(c[key] == val for key, val in at.items())):
+                got = _flash_fault(torch, ref, name, q, k, v, kw, want)
+                controls[name] = {"tol_ratio": _tol_ratio(got, want),
+                                  "mismatch": (got != want).float()
+                                  .mean().item()}
+                controls[name]["caught"] = controls[name]["tol_ratio"] > 1
         ms = gpu_ms(torch, lambda: flash_attention(q, k, v, **kw), 20)
+        s_ms = stream_ms(torch, lambda: flash_attention(q, k, v, **kw))
         plain_ms = gpu_ms(torch, lambda: ref.flash_attention_plain(
             q, k, v, **kw), 3)
-        lib_ms = None
+        lib_ms = lib_s_ms = None
         if c["window"] is None and c["softcap"] is None:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib_ms = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=c["causal"], scale=scale,
-                enable_gqa=True), 20)
-        bound, bound_by = _flash_bound_ms(B, S, S, H, KH, D, c["causal"],
-                                          c["window"])
-        case = {"B": B, "Sq": S, "Skv": S, "causal": c["causal"],
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=c["causal"], scale=scale,
+                    enable_gqa=True)
+            lib_ms, lib_s_ms = gpu_ms(torch, sdpa, 20), stream_ms(torch, sdpa)
+        elem = 2 if dt == bf16 else 4
+        bound, bound_by = _flash_bound_ms(
+            B, S, S, H, KH, D, c["causal"], c["window"], elem,
+            BF16_OPS_PER_S if dt == bf16 else F32_OPS_PER_S)
+        case = {"kernel": kernel, "dtype": str(dt).split(".")[-1],
+                "B": B, "Sq": S, "Skv": S, "causal": c["causal"],
                 "window": c["window"], "softcap": c["softcap"],
-                "acc_dtype": c["acc"],
-                "tiles": kernel_tiles(H, KH, D, S, 128, c["acc"]),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": bound,
-                "bound_by": bound_by}
+                "q_mul": q_mul, "acc_dtype": c["acc"],
+                "tiles": kernel_tiles(H, KH, D, S, 128, c["acc"], dt),
+                "max_abs_err": err,
+                "mismatch": (out != want).float().mean().item(),
+                "ms": ms, "stream_ms": s_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_stream_ms": lib_s_ms,
+                "bound_ms": bound, "bound_by": bound_by}
         out_cases.append(case)
         emit({"phase": "flash_kernel", "name": "flash_attention", **case})
+    emit({"phase": "flash_kernel", "controls": controls})
+    missed = [n for n in FLASH_MUST_CATCH
+              if not controls.get(n, {}).get("caught")]
+    if missed:
+        raise AssertionError(f"the flash gate misses {missed}: {controls}")
     return out_cases, max_err
 
 
@@ -354,12 +455,19 @@ def _wrappers():
 
 def reset_launches():
     """Zero every kernel's launch count, just before a path is driven."""
-    for f in _wrappers().values():
+    wrappers = _wrappers()
+    for f in wrappers.values():
         f.launches = 0
+    wrappers["flash_attention"].mma_launches = 0
 
 
 def launch_counts():
-    return {name: f.launches for name, f in _wrappers().items()}
+    """Each wrapper's launches; ``flash_attention`` counts both flash
+    kernels, ``flash_attention_mma`` the tensor-core one alone."""
+    wrappers = _wrappers()
+    counts = {name: f.launches for name, f in wrappers.items()}
+    counts["flash_attention_mma"] = wrappers["flash_attention"].mma_launches
+    return counts
 
 
 def phase_serve(torch, np, dev, seed):
@@ -457,15 +565,17 @@ def phase_serve_slot(torch, model, params, prompts):
     eng = ServingEngine(model, params, **kw)
     rids = [eng.submit(p, max_new_tokens=32) for p in prompts]
     step_ms, run_s, counts = drive(torch, eng)
-    launches = counts["flash_attention"]
+    launches = counts["flash_attention_mma"]
     st = eng.stats
     if st.completed != len(prompts):
         raise AssertionError(f"completed {st.completed} of {len(prompts)}")
     if st.host_syncs > st.steps + 1:
         raise AssertionError(f"{st.host_syncs} syncs over {st.steps} steps")
-    if launches == 0 or launches != cfg.n_layers * st.prefills:
-        raise AssertionError(f"{launches} flash launches != {cfg.n_layers}"
-                             f" x {st.prefills} prefills")
+    if (launches == 0 or launches != cfg.n_layers * st.prefills
+            or counts["flash_attention"] != launches):
+        raise AssertionError(f"{counts['flash_attention']} flash launches, "
+                             f"{launches} tensor-core, != {cfg.n_layers} x "
+                             f"{st.prefills} prefills")
     toks = [eng.done[r].tokens for r in rids]
     if any(len(t) != 32 or min(t) < 0 or max(t) >= cfg.vocab_size
            for t in toks):
@@ -517,7 +627,10 @@ def phase_parity(torch, np, model, params, seed):
 
 def phase_parity_slot(torch, np, model, params, seed):
     """One full-width prefill of a 900-token prompt through the flash
-    kernel, and through the plain version called explicitly."""
+    kernel, and through the plain version called explicitly; beside the
+    gate, the logits of two faults in every layer against the sound plain
+    prefill (readings: what the gate would catch)."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.ref import flash_attention_plain
 
     rng = np.random.default_rng(seed + 2)
@@ -535,10 +648,26 @@ def phase_parity_slot(torch, np, model, params, seed):
     if tuple(ck["k"].shape) != (model.cfg.n_layers, 1, 1024,
                                 model.cfg.n_kv_heads, model.cfg.head_dim):
         raise AssertionError(f"prefill cache shape {tuple(ck['k'].shape)}")
+    del ck
+
+    def faulty(name):
+        def fn(q, k, v, **kw):
+            # row 0's sound output, which the strict mask leaves keyless
+            row0 = flash_attention_plain(q[:, :1], k[:, :1], v[:, :1], **kw)
+            return _flash_fault(torch, ref, name, q, k, v, kw, row0)
+        return fn
+
+    controls = {}
+    for name in ("softcap_dropped", "diagonal_excluded"):
+        lf, _ = model.prefill(params, batch, max_len=1024,
+                              flash_fn=faulty(name))
+        fdiff = (lf - lp).abs().max().item()
+        controls[name] = {"logit_max_abs_diff": fdiff,
+                          "caught": fdiff > LOGIT_ATOL}
     emit({"phase": "parity_slot", "prompt_tokens": 900,
           "logit_max_abs_diff": diff, "logit_mean_abs_diff": mean_diff,
           "logit_atol": LOGIT_ATOL, "logit_std": lk.float().std().item(),
-          "greedy_token_flipped": flipped})
+          "greedy_token_flipped": flipped, "controls": controls})
 
 
 def phase_reference(torch, np, seed):
@@ -562,6 +691,7 @@ def phase_reference(torch, np, seed):
         "slot": lambda m, p: ServingEngine(m, p, max_batch=4, max_len=64)}
     cpu_params = build_model(cfg, device="cpu").init(seed)
     same = {}
+    reset_launches()
     for name, make in engines.items():
         out = {}
         for dev in ("cuda", "cpu"):
@@ -571,11 +701,17 @@ def phase_reference(torch, np, seed):
             eng.run_until_done()
             out[dev] = [eng.done[r].tokens for r in rids]
         same[name] = out["cuda"] == out["cpu"]
+    counts = launch_counts()
     if not all(same.values()):
         raise AssertionError(f"card and CPU tokens differ on the reduced "
                              f"f32 model: {same}")
+    if counts["flash_attention"] == 0 or counts["flash_attention_mma"]:
+        raise AssertionError(f"f32 prefills must take the CUDA-core flash "
+                             f"kernel alone: {counts}")
     emit({"phase": "reference", "arch": cfg.name, "layers": cfg.n_layers,
-          "requests": len(prompts), "tokens_identical": same})
+          "requests": len(prompts), "tokens_identical": same,
+          "kernel_launches": counts})
+    return counts["flash_attention"]
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -1230,7 +1366,7 @@ def main(argv=None) -> int:
     del model, params
     torch.cuda.empty_cache()
     lap("parity")
-    phase_reference(torch, np, args.seed)
+    fa_f32_launches = phase_reference(torch, np, args.seed)
     lap("reference")
     probes, probe_err = phase_probes(torch, np, dev, args.seed)
     lap("probes")
@@ -1254,12 +1390,18 @@ def main(argv=None) -> int:
     # and one split, the one case where SDPA computes the same function
     main_case = next(c for c in cases if c["window"] is None
                      and c["softcap"] is None and c["num_splits"] == 1)
-    # the flash kernel at the main path's longest prompt (B=1, Sq=900),
-    # causal without window or softcap: where SDPA computes the same
-    fa_case = next(c for c in fa_cases if c["B"] == 1 and c["Sq"] == 900
-                   and c["causal"] and c["window"] is None
-                   and c["softcap"] is None and c["acc_dtype"] == "f32")
+    # the flash kernels at the main path's longest prompt (B=1, Sq=900),
+    # causal without window or softcap, where SDPA computes the same: the
+    # tensor-core kernel in bf16 (the main path's), the CUDA-core one in
+    # f32 (the reference phase's path)
+    fa_case, fa_f32_case = (
+        next(c for c in fa_cases if c["dtype"] == dtype and c["B"] == 1
+             and c["Sq"] == 900 and c["causal"] and c["window"] is None
+             and c["softcap"] is None and c["q_mul"] == 1.0
+             and c["acc_dtype"] == "f32")
+        for dtype in ("bfloat16", "float32"))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fa_keys = keys + ("stream_ms", "library_stream_ms")
     emit({"kernels": [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1267,10 +1409,17 @@ def main(argv=None) -> int:
          "launches": launches, "max_abs_err": max_err,
          **{k: main_case[k] for k in keys}},
         {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:80",
+         "launches": fa_launches,
+         "max_abs_err": fa_err["flash_attention_mma"],
+         **{k: fa_case[k] for k in fa_keys}},
+        {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:80",
-         "launches": fa_launches, "max_abs_err": fa_err,
-         **{k: fa_case[k] for k in keys}}] + [
+         "launches": fa_f32_launches,
+         "max_abs_err": fa_err["flash_attention"],
+         **{k: fa_f32_case[k] for k in fa_keys}}] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces, "launches": cal_counts[name],

@@ -151,7 +151,9 @@ def _fa_inputs(dev, B, Sq, Skv, H, KH, D, dtype, seed=0):
 @pytest.mark.parametrize("kw", [dict(), dict(window=64), dict(softcap=50.0),
                                 dict(window=4096, softcap=50.0),
                                 dict(causal=False),
-                                dict(causal=False, window=20)])
+                                dict(causal=False, window=20),
+                                dict(window=20),          # < one KV tile
+                                dict(softcap=2.0)])       # binds at N(0,1)
 @pytest.mark.parametrize("shape", [
     (1, 900, 900, 8, 4, 256),     # gemma2-2b prefill, ragged tail
     (2, 52, 52, 8, 4, 256),
@@ -159,15 +161,22 @@ def _fa_inputs(dev, B, Sq, Skv, H, KH, D, dtype, seed=0):
     (3, 37, 53, 4, 2, 16),        # the reduced model's heads, Sq < Skv
     (2, 70, 70, 14, 2, 128),      # a GQA group of 7
     (1, 100, 100, 4, 4, 64),      # no grouping
+    (2, 65, 127, 8, 4, 256),      # neither length a multiple of 64
+    (1, 127, 127, 7, 1, 128),     # yi-34b's group of 7, ragged
+    (1, 40, 40, 4, 2, 24),        # D % 16 == 8: the CUDA-core kernel
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_matches_plain(dev, dtype, shape, kw):
+    """bf16 with D % 16 == 0 takes the tensor-core kernel; f32 and bf16
+    with D % 16 == 8 the CUDA-core one."""
     B, Sq, Skv, H, KH, D = shape
     q, k, v = _fa_inputs(dev, B, Sq, Skv, H, KH, D, dtype)
-    before = flash_attention.launches
+    before, before_mma = flash_attention.launches, flash_attention.mma_launches
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    mma = dtype == torch.bfloat16 and D % 16 == 0
+    assert flash_attention.mma_launches == before_mma + int(mma)
     want = ref.flash_attention_plain(q, k, v, **kw)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(out.float(), want.float(), **tol)
@@ -179,8 +188,10 @@ def test_flash_kernel_bf16_accumulator_matches_plain(dev, block_k):
     which m, l and acc round, so it follows the plain version's rounding."""
     q, k, v = _fa_inputs(dev, 1, 300, 300, 8, 4, 256, torch.bfloat16)
     for kw in (dict(), dict(window=100, softcap=50.0)):
+        before_mma = flash_attention.mma_launches
         out = flash_attention(q, k, v, block_k=block_k, acc_dtype="bf16",
                               **kw)
+        assert flash_attention.mma_launches == before_mma
         want = ref.flash_attention_plain(q, k, v, block_k=block_k,
                                          acc_dtype="bf16", **kw)
         torch.testing.assert_close(out.float(), want.float(), **BF16_TOL)
@@ -202,6 +213,15 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q, k, v = _fa_inputs(dev, 1, 600, 600, 8, 4, 256, torch.bfloat16)
     with pytest.raises(ValueError):                   # 512-key bf16 tile
         flash_attention(q, k, v, block_k=512, acc_dtype="bf16")
+    before = (flash_attention.launches, flash_attention.mma_launches)
+    for dtype in (torch.bfloat16, torch.float32):     # head_dim 272 > 256
+        q, k, v = _fa_inputs(dev, 1, 16, 16, 2, 1, 272, dtype)
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v)
+    q, k, v = _fa_inputs(dev, 65536, 1, 1, 1, 1, 16, torch.bfloat16)
+    with pytest.raises(ValueError):                   # grid's B > 65535
+        flash_attention(q, k, v)
+    assert (flash_attention.launches, flash_attention.mma_launches) == before
 
 
 def test_slot_engine_on_card_matches_cpu(dev):
@@ -221,11 +241,13 @@ def test_slot_engine_on_card_matches_cpu(dev):
                             max_len=48)
         rids = [eng.submit(p, max_new_tokens=5) for p in prompts]
         before = flash_attention.launches
+        before_mma = flash_attention.mma_launches
         eng.run_until_done()
         out[d] = [eng.done[r].tokens for r in rids]
         if d == "cuda":
             assert flash_attention.launches - before == (
                 cfg.n_layers * eng.stats.prefills) > 0
+            assert flash_attention.mma_launches == before_mma  # f32
     assert out["cuda"] == out["cpu"]
 
 

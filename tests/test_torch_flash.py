@@ -18,8 +18,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                  kernel_tiles, smem_bytes)
+from repro_torch.kernels.flash_attention import (MMA, SIMT, flash_attention,
+                                                  kernel_for, kernel_tiles,
+                                                  smem_bytes)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 8e-2)}
@@ -140,20 +141,58 @@ def test_wrapper_rejects_what_neither_version_takes():
 
 
 def test_kernel_tiles():
-    """f32: the kernel's own tiles (64 query rows over the group, 64-key
-    KV tiles) whatever the hints; bf16: the KV tile is block_k clamped to
-    Skv, and a tile past 227 KB of shared memory is refused here, before
-    any launch."""
-    assert kernel_tiles(8, 4, 256, 900, 128, "f32") == (16, 32, 64)
-    assert kernel_tiles(4, 2, 16, 900, 7, "f32") == (1, 32, 64)
-    assert kernel_tiles(8, 1, 128, 52, 128, "bf16") == (8, 8, 52)
-    assert kernel_tiles(8, 4, 256, 900, 256, "bf16") == (16, 32, 256)
+    """The CUDA-core kernel (f32 inputs, or a bf16 accumulator), with an
+    f32 accumulator: its own tiles (64 query rows over the group, 64-key
+    KV tiles) whatever the hints; with a bf16 one: the KV tile is block_k
+    clamped to Skv, and a tile past 227 KB of shared memory is refused
+    here, before any launch.  The tensor-core kernel (bf16 inputs, f32
+    accumulator): 64 query rows of one head and 64-key tiles whatever the
+    hints or the group, its head dim padded to the next built DP, and
+    shared memory for Q and a 2-slot K/V ring of 64 x (DP + 8) bf16."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert kernel_tiles(8, 4, 256, 900, 128, "f32", bf16) == (32, 64, 64)
+    assert kernel_tiles(8, 4, 256, 52, 7, "f32", bf16) == (32, 64, 64)
+    assert kernel_tiles(56, 8, 128, 900, 128, "f32", bf16) == (16, 64, 64)
+    assert kernel_tiles(4, 2, 16, 37, 128, "f32", bf16) == (2, 64, 64)
+    assert kernel_tiles(4, 2, 96, 37, 128, "f32", bf16) == (16, 64, 64)
+    assert kernel_tiles(128, 1, 64, 900, 128, "f32", bf16) == (8, 64, 64)
+    assert smem_bytes(256, 64, MMA) == 101376        # 3 x 64 x 264 x 2
+    assert smem_bytes(128, 64, MMA) == 52224
+    assert smem_bytes(96, 64, MMA) == smem_bytes(128, 64, MMA)
+    assert smem_bytes(16, 64, MMA) == 9216
+    # bf16 that the tensor-core kernel does not take: the CUDA-core tiles
+    assert kernel_tiles(8, 4, 24, 900, 128, "f32", bf16) == (2, 32, 64)
+    assert kernel_tiles(8, 4, 256, 900, 128, "bf16", bf16) == (16, 32, 128)
+    with pytest.raises(ValueError):
+        kernel_tiles(8, 4, 272, 900, 128, "f32", bf16)  # head_dim > 256
+    assert kernel_tiles(8, 4, 256, 900, 128, "f32", f32) == (16, 32, 64)
+    assert kernel_tiles(4, 2, 16, 900, 7, "f32", f32) == (1, 32, 64)
+    assert kernel_tiles(8, 1, 128, 52, 128, "bf16", f32) == (8, 8, 52)
+    assert kernel_tiles(8, 4, 256, 900, 256, "bf16", f32) == (16, 32, 256)
     assert smem_bytes(256, 64) == 148992
     with pytest.raises(ValueError):
-        kernel_tiles(8, 4, 256, 900, 512, "bf16")     # 263,680 bytes
+        kernel_tiles(8, 4, 256, 900, 512, "bf16", f32)  # 263,680 bytes
     with pytest.raises(ValueError):
-        kernel_tiles(8, 4, 260, 900, 128, "f32")      # head_dim > 256
+        kernel_tiles(8, 4, 260, 900, 128, "f32", f32)   # head_dim > 256
     with pytest.raises(ValueError):
-        kernel_tiles(8, 4, 20, 900, 128, "f32")       # 20 % 8 != 0
+        kernel_tiles(8, 4, 20, 900, 128, "f32", f32)    # 20 % 8 != 0
     with pytest.raises(ValueError):
-        kernel_tiles(128, 1, 64, 900, 128, "f32")     # group of 128
+        kernel_tiles(128, 1, 64, 900, 128, "f32", f32)  # group of 128
+
+
+@pytest.mark.parametrize("dtype,acc_dtype,D,kernel", [
+    (torch.bfloat16, "f32", 256, MMA),      # gemma2-2b, gemma3-1b prefill
+    (torch.bfloat16, "f32", 128, MMA),      # internlm2-20b, yi-34b
+    (torch.bfloat16, "f32", 16, MMA),       # the reduced configs
+    (torch.bfloat16, "f32", 96, MMA),       # padded to DP=128
+    (torch.bfloat16, "f32", 24, SIMT),      # D % 16 == 8
+    (torch.bfloat16, "f32", 272, SIMT),     # past 256: refused there
+    (torch.bfloat16, "bf16", 256, SIMT),    # the bf16 accumulator
+    (torch.float32, "f32", 256, SIMT),      # f32 stays full f32
+    (torch.float32, "bf16", 64, SIMT),
+])
+def test_dispatch_rule_picks_the_kernel(dtype, acc_dtype, D, kernel):
+    """The wrapper's dispatch is a function of (dtype, acc_dtype, D)
+    alone: the tensor-core kernel for bf16 with an f32 accumulator and
+    D % 16 == 0, D <= 256; the CUDA-core kernel for everything else."""
+    assert kernel_for(dtype, acc_dtype, D) == kernel
