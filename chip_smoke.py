@@ -9,13 +9,26 @@ exits non-zero):
 1. card: the ``nvidia-smi`` name and power limit, and the build of every
    CUDA kernel from this checkout's sources (one nvcc per source, all at
    once).
-2. kernel: the paged-attention kernel against its plain PyTorch version at
-   the serving shapes (B=8, H=8, KH=4, D=256, block 16, 64-entry tables,
-   bf16 pools), ragged contexts {0, 1, 17, 300, 1024} with a -1 entry
-   inside one context, window {None, 8, 4096} x softcap {None, 50} x
-   num_splits {1, 4}; with times for the kernel, the plain version,
-   ``F.scaled_dot_product_attention`` over the gathered K/V (a yardstick
-   only) and the memory bound.
+2. kernel: the paged-attention kernels (chunks, then merge) against their
+   plain PyTorch version at the serving shapes (B=8, H=8, KH=4, D=256,
+   block 16, 64-entry tables, bf16 pools), ragged contexts {0, 1, 17, 300,
+   1024} with a -1 entry inside one context, window {None, 8, 4096} x
+   softcap {None, 50} x num_splits {1, 4}; with times for the kernel, the
+   plain version, ``F.scaled_dot_product_attention`` over the gathered K/V
+   (a yardstick only) and the memory bound.  ``ms`` and ``library_ms``
+   are one call between a CUDA event pair, host cost included;
+   ``graph_ms`` and ``library_graph_ms`` are 20 calls captured in one
+   CUDA graph and replayed between one event pair, over 20 (device time
+   alone; the calls cycle over copies of the inputs larger together than
+   the L2, and the capture shows the call reads no device value).  Then
+   a sweep of the kernel's chunk (32, 64, 128 tokens) at the main case,
+   and contexts at and beside the chunk boundaries {31, 32, 33, 63, 64,
+   65, 128, 1024} (windows {None, 8, 40, 4096}, softcap {None, 50}, and
+   q x 30 where the softcap binds) beside fault controls the gate must
+   catch (``PAGED_MUST_CATCH``): the plain version with the window one
+   token wider, the softcap dropped, the query's own token excluded, the
+   unbacked page read as page 0, and a token at a chunk boundary
+   dropped.
 3. serve: full-width gemma2-2b (26 layers, seeded random bf16 weights)
    through ``PagedServingEngine`` (max_batch 8, max_len 1024, block 16,
    chunk 64) on 8 requests of 16-900 prompt tokens, 32 new tokens each,
@@ -191,9 +204,32 @@ def phase_card(torch):
     return card
 
 
-def _kernel_inputs(torch, np, dev, seed):
+# the paged gate's fault controls, each the plain version with one fault,
+# run on the chunk-boundary contexts (short rows, where one token moves the
+# output past ``KERNEL_TOL``), with the case's window, softcap and q scale:
+# the window one token wider, the softcap dropped where raw scores pass
+# +-50, the query's own token (ctx-1) excluded, the unbacked page read as
+# page 0, and the first token of the kernel's second chunk dropped
+PAGED_MUST_CATCH = {"window_wider": dict(window=8, softcap=None, q_mul=1.0),
+                    "softcap_dropped": dict(window=None, softcap=50.0,
+                                            q_mul=30.0),
+                    "last_token_excluded": dict(window=None, softcap=None,
+                                                q_mul=1.0),
+                    "unbacked_read_as_page0": dict(window=None, softcap=None,
+                                                   q_mul=1.0),
+                    "chunk_token_dropped": dict(window=None, softcap=None,
+                                                q_mul=1.0)}
+# contexts at and beside the kernel's chunk boundaries and the full table
+BOUNDARY_CTXS = [31, 32, 33, 63, 64, 65, 128, 1024]
+# copies of the inputs a graph's calls cycle over, so that what they read
+# (88 MB of touched pool pages; 128 MB of SDPA's gathered K/V) exceeds the
+# H100's 50 MB L2 and no call finds its bytes there
+POOL_COPIES = 8
+GATHERED_COPIES = 2
+
+
+def _kernel_inputs(torch, np, dev, seed, ctxs, hole):
     B, H, KH, D, bs, NB = 8, 8, 4, 256, 16, 64
-    ctxs = [0, 1, 17, 300, 1024, 1024, 300, 17]
     rng = np.random.default_rng(seed)
     pages = sum(-(-c // bs) for c in ctxs)
     P = 256
@@ -205,7 +241,7 @@ def _kernel_inputs(torch, np, dev, seed):
         bt[b, :n] = perm[used:used + n]
         used += n
     assert used == pages <= P
-    bt[3, 5] = -1                           # unbacked page inside ctx 300
+    bt[hole] = -1                           # an unbacked page inside a ctx
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
     kp = torch.randn((P, bs, KH, D), generator=g, device=dev).to(torch.bfloat16)
@@ -230,21 +266,84 @@ def _bound_ms(bt, ctxs, window, H, KH, D, bs):
                                        else "operations")
 
 
+def graph_ms(torch, calls, n=20, reps=5):
+    """Device time of one call: ``n`` calls captured in one CUDA graph,
+    call i running ``calls[i % len(calls)]`` (each on its own copy of the
+    inputs), the graph replayed between one CUDA event pair, over ``n``;
+    the median of ``reps`` replays.  No host cost is in it, and a call
+    that read a device value on the host could not be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(times)
+
+
+def _paged_fault(torch, ref, name, q, kp, vp, bt, ctx, kw, chunk):
+    """The plain version with fault ``name`` on the case's inputs."""
+    if name == "window_wider":
+        return ref.paged_attention_plain(q, kp, vp, bt, ctx,
+                                         **{**kw, "window": kw["window"] + 1})
+    if name == "softcap_dropped":
+        return ref.paged_attention_plain(q, kp, vp, bt, ctx,
+                                         **{**kw, "softcap": None})
+    if name == "last_token_excluded":
+        # without a window, attention over [0, ctx-1) is ctx - 1's
+        return ref.paged_attention_plain(q, kp, vp, bt,
+                                         (ctx - 1).clamp(min=0), **kw)
+    if name == "unbacked_read_as_page0":
+        return ref.paged_attention_plain(q, kp, vp, bt.clamp(min=0), ctx, **kw)
+    # token `chunk` (the first of the second chunk) masked in every row
+    s, v, valid = ref._scores_and_valid(
+        q, kp, vp, bt, ctx, scale=kw["scale"], window=kw["window"],
+        softcap=kw["softcap"])
+    valid[:, chunk] = False
+    p = torch.softmax(torch.where(valid[:, None, :], s, ref.NEG_INF), -1)
+    out = torch.einsum("bhk,bkhd->bhd", p, v)
+    return torch.where((ctx > 0)[:, None, None], out, 0.0).to(q.dtype)
+
+
 def phase_kernel(torch, np, dev, seed):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import (CHUNK_TOKENS, CHUNKS,
+                                                     paged_attention)
 
-    q, kp, vp, bt, ctx, bt_np, ctxs = _kernel_inputs(torch, np, dev, seed)
+    ctxs = [0, 1, 17, 300, 1024, 1024, 300, 17]
+    q, kp, vp, bt, ctx, bt_np, ctxs = _kernel_inputs(torch, np, dev, seed,
+                                                     ctxs, (3, 5))
     B, H, D = q.shape
     KH, bs = kp.shape[2], kp.shape[1]
     scale = D ** -0.5
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone())
+                          for _ in range(POOL_COPIES - 1)]
     # the library yardstick: SDPA over K/V gathered to contiguous [B,H,L,D]
     k_all = ref.gather_pages(kp, bt).repeat_interleave(H // KH, 2)
     v_all = ref.gather_pages(vp, bt).repeat_interleave(H // KH, 2)
     k_all, v_all = (t.permute(0, 2, 1, 3).contiguous() for t in (k_all, v_all))
+    gathered = [(k_all, v_all)] + [(k_all.clone(), v_all.clone())
+                                   for _ in range(GATHERED_COPIES - 1)]
     L = k_all.shape[2]
     lslot = torch.arange(L, device=dev)
     page_ok = bt.long()[:, lslot // bs] >= 0
@@ -263,9 +362,12 @@ def phase_kernel(torch, np, dev, seed):
                 max_err = max(max_err, err)
                 ms = gpu_ms(torch, lambda: paged_attention(
                     q, kp, vp, bt, ctx, **kw), 30, flush)
+                g_ms = graph_ms(torch, [
+                    (lambda k=k, v=v: paged_attention(q, k, v, bt, ctx, **kw))
+                    for k, v in pools])
                 plain_ms = gpu_ms(torch, lambda: ref.paged_attention_plain(
                     q, kp, vp, bt, ctx, **kw), 5, flush)
-                lib_ms = None
+                lib_ms = lib_g_ms = None
                 if softcap is None:       # SDPA has no logit softcap
                     valid = (lslot[None] < ctx[:, None].long()) & page_ok
                     if window:
@@ -275,14 +377,88 @@ def phase_kernel(torch, np, dev, seed):
                     q4 = q[:, :, None, :]
                     lib_ms = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
                         q4, k_all, v_all, attn_mask=mask, scale=scale), 30, flush)
+                    lib_g_ms = graph_ms(torch, [
+                        (lambda k=k, v=v: F.scaled_dot_product_attention(
+                            q4, k, v, attn_mask=mask, scale=scale))
+                        for k, v in gathered])
                 bound, bound_by = _bound_ms(bt_np, ctxs, window, H, KH, D, bs)
                 case = {"window": window, "softcap": softcap,
-                        "num_splits": ns, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "num_splits": ns, "chunk_tokens": CHUNK_TOKENS,
+                        "max_abs_err": err,
+                        "mismatch": (out != want).float().mean().item(),
+                        "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "library_graph_ms": lib_g_ms,
                         "bound_ms": bound, "bound_by": bound_by}
                 cases.append(case)
                 emit({"phase": "kernel", "name": "paged_attention", **case})
+    # the chunk, by measurement: each size the kernel takes at the main case
+    kw = dict(scale=scale, window=None, softcap=None)
+    want = ref.paged_attention_plain(q, kp, vp, bt, ctx, **kw)
+    sweep = {}
+    for chunk in CHUNKS:
+        kc = dict(kw, chunk_tokens=chunk)
+        out = paged_attention(q, kp, vp, bt, ctx, **kc)
+        torch.testing.assert_close(out.float(), want.float(), **KERNEL_TOL)
+        sweep[chunk] = {
+            "ms": gpu_ms(torch, lambda: paged_attention(q, kp, vp, bt, ctx,
+                                                        **kc), 30, flush),
+            "graph_ms": graph_ms(torch, [
+                (lambda k=k, v=v: paged_attention(q, k, v, bt, ctx, **kc))
+                for k, v in pools])}
+    emit({"phase": "kernel", "name": "paged_attention",
+          "chunk_sweep": sweep, "default": CHUNK_TOKENS})
+    del pools, gathered
+    max_err = max(max_err, _paged_boundary(torch, np, ref, paged_attention,
+                                           dev, seed, scale, CHUNK_TOKENS))
     return cases, max_err
+
+
+def _paged_boundary(torch, np, ref, paged_attention, dev, seed, scale,
+                    chunk):
+    """The kernel on contexts at and beside its chunk boundaries against
+    the plain version, and the controls in ``PAGED_MUST_CATCH`` on them;
+    returns the largest absolute error."""
+    q, kp, vp, bt, ctx, _, _ = _kernel_inputs(torch, np, dev, seed + 1,
+                                              BOUNDARY_CTXS, (3, 2))
+    checks, controls, max_err = [], {}, 0.0
+    for q_mul, window, softcap in [(1.0, w, c) for w in (None, 8, 40, 4096)
+                                   for c in (None, 50.0)] + [(30.0, None,
+                                                              50.0)]:
+        qc = (q.float() * q_mul).to(q.dtype)
+        for ns in (1, 4):
+            kw = dict(scale=scale, window=window, softcap=softcap,
+                      num_splits=ns)
+            out = paged_attention(qc, kp, vp, bt, ctx, **kw)
+            torch.cuda.synchronize()
+            want = ref.paged_attention_plain(qc, kp, vp, bt, ctx, **kw)
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **KERNEL_TOL)
+            err = (out.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            checks.append({"window": window, "softcap": softcap,
+                           "q_mul": q_mul, "num_splits": ns,
+                           "max_abs_err": err,
+                           "tol_ratio": _tol_ratio(out, want),
+                           "mismatch": (out != want).float().mean().item()})
+            if ns != 1:
+                continue
+            for name, at in PAGED_MUST_CATCH.items():
+                if (at["window"], at["softcap"], at["q_mul"]) == (
+                        window, softcap, q_mul):
+                    got = _paged_fault(torch, ref, name, qc, kp, vp, bt, ctx,
+                                       kw, chunk)
+                    r = _tol_ratio(got, want)
+                    controls[name] = {"tol_ratio": r, "caught": r > 1,
+                                      "mismatch": (got != want).float()
+                                      .mean().item()}
+    emit({"phase": "kernel", "name": "paged_attention",
+          "boundary_ctxs": BOUNDARY_CTXS, "checks": checks,
+          "controls": controls})
+    missed = [n for n in PAGED_MUST_CATCH
+              if not controls.get(n, {}).get("caught")]
+    if missed:
+        raise AssertionError(f"the paged gate misses {missed}: {controls}")
+    return max_err
 
 
 def _flash_bound_ms(B, Sq, Skv, H, KH, D, causal, window, elem=2,
@@ -1407,7 +1583,8 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:203",
          "launches": launches, "max_abs_err": max_err,
-         **{k: main_case[k] for k in keys}},
+         **{k: main_case[k] for k in keys + ("graph_ms",
+                                              "library_graph_ms")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
          "replaces": "src/repro/kernels/flash_attention.py:80",

@@ -68,9 +68,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None, window=None, softcap=None, num_splits=None,
                     config=None):
     """Paged decode attention.  ``block_size`` is a cache-layout parameter
-    fixed by ``k_pages.shape[1]``; ``num_splits`` (the split-KV grid axis)
-    resolves here and is clamped to the table width, so every split covers
-    at least zero whole pages."""
+    fixed by ``k_pages.shape[1]``; ``num_splits`` resolves here and is
+    clamped to the table width, so every split covers at least zero whole
+    pages.  It keeps the reference's meaning, the split-KV grid axis, and
+    selects the plain version's split form on the CPU; the CUDA kernels
+    partition the context into their own fixed token chunks
+    (``kernels.paged_attention.CHUNK_TOKENS``), so on the card it changes
+    neither the function nor the work."""
     NB = block_tables.shape[1]
     c = resolve_kernel_config("paged_attention", config=config,
                               explicit={"num_splits": num_splits})

@@ -1,16 +1,27 @@
-"""Paged-attention decode: the wrapper around the CUDA kernel
-(``csrc/paged_attention.cu``), which replaces the TPU Pallas kernels
+"""Paged-attention decode: the wrapper around the CUDA kernels
+(``csrc/paged_attention.cu``), which replace the TPU Pallas kernels
 ``repro.kernels.paged_attention.paged_attention`` and
 ``paged_attention_hbm``.
 
 A tensor on the CPU goes to the plain version (``ref.paged_attention_plain``);
-a CUDA tensor launches the kernel or raises, with no fallback.  The split-KV
-form launches the kernel with a ``num_splits`` grid axis (partial
-``(m, l, acc)`` rows) and merges in plain torch, as the JAX package merges
-outside its Pallas kernel.
+a CUDA tensor launches the kernels or raises, with no fallback.
 
-``paged_attention.launches`` counts kernel launches (plain integer; reset it
-to 0 before a run to prove the run went through the kernel).
+On the card every row's token range is cut into fixed chunks of
+``chunk_tokens`` tokens (``chunk_pages = chunk_tokens / block_size`` pages
+when the block size divides it): one block per (chunk, KV head, row) stages
+its chunk's K and V rows in shared memory with ``cp.async`` and writes an f32
+partial (m, l, acc) row per query head; a merge kernel, from the same C call
+on the same stream, folds each row's live chunks with the log-sum-exp
+rescale.  The grid comes from the table width alone (``chunk_grid``), never
+from ``context_lens``, so a call reads no device value and can be captured
+in a CUDA graph.  ``num_splits`` keeps the reference's meaning (its split-KV
+grid axis) and is accepted (clamped to >= 1), but the kernels' partition is
+their own chunking: the function, and the kernels' work, are the same for
+every split count.  The plain version still honours it.
+
+``paged_attention.launches`` counts wrapper calls that launch the kernels,
+one per call (plain integer; reset it to 0 before a run to prove the run
+went through them).
 """
 from __future__ import annotations
 
@@ -19,10 +30,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import merge_partials, paged_attention_plain
+from repro_torch.kernels.ref import paged_attention_plain
 
 _GMAX = (1, 2, 4, 8)
-_DPL = (1, 2, 4, 8)
+CHUNKS = (32, 64, 128)
+# tokens of a chunk: the measured best of CHUNKS at the serving shapes
+# (B=8, H=8, KH=4, D=256, 64-entry tables of 16-token pages; PERF.md)
+CHUNK_TOKENS = 64
 _fn = None
 
 
@@ -33,20 +47,28 @@ def _launcher():
         fn = lib.paged_attention_launch
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, I, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, I, I, F, I, F, I, P]
+                       I, I, I, I, I, I, I, I, I, F, I, F, P]
         fn.restype = I
         _fn = fn
     return _fn
 
 
-def _template_bounds(G: int, D: int):
+def chunk_grid(NB: int, bs: int, chunk_tokens: int = CHUNK_TOKENS) -> int:
+    """Chunks per row, the kernel grid's first axis: ``ceil(NB * bs /
+    chunk_tokens)`` from the table width alone."""
+    if chunk_tokens not in CHUNKS:
+        raise ValueError(f"chunk_tokens must be one of {CHUNKS}, got "
+                         f"{chunk_tokens}")
+    return -(-NB * bs // chunk_tokens)
+
+
+def _group_bound(G: int, D: int) -> int:
     gmax = next((g for g in _GMAX if g >= G), None)
-    dpl = next((d for d in _DPL if 32 * d >= D), None)
-    if gmax is None or dpl is None or D % dpl:
+    if gmax is None or D > 256 or D % 8:
         raise ValueError(f"paged_attention kernel takes GQA groups <= "
-                         f"{_GMAX[-1]} and head_dim <= {32 * _DPL[-1]} with "
-                         f"head_dim % {dpl} == 0; got group {G}, head_dim {D}")
-    return gmax, dpl
+                         f"{_GMAX[-1]} and head_dim <= 256 with head_dim % 8 "
+                         f"== 0; got group {G}, head_dim {D}")
+    return gmax
 
 
 def _check(q, k_pages, v_pages, block_tables, context_lens):
@@ -77,25 +99,29 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or tuple(context_lens.shape) != (B,):
         raise ValueError("block_tables must be [B,NB] and context_lens [B]")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the KV pools must be 16-byte aligned")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
-                    scale=None, window=None, softcap=None, num_splits=1):
+                    scale=None, window=None, softcap=None, num_splits=1,
+                    chunk_tokens=CHUNK_TOKENS):
     """q [B,H,D]; k/v_pages [P,bs,KH,D] bf16; block_tables [B,NB] int32
     (-1 = unbacked); context_lens [B] int32 -> [B,H,D] in q's dtype.
 
     Decode attention of one new token per row over its paged context, the
     query at position ``ctx - 1``; optional sliding ``window`` and logit
-    ``softcap``; rows with ``ctx == 0`` give zeros."""
+    ``softcap``; rows with ``ctx == 0`` give zeros.  ``num_splits`` (>= 1
+    after clamping) selects the plain version's split-KV form on the CPU
+    and does not change the card's work; ``chunk_tokens`` (one of
+    ``CHUNKS``) is the kernels' chunk on the card."""
     B, H, D = q.shape
     scale = float(scale) if scale is not None else D ** -0.5
     num_splits = max(int(num_splits), 1)
     if (window is not None and window <= 0) or (softcap is not None
                                                  and softcap <= 0):
         raise ValueError("window and softcap must be positive or None")
+    NC = chunk_grid(block_tables.shape[1], k_pages.shape[1], chunk_tokens)
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, block_tables, context_lens, scale=scale,
@@ -105,29 +131,25 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     _check(q, k_pages, v_pages, block_tables, context_lens)
     P, bs, KH, _ = k_pages.shape
     NB = block_tables.shape[1]
-    gmax, dpl = _template_bounds(H // KH, D)
-    if num_splits == 1:
-        out = torch.empty_like(q)
-        m = l = acc = None
-    else:
-        out = None
-        m = torch.empty((B, H, num_splits), dtype=torch.float32, device=q.device)
-        l = torch.empty_like(m)
-        acc = torch.empty((B, H, num_splits, D), dtype=torch.float32,
-                          device=q.device)
-    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    gmax = _group_bound(H // KH, D)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    # f32 scratch: acc [B,H,NC,D], then m and l [B,H,NC]
+    n = B * H * NC
+    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    acc = scratch.data_ptr()
     rc = _launcher()(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         v_pages.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-        ptr(out), ptr(m), ptr(l), ptr(acc), B, H, KH, D, P, bs, NB, gmax, dpl,
-        scale, int(window) if window else 0, float(softcap) if softcap else 0.0,
-        num_splits, torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), acc + 4 * n * D, acc + 4 * n * (D + 1), acc,
+        B, H, KH, D, P, bs, NB, gmax, chunk_tokens, scale,
+        int(window) if window else 0, float(softcap) if softcap else 0.0,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (rc={rc})")
     paged_attention.launches += 1
-    if num_splits == 1:
-        return out
-    return merge_partials(m, l, acc, q.dtype)
+    return out
 
 
 paged_attention.launches = 0

@@ -3,7 +3,8 @@ held against on the card, and what the wrappers run for tensors on the
 CPU.
 
 * paged attention: ports of ``repro.kernels.ref.gather_pages`` /
-  ``paged_attention_ref`` plus the split-KV first pass and its merge;
+  ``paged_attention_ref`` plus the split-KV first pass and its merge, and
+  the CUDA kernel's partition into fixed token chunks;
 * flash attention: ``flash_attention_ref`` (full softmax, a port of
   ``repro.kernels.ref.flash_attention_ref``) and ``flash_attention_plain``
   (the blocked online softmax of ``repro.kernels.flash_attention``, with
@@ -79,6 +80,21 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     return out.to(q.dtype)
 
 
+def _partials(s, v, valid, part, n):
+    """Partial softmax rows of the slots in each of ``n`` partitions: slot
+    k of row b belongs to partition ``part[b, k]``.  Returns m, l [B,H,n]
+    and acc [B,H,n,D] (f32); an empty partition gives the identity partial
+    (NEG_INF, 0, 0)."""
+    pid = torch.arange(n, device=s.device)
+    mask = valid[:, None, :] & (part[:, None, :] == pid[None, :, None])
+    sm = torch.where(mask[:, None], s[:, :, None, :], NEG_INF)  # [B,H,n,L]
+    m = sm.amax(dim=-1)
+    p = torch.where(mask[:, None], torch.exp(sm - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhsk,bkhd->bhsd", p, v)
+    return m, l, acc
+
+
 def paged_attention_partials_ref(q, k_pages, v_pages, block_tables,
                                  context_lens, *, scale=None, window=None,
                                  softcap=None, num_splits=2):
@@ -97,15 +113,25 @@ def paged_attention_partials_ref(q, k_pages, v_pages, block_tables,
     n_valid = torch.clamp((ctx + bs - 1) // bs, max=NB)
     pps = torch.clamp((n_valid + num_splits - 1) // num_splits, min=1)
     page = torch.arange(NB * bs, device=q.device) // bs      # [L]
-    split = page[None] // pps[:, None]                       # [B, L]
-    sid = torch.arange(num_splits, device=q.device)
-    mask = valid[:, None, :] & (split[:, None, :] == sid[None, :, None])
-    sm = torch.where(mask[:, None], s[:, :, None, :], NEG_INF)  # [B,H,S,L]
-    m = sm.amax(dim=-1)
-    p = torch.where(mask[:, None], torch.exp(sm - m[..., None]), 0.0)
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhsk,bkhd->bhsd", p, v)
-    return m, l, acc
+    return _partials(s, v, valid, page[None] // pps[:, None], num_splits)
+
+
+def paged_attention_chunk_partials(q, k_pages, v_pages, block_tables,
+                                   context_lens, *, scale=None, window=None,
+                                   softcap=None, chunk_tokens=64):
+    """The CUDA kernel's partition: every row's slots cut into fixed
+    chunks of ``chunk_tokens`` tokens, ``ceil(NB*bs / chunk_tokens)`` of
+    them whatever the context; each chunk yields its partial softmax row.
+    Returns m, l [B,H,NC] and acc [B,H,NC,D] (f32); a chunk with no valid
+    slot (past ctx, before the window, or all unbacked) gives the identity
+    partial (NEG_INF, 0, 0)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    L = block_tables.shape[1] * k_pages.shape[1]
+    s, v, valid = _scores_and_valid(q, k_pages, v_pages, block_tables,
+                                    context_lens, scale=scale, window=window,
+                                    softcap=softcap)
+    chunk = torch.arange(L, device=q.device) // chunk_tokens
+    return _partials(s, v, valid, chunk[None], -(-L // chunk_tokens))
 
 
 def merge_partials(m, l, acc, out_dtype):

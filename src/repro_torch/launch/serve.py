@@ -13,7 +13,8 @@ block_size=16, chunk_size=64)``.  Weights are random, drawn from
 build, library start-up) the traffic is served once, timed step by step;
 one JSON line reports it.  With ``--profile`` it is served again under
 ``torch.profiler``, which adds the device's busy share of the wall time,
-the kernels by device time, and the engine's spans (``prefill`` or
+the kernels by device time (the twelve largest, and the port's own
+attention kernels by source), and the engine's spans (``prefill`` or
 ``prefill_chunk``, ``decode_step``, ``sync``) with their host time and
 their kernels' time.
 """
@@ -62,6 +63,9 @@ def _serve(model, params, prompts, paged):
 
 
 SPANS = ("prefill", "prefill_chunk", "decode_step", "sync")
+# the port's kernels that serving runs, by source (``kernels/csrc/``), as
+# the profiler names them (``flash_attention`` counts both flash sources)
+PORT_KERNELS = ("paged_attention", "flash_attention")
 MAX_NEW = 32
 
 
@@ -91,6 +95,12 @@ def _profile(model, params, prompts, paged):
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    port = {}
+    for name, (n, us) in by_name.items():
+        src = next((s for s in PORT_KERNELS if s in name), None)
+        if src is not None:
+            c, t = port.get(src, (0, 0.0))
+            port[src] = (c + n, t + us)
     spans = {s: {"calls": 0, "host_ms": 0.0, "kernel_ms": 0.0}
              for s in SPANS}
     for e in events:
@@ -104,6 +114,8 @@ def _profile(model, params, prompts, paged):
             "kernel_launches": len(kernels),
             "kernels": [{"name": n[:90], "calls": c, "device_ms": us / 1e3}
                         for n, (c, us) in top],
+            "port_kernels": {s: {"calls": c, "device_ms": us / 1e3}
+                             for s, (c, us) in sorted(port.items())},
             "spans": spans}
 
 

@@ -64,6 +64,11 @@ def _case(dev, B, H, KH, D, bs, ctxs, qdtype, seed=0, hole=None):
             torch.tensor(ctxs, dtype=torch.int32, device=dev))
 
 
+# contexts at and beside the kernel's chunk boundaries (32, 64 and 128
+# tokens) and the full 64-page table of 16-token pages
+BOUNDARY_CTXS = (31, 32, 33, 63, 64, 65, 128, 1024)
+
+
 @pytest.mark.parametrize("ns", [1, 3, 4])
 @pytest.mark.parametrize("kw", [dict(), dict(window=64, softcap=50.0),
                                 dict(window=8)])
@@ -74,10 +79,10 @@ def _case(dev, B, H, KH, D, bs, ctxs, qdtype, seed=0, hole=None):
     (4, 4, 64),       # no grouping
 ])
 @pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
-def test_kernel_matches_plain(dev, qdtype, shape, kw, ns):
+@pytest.mark.parametrize("ctxs", [(0, 1, 17, 300, 64), BOUNDARY_CTXS])
+def test_kernel_matches_plain(dev, ctxs, qdtype, shape, kw, ns):
     H, KH, D = shape
-    args = _case(dev, 5, H, KH, D, 16, (0, 1, 17, 300, 64), qdtype,
-                 hole=(3, 2))
+    args = _case(dev, len(ctxs), H, KH, D, 16, ctxs, qdtype, hole=(3, 2))
     before = paged_attention.launches
     out = paged_attention(*args, num_splits=ns, **kw)
     torch.cuda.synchronize()
@@ -85,7 +90,60 @@ def test_kernel_matches_plain(dev, qdtype, shape, kw, ns):
     want = ref.paged_attention_plain(*args, num_splits=ns, **kw)
     tol = BF16_TOL if qdtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(out.float(), want.float(), **tol)
-    assert torch.all(out[0] == 0)                 # the ctx == 0 row
+    for b, c in enumerate(ctxs):
+        if c == 0:
+            assert torch.all(out[b] == 0)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("kw", [dict(), dict(window=40, softcap=50.0),
+                                dict(window=8)])
+def test_kernel_chunk_sizes_match_plain(dev, chunk, kw):
+    """Every chunk the kernel takes, at the serving head shape, with
+    windows that start mid-chunk."""
+    args = _case(dev, 8, 8, 4, 256, 16, BOUNDARY_CTXS, torch.bfloat16,
+                 hole=(3, 2))
+    out = paged_attention(*args, chunk_tokens=chunk, **kw)
+    want = ref.paged_attention_plain(*args, **kw)
+    torch.testing.assert_close(out.float(), want.float(), **BF16_TOL)
+
+
+def test_kernel_is_deterministic(dev):
+    """Fixed summation order, no atomics: two calls are bit-equal."""
+    args = _case(dev, 8, 8, 4, 256, 16, BOUNDARY_CTXS, torch.bfloat16,
+                 hole=(3, 2))
+    a = paged_attention(*args, softcap=50.0)
+    b = paged_attention(*args, softcap=50.0)
+    assert torch.equal(a, b)
+
+
+def test_kernel_replays_from_a_cuda_graph(dev):
+    """The launch reads no device value: captured once, the graph replays
+    correctly after the contexts and the block tables change in place."""
+    q, kp, vp, bt, ctx = _case(dev, 4, 8, 4, 256, 16, (5, 40, 300, 64),
+                               torch.float32)
+    kw = dict(window=64, softcap=50.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up: build and load
+        paged_attention(q, kp, vp, bt, ctx, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_attention(q, kp, vp, bt, ctx, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, ref.paged_attention_plain(q, kp, vp, bt, ctx, **kw), **F32_TOL)
+    # each row takes another row's pages, one of them with a hole
+    bt.copy_(bt.flip(0))
+    bt[1, 3] = -1
+    ctx.copy_(torch.tensor([60, 299, 0, 5], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref.paged_attention_plain(q, kp, vp, bt, ctx, **kw)
+    torch.testing.assert_close(out, want, **F32_TOL)
+    assert torch.all(out[2] == 0)
 
 
 def test_kernel_split_partials_identity(dev):

@@ -1,9 +1,10 @@
 """The port's paged-attention wrapper against the JAX package.
 
 On the CPU the wrapper runs its plain version, so these tests hold that
-version (unsplit oracle, and split pass + log-sum-exp merge) against JAX's
-oracle ``repro.kernels.ref.paged_attention_ref`` and its interpret-mode
-Pallas kernel (staged lowering).  Inputs are numpy arrays from a seed,
+version (unsplit oracle, and split pass + log-sum-exp merge) and the CUDA
+kernel's partition into fixed token chunks against JAX's oracle
+``repro.kernels.ref.paged_attention_ref`` and its interpret-mode Pallas
+kernel (staged lowering).  Inputs are numpy arrays from a seed,
 handed to both packages.  Tolerance: f32 atol 1e-5 (the two differ only in
 summation order).  The CUDA kernel itself is tested on the card by
 ``tests/test_torch_cuda.py``.
@@ -17,7 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (CHUNK_TOKENS, CHUNKS,
+                                                 chunk_grid, paged_attention)
 
 
 def _case(B, H, KH, D, bs, ctxs, n_pages, seed=0, hole=None):
@@ -160,3 +162,63 @@ def test_wrapper_rejects_bad_arguments():
         paged_attention(*arrs, window=0)
     with pytest.raises(ValueError):
         paged_attention(arrs[0].to("meta"), *arrs[1:])
+
+
+def _live(ctxs, window, L):
+    """Per row, the live slots [lo, hi) the CUDA kernel reads."""
+    return [(max(c - window, 0) if window else 0, min(max(c, 0), L))
+            for c in ctxs]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=3),
+                                dict(window=9, softcap=4.0),
+                                dict(window=40)])
+@pytest.mark.parametrize("bs,ctxs,chunk", [
+    (4, (0, 7, 8, 9, 16, 17, 24), 4),
+    (4, (0, 7, 8, 9, 16, 17, 24), 8),
+    (4, (0, 7, 8, 9, 16, 17, 24), 32),      # one chunk holds the table
+    (16, (1, 31, 32, 33, 63, 64, 65, 129), 32),
+    (16, (1, 31, 32, 33, 63, 64, 65, 129), 64),
+    (16, (1, 31, 32, 33, 63, 64, 65, 129), 128),
+])
+def test_chunked_partition_matches_jax(bs, ctxs, chunk, kw):
+    """The CUDA kernel's partition in plain torch: partials per fixed chunk
+    of ``chunk`` tokens (``chunk / bs`` pages, or a page over several
+    chunks), folded by ``merge_partials``, against JAX's oracle.  Contexts
+    on and beside chunk boundaries, ctx 0, an unbacked page inside a
+    context (row 5), windows that start mid-chunk and chunks wholly
+    outside the window.  The chunks the kernel skips (no live slot) are
+    identity partials, so leaving them out of the merge changes nothing."""
+    arrs = _case(len(ctxs), 4, 2, 16, bs, ctxs, n_pages=40, hole=(5, 2))
+    m, l, acc = tref.paged_attention_chunk_partials(
+        *_torch(*arrs), chunk_tokens=chunk, **kw)
+    L = arrs[3].shape[1] * bs
+    assert m.shape[-1] == -(-L // chunk)
+    out = tref.merge_partials(m, l, acc, torch.float32).numpy()
+    want = np.asarray(jref.paged_attention_ref(*_jax(*arrs), **kw))
+    np.testing.assert_allclose(out, want, atol=1e-5)
+    skipped = 0
+    for b, (lo, hi) in enumerate(_live(ctxs, kw.get("window"), L)):
+        for c in range(m.shape[-1]):
+            if max(lo, c * chunk) >= min(hi, (c + 1) * chunk):
+                skipped += 1
+                assert torch.all(m[b, :, c] == tref.NEG_INF)
+                assert torch.all(l[b, :, c] == 0)
+                assert torch.all(acc[b, :, c] == 0)
+    assert skipped > 0
+
+
+def test_chunk_grid_comes_from_the_table_width():
+    """The kernel grid's chunk axis: ceil(NB * bs / chunk_tokens), the
+    serving shapes' 64 x 16 slots giving 16 chunks of 64 tokens."""
+    assert CHUNK_TOKENS in CHUNKS
+    assert chunk_grid(64, 16) == 64 * 16 // CHUNK_TOKENS
+    assert [chunk_grid(64, 16, c) for c in CHUNKS] == [32, 16, 8]
+    assert chunk_grid(5, 4, 32) == 1
+    assert chunk_grid(3, 100, 128) == 3        # pages span chunks
+    assert chunk_grid(0, 16, 64) == 0
+    with pytest.raises(ValueError):
+        chunk_grid(4, 16, 48)
+    arrs = _torch(*_case(2, 4, 2, 16, 4, (3, 5), n_pages=8))
+    with pytest.raises(ValueError):
+        paged_attention(*arrs, chunk_tokens=16)
