@@ -71,9 +71,20 @@ exits non-zero):
    ``alu_chain`` for every (op, dtype, dependent) the harness runs, at
    length 12; ``pointer_chase`` in shared memory and in global memory under
    ``.ca``/``.cg``/``.cv``, on cycles of 64, 4096 and 2^20 entries (shared
-   where the array fits); ``mxu_probe`` on the JAX kernel tests' sweep and
-   the ``mxu_shapes`` grid's shapes; with times for the kernel, the plain
-   version, ``torch.matmul`` (``mxu_probe`` at chain 1) and the bound.
+   where the array fits); ``mxu_probe`` in bf16 and f32 on the JAX kernel
+   tests' sweep, the ``mxu_shapes`` grid's shapes and chains that keep A
+   resident or stream it (``MXU_CASES``), and the calibration's
+   independent launches at their widest (``mxu_wide_cells``: L * reps
+   products side by side, reps from the card's occupancy), each within
+   ``REL_TOL`` of the plain version on seeded random inputs, with the share
+   of outputs not bit-equal per dtype, beside fault controls the gate must
+   catch (``MXU_MUST_CATCH``: a step reading the panel of two steps back,
+   the last 16-wide k-slab dropped, the next row block's A rows) and the
+   kernel's SASS opcode mix; with
+   times for the kernel, the plain version, ``torch.matmul`` (``mxu_probe``
+   at chain 1) and the bound: ``ms``/``library_ms`` one call,
+   ``stream_ms``/``library_stream_ms`` 20 calls back to back (every probe;
+   no library call for ``alu_chain`` and ``pointer_chase``).
 10. calibration: the port's campaign runs the full grids of the four
    calibration experiments (alu_chain, memory_chase, mxu_shapes,
    roofline_calibration) through the probe kernels into
@@ -81,7 +92,10 @@ exits non-zero):
    ``chiprun_out/hopper_h100.json``; it fails on an error cell other than
    the three ``(512,512,128)`` dependent ``mxu_shapes`` cells that the
    reference fails too, a dependent ALU cell under 1 cycle per op (a folded
-   chain), or a 64 MiB chase no slower per hop than a 16 KiB one.
+   chain), a 64 MiB chase no slower per hop than a 16 KiB one, or a
+   tensor-core reading no card can give (``mxu_rate_faults``: an
+   ``mxu_shapes`` cell or ``mxu_peak_tflops`` not above 0 or above its
+   type's dense peak, or a per-op time at the harness's floor).
 11. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
@@ -896,11 +910,102 @@ def _bound(nbytes, ops, ops_per_s):
                                        else "operations")
 
 
+# the mxu_probe cases (m, k, n, chain, block): the JAX kernel tests' sweep,
+# the mxu_shapes grid's shapes, and chains that keep A resident (bf16
+# K=256, bn=64) or stream it through the k-slab ring (bf16 K=256 at
+# bn=128, every f32 K=256 chain); block None: the dependent harness's
+# panel for a chain, the default (128, 128) at chain 1
+MXU_CASES = [(128, 128, 128, 1, None), (128, 128, 128, 4, None),
+             (256, 256, 128, 1, None), (256, 256, 256, 1, None),
+             (256, 256, 256, 8, None), (512, 128, 512, 1, None),
+             (256, 256, 256, 8, (256, 64)), (256, 256, 256, 3, (256, 64))]
+# the calibration's independent launches at their widest (the longest L of
+# run_mxu_cell, 8, and of mxu_peak_tflops, 4): a [m, k] against L * reps
+# products' b side by side, [k, L * reps * n], at the default block, with
+# reps one full wave of the card's blocks (core/microbench/mxu.py)
+MXU_PEAK_CELL = ((512, 512, 512), 4)
+
+
+def mxu_wide_cells(dt):
+    """(shape (m, n, k), L) of each independent launch the calibration
+    makes in ``dt`` at its widest: the mxu_shapes grid, and in f32 the
+    roofline's mxu_peak_tflops."""
+    from repro_torch.core.campaign import registry
+    cells = [(tuple(s), 8) for s in registry.get("mxu_shapes").grid["shape"]]
+    return cells + ([MXU_PEAK_CELL] if str(dt) == "torch.float32" else [])
+
+
+# the mxu gate's fault controls, each the plain version with one fault, at
+# the case the redesign risks: step s reads the panel of step s - 2 (the
+# double buffer's race), the k-loop ends one 16-wide slab early, and
+# chain 1 reads the A rows of the next row block (block (128, 128))
+MXU_MUST_CATCH = {"stale_panel": (256, 256, 256, 8),
+                  "last_kslab_dropped": (256, 256, 256, 1),
+                  "neighbour_rows": (256, 256, 256, 1)}
+
+
+def mxu_inputs(np, m, k, n, seed):
+    """The probe's seeded inputs, a [m,k] and b [k,n], normal x 0.1 (f32
+    numpy)."""
+    rng = np.random.default_rng(seed + m + 3 * k + 7 * n)
+    return ((rng.normal(size=(m, k)) * 0.1).astype(np.float32),
+            (rng.normal(size=(k, n)) * 0.1).astype(np.float32))
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|: the mxu gate's measure."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def mxu_fault(torch, ref, name, a, b, chain):
+    """The plain version with fault ``name`` (``MXU_MUST_CATCH``)."""
+    if name == "stale_panel":
+        panels = [b]                    # the input, then each step's output
+        for s in range(chain):
+            panels.append(ref.mxu_probe_plain(
+                a, panels[-1] if s == 0 else panels[-2]))
+        return panels[-1]
+    if name == "last_kslab_dropped":
+        return ref.mxu_probe_plain(a[:, :-16].contiguous(),
+                                   b[:-16].contiguous(), chain=chain)
+    return ref.mxu_probe_plain(torch.roll(a, -128, dims=0), b, chain=chain)
+
+
+def mxu_controls(torch, np, ref, dt, dev, seed):
+    """Each ``MXU_MUST_CATCH`` fault against the sound plain version on
+    its case's inputs in ``dt``: its error over ``REL_TOL`` (the gate
+    catches it above 1) and the share of outputs not bit-equal."""
+    from repro_torch.kernels.mxu_probe import REL_TOL
+    out = {}
+    for name, (m, k, n, chain) in MXU_MUST_CATCH.items():
+        an, bn = mxu_inputs(np, m, k, n, seed)
+        a = torch.from_numpy(an).to(dt).to(dev)
+        b = torch.from_numpy(bn).to(dt).to(dev)
+        want = ref.mxu_probe_plain(a, b, chain=chain)
+        got = mxu_fault(torch, ref, name, a, b, chain)
+        ratio = _rel_err(got, want) / REL_TOL
+        out[name] = {"tol_ratio": ratio,
+                     "mismatch": (got != want).float().mean().item(),
+                     "caught": ratio > 1}
+    return out
+
+
+def mxu_sass():
+    """The SASS opcode mix of each built mxu_probe kernel instance, or why
+    there is none."""
+    from repro_torch.kernels import _build
+    try:
+        return _build.sass_mix("mxu_probe", top=24)
+    except (RuntimeError, OSError) as e:
+        return {"unavailable": str(e)[:200]}
+
+
 def phase_probes(torch, np, dev, seed):
     """Each probe kernel against its plain version on the card; one timed
     case per kernel for the kernels line."""
     from repro_torch.core.microbench.memory import _random_cycle
-    from repro_torch.core.microbench.mxu import dependent_block
+    from repro_torch.core.microbench.mxu import card_reps, dependent_block
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.alu_chain import tolerance
     from repro_torch.kernels.mxu_probe import REL_TOL
@@ -938,9 +1043,10 @@ def phase_probes(torch, np, dev, seed):
     kw = dict(op="fma", length=256, dependent=True)
     alu = {"case": "fma f32 dependent, length 256, (8,128)",
            "ms": gpu_ms(torch, lambda: ops.alu_chain(x, cv, **kw), 30),
+           "stream_ms": stream_ms(torch, lambda: ops.alu_chain(x, cv, **kw)),
            "plain_ms": gpu_ms(torch, lambda: ref.alu_chain_plain(x, cv, **kw),
                               5),
-           "library_ms": None}
+           "library_ms": None, "library_stream_ms": None}
     alu["bound_ms"], alu["bound_by"] = _bound(2 * 1024 * 4 + 12,
                                               2 * 1024 * 256, F32_OPS_PER_S)
     emit({"phase": "probes", "name": "alu_chain", "cases": n_alu,
@@ -967,9 +1073,11 @@ def phase_probes(torch, np, dev, seed):
             chase = {"case": "global .ca, 2^20 entries (4 MiB), 4096 hops",
                      "ms": gpu_ms(torch, lambda: ops.pointer_chase(
                          nxt, 1, **kw), 20),
+                     "stream_ms": stream_ms(torch, lambda: ops.pointer_chase(
+                         nxt, 1, **kw)),
                      "plain_ms": gpu_ms(torch, lambda: ref.pointer_chase_plain(
                          nxt, 1, 4096), 3),
-                     "library_ms": None}
+                     "library_ms": None, "library_stream_ms": None}
             chase["bound_ms"], chase["bound_by"] = _bound(4096 * 4 + 4, 0,
                                                           F32_OPS_PER_S)
     # the paper's Fig. 2: cycles per hop in each space and under each
@@ -989,35 +1097,77 @@ def phase_probes(torch, np, dev, seed):
           "max_abs_err": 0.0, "cycles_per_hop_16KiB": fig2, **chase})
     worst["pointer_chase"] = 0.0
 
-    cases = [(128, 128, 128, 1), (128, 128, 128, 4), (256, 256, 128, 1),
-             (256, 256, 256, 1), (256, 256, 256, 8), (512, 128, 512, 1)]
-    worst_rel = 0.0
+    worst_rel, mismatch, controls, wide = 0.0, {}, {}, {}
     for dt in (torch.bfloat16, torch.float32):
-        for m, k, n, chain in cases:
-            a = torch.from_numpy(rng.normal(size=(m, k)) * 0.1).to(dt).to(dev)
-            b = torch.from_numpy(rng.normal(size=(k, n)) * 0.1).to(dt).to(dev)
-            block = dependent_block(m, n, k, dt, chain) if chain > 1 else None
+        name = str(dt).split(".")[-1]
+        diff = total = 0
+        for m, k, n, chain, block in MXU_CASES:
+            an, bn = mxu_inputs(np, m, k, n, seed)
+            a = torch.from_numpy(an).to(dt).to(dev)
+            b = torch.from_numpy(bn).to(dt).to(dev)
+            if block is None and chain > 1:
+                block = dependent_block(m, n, k, dt, chain)
             out = ops.mxu_probe(a, b, chain=chain, block=block)
             torch.cuda.synchronize()
-            want = ref.mxu_probe_plain(a, b, chain=chain).float()
-            err = (out.float() - want).abs().max().item()
-            rel = err / want.abs().max().item()
+            want = ref.mxu_probe_plain(a, b, chain=chain)
+            rel = _rel_err(out, want)
             if not rel <= REL_TOL:
-                raise AssertionError(f"mxu_probe {dt} {(m, k, n, chain)}: "
-                                     f"error {rel} of max > {REL_TOL}")
-            worst["mxu_probe"] = max(worst["mxu_probe"], err)
+                raise AssertionError(f"mxu_probe {dt} {(m, k, n, chain)} "
+                                     f"block {block}: error {rel} of max > "
+                                     f"{REL_TOL}")
+            worst["mxu_probe"] = max(worst["mxu_probe"], (
+                out.float() - want.float()).abs().max().item())
             worst_rel = max(worst_rel, rel)
+            diff += (out != want).sum().item()
+            total += out.numel()
+        mismatch[name] = diff / total
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for (m, n, k), L in mxu_wide_cells(dt):
+            block = ops.resolve_mxu_block(m, n)
+            reps = card_reps(m, n, k, dt, block, dev)
+            a = (torch.randn((m, k), device=dev, generator=gen) * 0.1).to(dt)
+            b = (torch.randn((k, L * reps * n), device=dev, generator=gen)
+                 * 0.1).to(dt)
+            out = ops.mxu_probe(a, b, chain=1, block=block)
+            torch.cuda.synchronize()
+            want = ref.mxu_probe_plain(a, b)
+            rel = _rel_err(out, want)
+            if not rel <= REL_TOL:
+                raise AssertionError(f"mxu_probe {dt} independent {(m, n, k)} "
+                                     f"at L={L}, reps {reps}: b {tuple(b.shape)}"
+                                     f", error {rel} of max > {REL_TOL}")
+            worst["mxu_probe"] = max(worst["mxu_probe"], (
+                out.float() - want.float()).abs().max().item())
+            worst_rel = max(worst_rel, rel)
+            wide[f"{name} {m}x{n}x{k}"] = {
+                "L": L, "reps": reps, "b": list(b.shape), "err_of_max": rel,
+                "mismatch": (out != want).float().mean().item()}
+            del a, b, out, want
+        controls[name] = mxu_controls(torch, np, ref, dt, dev, seed)
+    missed = [f"{d}:{c}" for d, cs in controls.items()
+              for c, r in cs.items() if not r["caught"]]
+    if missed:
+        raise AssertionError(f"the mxu_probe gate misses {missed}: "
+                             f"{controls}")
     a = torch.randn((256, 256), device=dev).bfloat16()
     b = torch.randn((256, 256), device=dev).bfloat16()
     mxu = {"case": "bf16 256x256x256, chain 1, block (128,128)",
            "ms": gpu_ms(torch, lambda: ops.mxu_probe(a, b, chain=1), 30),
+           "stream_ms": stream_ms(torch, lambda: ops.mxu_probe(a, b,
+                                                               chain=1)),
            "plain_ms": gpu_ms(torch, lambda: ref.mxu_probe_plain(a, b), 30),
-           "library_ms": gpu_ms(torch, lambda: torch.matmul(a, b), 30)}
+           "library_ms": gpu_ms(torch, lambda: torch.matmul(a, b), 30),
+           "library_stream_ms": stream_ms(torch,
+                                          lambda: torch.matmul(a, b))}
     mxu["bound_ms"], mxu["bound_by"] = _bound(3 * 256 * 256 * 2,
                                               2 * 256 ** 3, BF16_OPS_PER_S)
-    emit({"phase": "probes", "name": "mxu_probe", "cases": 2 * len(cases),
-          "max_abs_err": worst["mxu_probe"], "max_err_of_max": worst_rel,
-          "rel_tol": REL_TOL, **mxu})
+    emit({"phase": "probes", "name": "mxu_probe",
+          "cases": 2 * len(MXU_CASES) + len(wide),
+          "max_abs_err": worst["mxu_probe"],
+          "max_err_of_max": worst_rel, "rel_tol": REL_TOL,
+          "mismatch": mismatch, "independent": wide, "controls": controls,
+          "sass": mxu_sass(),
+          **mxu})
     return {"alu_chain": alu, "pointer_chase": chase, "mxu_probe": mxu}, worst
 
 
@@ -1025,6 +1175,31 @@ def phase_probes(torch, np, dev, seed):
 # A [512,128] @ . in a dependent chain
 REFERENCE_ERRORS = {f"dependent=true,dtype={d},shape=512x512x128"
                     for d in ("bfloat16", "float32", "int8")}
+
+
+def mxu_rate_faults(docs):
+    """Tensor-core readings no card can give: an ok ``mxu_shapes`` cell or
+    ``roofline.mxu_peak_tflops`` not above 0 or above its type's dense peak
+    (989 TFLOP/s bf16 and int8-as-bf16, 495 tf32), or a per-op time at
+    the harness's floor (``PER_OP_FLOOR_S``, 1e-6 us)."""
+    from repro_torch.core.microbench.mxu import (DENSE_PEAK_TFLOPS,
+                                                 PER_OP_FLOOR_S)
+    floor_us = PER_OP_FLOOR_S * 1e6
+    off = []
+    for key, rec in docs["mxu_shapes"]["cells"].items():
+        if rec.get("status") != "ok":
+            continue
+        m = rec["metrics"]
+        peak = DENSE_PEAK_TFLOPS[rec["params"]["dtype"]]
+        if not 0 < m["tflops"] <= peak or m["per_op_us"] <= floor_us * 1.001:
+            off.append(f"mxu_shapes:{key} ({m['tflops']} TFLOP/s, "
+                       f"{m['per_op_us']} us)")
+    for rec in docs["roofline_calibration"]["cells"].values():
+        if rec["params"]["term"] == "mxu_peak_tflops" and not (
+                0 < rec["metrics"]["value"] <= DENSE_PEAK_TFLOPS["float32"]):
+            off.append(f"roofline.mxu_peak_tflops "
+                       f"({rec['metrics']['value']} TFLOP/s)")
+    return off
 
 
 def phase_calibration(torch, dev, card):
@@ -1068,6 +1243,9 @@ def phase_calibration(torch, dev, card):
     for name in ("alu_chain", "pointer_chase", "mxu_probe"):
         if counts[name] == 0:
             raise AssertionError(f"the calibration never launched {name}")
+    off = mxu_rate_faults(docs)
+    if off:
+        raise AssertionError(f"tensor-core cells no card can give: {off}")
     cycles = {f"{op}.{dt}": {"dependent": alu[(op, dt, True)]["per_op_cycles"],
                              "independent": alu[(op, dt, False)][
                                  "per_op_cycles"]}
@@ -1081,7 +1259,7 @@ def phase_calibration(torch, dev, card):
                           "per_hop_cycles": m["per_hop_cycles"]}
             for kib, m in sorted(chase.items())}
     mxu = {key: {k: rec["metrics"].get(k) for k in
-                 ("tflops", "per_op_us", "per_op_cycles", "block")}
+                 ("tflops", "per_op_us", "per_op_cycles", "block", "reps")}
            for key, rec in sorted(docs["mxu_shapes"]["cells"].items())
            if rec["status"] == "ok"}
     table["source"] = (f"measured on one {card} by `python3 chip_smoke.py` "
@@ -1601,7 +1779,7 @@ def main(argv=None) -> int:
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces, "launches": cal_counts[name],
          "max_abs_err": probe_err[name],
-         **{k: probes[name][k] for k in keys}}
+         **{k: probes[name][k] for k in fa_keys}}
         for name, replaces in (
             ("alu_chain", "src/repro/kernels/microbench_alu.py:51"),
             ("pointer_chase", "src/repro/kernels/microbench_chase.py:28"),

@@ -99,6 +99,8 @@ def run_mxu_cell(params: Dict[str, Any], quick: bool = False,
     }
     if r.block is not None:
         out["block"] = list(r.block)
+    if r.reps is not None:
+        out["reps"] = r.reps
     if r.cycles is not None:
         out.update(cycles=r.cycles, per_op_cycles=r.cycles_per_op,
                    clock_hz=r.clock_hz)
@@ -116,7 +118,8 @@ def run_roofline_cal_cell(params: Dict[str, Any], quick: bool = False,
         r = mxu.run_mxu(dtype="float32", shape=shape, dependent=False,
                         lengths=(1, 2, 4), device=device)
         return {"value": r.tflops, "unit": "TFLOP/s",
-                "detail": f"independent f32 matmul {shape}"}
+                "detail": f"independent f32 matmul {shape}, {r.reps} "
+                          "products a unit"}
     if term == "hbm_stream_gbs":
         from repro_torch.core.microbench import memory
         size = 16 * 2**20 if quick else 64 * 2**20

@@ -74,10 +74,12 @@ def calibration_from_results(docs: Mapping[str, Mapping[str, Any]],
         for _, p, m in _cells(mxus):
             mm, nn, kk = p["shape"]
             tag = "dep" if p["dependent"] else "ind"
-            table["mxu"][f"{p['dtype']}.m{mm}n{nn}k{kk}.{tag}"] = {
+            row = table["mxu"][f"{p['dtype']}.m{mm}n{nn}k{kk}.{tag}"] = {
                 "per_op_us": m["per_op_us"],
                 "tflops": m["tflops"],
             }
+            if "reps" in m:
+                row["reps"] = m["reps"]
     roof = docs.get("roofline_calibration")
     if roof:
         for _, p, m in _cells(roof):

@@ -85,3 +85,34 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib
+
+
+def sass_mix(name: str, top: int = 16) -> Dict[str, dict]:
+    """The SASS of ``csrc/<name>.cu``'s built library by ``cuobjdump
+    -sass``: for each kernel function (mangled name), its instruction
+    count and its ``top`` most frequent opcodes (with their modifiers, as
+    ``HMMA.16816.F32.BF16``).  Raises where the toolkit has no cuobjdump."""
+    import re
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found")
+    proc = subprocess.run([tool, "-sass", str(build(name))],
+                          capture_output=True, text=True, check=True)
+    func = re.compile(r"Function : (\S+)")
+    inst = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)")
+    mixes: Dict[str, Counter] = {}
+    cur = None
+    for line in proc.stdout.splitlines():
+        m = func.search(line)
+        if m:
+            cur = mixes.setdefault(m.group(1), Counter())
+            continue
+        m = inst.search(line)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return {fn: {"instructions": sum(c.values()),
+                 "top": dict(c.most_common(top))}
+            for fn, c in mixes.items()}

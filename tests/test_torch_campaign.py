@@ -183,3 +183,23 @@ def test_committed_hopper_table_is_a_full_measured_calibration():
     assert all(row["cpi"] >= 1 for row in t["vpu"].values())
     mem = t["memory"]
     assert mem[str(64 * 2 ** 20)]["per_hop_ns"] > mem["16384"]["per_hop_ns"]
+
+
+def test_committed_hopper_table_mxu_rows_are_rates_a_card_can_give():
+    """Every ``mxu`` row of ``hopper_h100.json`` and its
+    ``roofline.mxu_peak_tflops`` read above 0 and at most the type's dense
+    tensor-core peak (int8 rows measure the bf16 path; f32 runs as tf32),
+    with a per-op time above the harness's floor; every independent row
+    records the products a unit (``reps``) that filled the card."""
+    from repro_torch.core.microbench.mxu import (DENSE_PEAK_TFLOPS,
+                                                 PER_OP_FLOOR_S)
+    t = tables.load_table("hopper_h100")
+    assert len(t["mxu"]) == 15
+    for key, row in t["mxu"].items():
+        peak = DENSE_PEAK_TFLOPS[key.split(".")[0]]
+        assert 0 < row["tflops"] <= peak, key
+        assert row["per_op_us"] > PER_OP_FLOOR_S * 1e6 * 1.001, key
+        if key.endswith(".ind"):
+            assert row["reps"] >= 1, key
+    peak = t["roofline"]["mxu_peak_tflops"]["value"]
+    assert 0 < peak <= DENSE_PEAK_TFLOPS["float32"]

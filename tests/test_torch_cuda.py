@@ -405,7 +405,12 @@ def _mxu_close(out, want):
     (128, 128, 128, 1, None), (128, 128, 128, 4, None),
     (256, 256, 128, 1, None), (256, 256, 256, 1, None),
     (512, 128, 512, 1, None), (256, 256, 256, 3, (256, 64)),
-    (128, 128, 256, 2, (128, 32)), (64, 64, 192, 5, (64, 64))])
+    (128, 128, 256, 2, (128, 32)), (64, 64, 192, 5, (64, 64)),
+    (256, 256, 256, 8, (256, 64)), (256, 256, 256, 8, (256, 32)),
+    (256, 256, 256, 1, (256, 128)), (128, 256, 384, 1, (64, 192)),
+    (48, 48, 96, 3, (48, 48)), (512, 512, 512, 2, (512, 32)),
+    (64, 48, 64, 1, (64, 64)), (128, 512, 128, 1, None),
+    (384, 384, 128, 2, (384, 32)), (256, 512, 384, 1, (256, 192))])
 def test_mxu_probe_kernel_matches_plain(dev, dtype, m, k, n, chain, block):
     rng = np.random.default_rng(m + n + chain)
     a = torch.from_numpy(rng.normal(size=(m, k)) * 0.1).to(dtype).to(dev)
@@ -416,6 +421,75 @@ def test_mxu_probe_kernel_matches_plain(dev, dtype, m, k, n, chain, block):
     assert mxu_probe.launches == before + 1
     assert out.dtype == dtype and tuple(out.shape) == (m, n)
     _mxu_close(out, ref.mxu_probe_plain(a, b, chain=chain))
+
+
+@pytest.mark.parametrize("dtype,m,n,chain,bn", [
+    (torch.float32, 256, 256, 3, 64),      # f32 K=256: A streams
+    (torch.bfloat16, 256, 256, 8, 128),    # two row passes a step
+    (torch.bfloat16, 512, 128, 4, 64),
+    (torch.float32, 512, 64, 3, 32),
+    (torch.bfloat16, 256, 256, 8, 64)])    # A resident, for contrast
+def test_mxu_probe_kernel_chains_stream_or_keep_a(dev, dtype, m, n, chain,
+                                                  bn):
+    from repro_torch.kernels.mxu_probe import plan
+    rng = np.random.default_rng(m + n + chain)
+    a = torch.from_numpy(rng.normal(size=(m, m)) * 0.1).to(dtype).to(dev)
+    b = torch.from_numpy(rng.normal(size=(m, n)) * 0.1).to(dtype).to(dev)
+    staged = plan(dtype, m, m, bn, chain)["staged"]
+    assert staged == (dtype == torch.bfloat16 and (m, bn) == (256, 64))
+    out = ops.mxu_probe(a, b, chain=chain, block=(m, bn))
+    torch.cuda.synchronize()
+    _mxu_close(out, ref.mxu_probe_plain(a, b, chain=chain))
+
+
+def test_mxu_smem_bytes_c_and_python_agree(dev):
+    from repro_torch.kernels.mxu_probe import _launchers, smem_bytes
+    c_smem = _launchers()[1]
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for K in (16, 48, 64, 128, 256, 512):
+            for bm in (16, 64, 128, 256, 512):
+                for bn in (16, 32, 48, 64, 96, 128, 192, 256):
+                    for chain in (1, 2, 5):
+                        if chain > 1 and bm != K:
+                            continue
+                        want = smem_bytes(dtype, K, bm, bn, chain)
+                        got = c_smem(int(dtype == torch.bfloat16), K, bm, bn,
+                                     chain)
+                        assert got == want, (dtype, K, bm, bn, chain)
+                        n += 1
+    assert n > 500
+
+
+@pytest.mark.parametrize("dtype,peak", [("bfloat16", 989.0),
+                                        ("float32", 495.0)])
+def test_independent_run_mxu_fills_the_card_below_the_dense_peak(
+        dev, dtype, peak):
+    from repro_torch.kernels.mxu_probe import blocks_per_sm
+    r = mxu.run_mxu(dtype, (128, 128, 128), False, (1, 2, 4), device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = blocks_per_sm(getattr(torch, dtype), 128, 128, 128)
+    assert per_sm >= 1 and r.block == (128, 128)
+    assert r.reps == sms * per_sm
+    assert 0 < r.tflops <= peak and r.per_op_s > mxu.PER_OP_FLOOR_S
+    assert r.tflops == pytest.approx(r.flops / r.per_op_s / 1e12)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,k,L", [(128, 128, 128, 8), (256, 256, 256, 8),
+                                     (512, 512, 128, 8), (512, 512, 512, 4)])
+def test_independent_widest_launch_matches_plain(dev, dtype, m, n, k, L):
+    # run_mxu's independent launch at its longest L: L * reps products'
+    # panels side by side, reps one full wave of blocks on this card
+    block = ops.resolve_mxu_block(m, n)
+    reps = mxu.card_reps(m, n, k, dtype, block, dev)
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = (torch.randn((m, k), device=dev, generator=gen) * 0.1).to(dtype)
+    b = (torch.randn((k, L * reps * n), device=dev, generator=gen)
+         * 0.1).to(dtype)
+    out = ops.mxu_probe(a, b, chain=1, block=block)
+    torch.cuda.synchronize()
+    _mxu_close(out, ref.mxu_probe_plain(a, b))
 
 
 def test_mxu_probe_kernel_refusals(dev):

@@ -16,8 +16,16 @@ numpy inputs.  Tolerances:
   after each step landing on the other side of a tie.
 
 The CUDA kernels themselves are tested on the card by
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``.  Here also: the tensor-core kernel's shared
+memory budget (``mxu_probe.smem_bytes``, which the card test holds equal to
+the C function's) and the panel the dependent harness picks from it; the
+throughput harness's products a wave (``reps``); and ``chip_smoke.py``'s
+``MXU_MUST_CATCH`` fault controls, rehearsed on the plain version at the
+card's cases, each beyond the gate's ``REL_TOL``.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +36,15 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.microbench_alu import _KERNEL_OPS
 from repro_torch.core.microbench.memory import _random_cycle
+from repro_torch.core.microbench import mxu as tmxu
+from repro_torch.kernels import mxu_probe as tprobe
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 C = 1.0009765625
 DTYPES = ("float32", "bfloat16", "int32")
@@ -161,3 +176,130 @@ def test_mxu_probe_strict_block_and_clamped_config():
     assert tops.resolve_mxu_block(256, 512, block=(256, 64)) == (256, 64)
     with pytest.raises(AssertionError, match="square A"):
         tops.mxu_probe(a[:, :64].contiguous(), b[:64], chain=2)
+
+
+# (dtype, K, bm, bn, chain) -> (bytes after the 2 KB head of mbarriers and
+# alignment, staged, tma): the layout of ``csrc/mxu_probe.cu``.  Every tile
+# is a row of 128-byte column panels (64 bf16, 32 f32; the last padded).
+# Staged where it fits: B's panel [K, bn] (two at chain > 1) and A [bm, K].
+# Else a ring of 3 slots, each a 128-byte k-slab of min(pm, bm) A rows and,
+# at chain 1, of that slab's rows of min(pn, bn) B columns (8 warps of 32 x
+# 64 outputs in bf16, 32 x 32 in f32: pm x pn = 128 x 2 warp tiles where bn
+# holds two, 256 x 1 below).  The TMA unit loads them where K and
+# bn fill whole panels (and a staged bm <= 256), cp.async otherwise.
+SMEM_CASES = [
+    # chain 1, staged: panel K x pan_b x 128 and A bm x pan_a x 128
+    ("bfloat16", 128, 128, 128, 1, 128 * 2 * 128 + 128 * 2 * 128, True,
+     True),
+    ("bfloat16", 256, 128, 128, 1, 256 * 2 * 128 + 128 * 4 * 128, True,
+     True),
+    ("float32", 128, 128, 128, 1, 128 * 4 * 128 + 128 * 4 * 128, True, True),
+    ("bfloat16", 128, 64, 32, 1, 128 * 1 * 128 + 64 * 2 * 128, True, False),
+    ("bfloat16", 48, 64, 64, 1, 48 * 1 * 128 + 64 * 1 * 128, True, False),
+    # chain 1 over the budget: the ring alone
+    ("float32", 256, 128, 128, 1, 3 * (128 * 128 + 32 * 2 * 128), False,
+     True),
+    ("bfloat16", 512, 128, 128, 1, 3 * (128 * 128 + 64 * 2 * 128), False,
+     True),
+    # chain > 1, staged: two panels and A
+    ("bfloat16", 128, 128, 128, 4, 2 * 128 * 2 * 128 + 128 * 2 * 128, True,
+     True),
+    ("bfloat16", 256, 256, 64, 8, 2 * 256 * 1 * 128 + 256 * 4 * 128, True,
+     True),
+    ("float32", 128, 128, 128, 4, 2 * 128 * 4 * 128 + 128 * 4 * 128, True,
+     True),
+    ("float32", 64, 64, 64, 5, 2 * 64 * 2 * 128 + 64 * 2 * 128, True, True),
+    ("bfloat16", 48, 48, 48, 3, 2 * 48 * 1 * 128 + 48 * 1 * 128, True,
+     False),
+    # chain > 1 streaming A through the ring beside the two panels
+    ("bfloat16", 256, 256, 128, 8, 2 * 256 * 2 * 128 + 3 * 128 * 128, False,
+     True),
+    ("float32", 256, 256, 64, 3, 2 * 256 * 2 * 128 + 3 * 128 * 128, False,
+     True),
+    ("bfloat16", 512, 512, 64, 3, 2 * 512 * 1 * 128 + 3 * 256 * 128, False,
+     True),
+    ("float32", 512, 512, 32, 3, 2 * 512 * 1 * 128 + 3 * 256 * 128, False,
+     True),
+    ("bfloat16", 512, 512, 48, 3, 2 * 512 * 1 * 128 + 3 * 128 * 128, False,
+     False),
+    # over a block's 227 KB: refused by the wrapper
+    ("float32", 512, 512, 128, 3, 2 * 512 * 4 * 128 + 3 * 128 * 128, False,
+     True),
+]
+
+
+@pytest.mark.parametrize("dtype,K,bm,bn,chain,nbytes,staged,tma",
+                         SMEM_CASES)
+def test_mxu_smem_bytes_is_the_documented_layout(dtype, K, bm, bn, chain,
+                                                 nbytes, staged, tma):
+    dt = getattr(torch, dtype)
+    assert tprobe.smem_bytes(dt, K, bm, bn, chain) == 2048 + nbytes
+    got = tprobe.plan(dt, K, bm, bn, chain)
+    assert (got["staged"], got["tma"]) == (staged, tma)
+
+
+@pytest.mark.parametrize("dtype,shape,chain,want", [
+    ("bfloat16", (128, 128, 128), 8, (128, 128)),
+    ("bfloat16", (256, 256, 256), 8, (256, 128)),   # A streams
+    ("float32", (128, 128, 128), 8, (128, 128)),
+    ("float32", (256, 256, 256), 8, (256, 64)),
+    ("bfloat16", (512, 512, 512), 8, (512, 64)),
+    ("float32", (512, 512, 512), 8, (512, 32)),
+    ("float32", (64, 48, 64), 8, (64, 16)),         # only 16 divides 48
+])
+def test_dependent_block_is_the_widest_panel_that_fits(dtype, shape, chain,
+                                                       want):
+    m, n, k = shape
+    dt = getattr(torch, dtype)
+    got = tmxu.dependent_block(m, n, k, dt, chain)
+    assert got == want
+    assert tprobe.smem_bytes(dt, k, m, got[1], chain) <= tprobe.SMEM_MAX
+    for wider in (128, 64, 32):
+        if wider > got[1] and n % wider == 0:
+            assert tprobe.smem_bytes(dt, k, m, wider, chain) \
+                > tprobe.SMEM_MAX
+
+
+@pytest.mark.parametrize("sms,blocks,tiles,reps", [
+    (132, 1, 1, 132), (132, 2, 1, 264), (132, 1, 4, 33), (132, 2, 4, 66),
+    (132, 1, 16, 9), (132, 2, 16, 17), (132, 3, 200, 2), (132, 1, 132, 1),
+    (132, 1, 1000, 1)])
+def test_throughput_reps_fill_one_wave(sms, blocks, tiles, reps):
+    got = tprobe.throughput_reps(sms, blocks, tiles)
+    assert got == reps
+    # one wave: the products' tiles cover every resident block slot, and
+    # one product fewer would not
+    assert got * tiles >= sms * blocks
+    assert got == 1 or (got - 1) * tiles < sms * blocks
+
+
+@pytest.mark.parametrize("dependent", [True, False])
+def test_run_mxu_on_cpu_keeps_one_product_a_unit(dependent):
+    r = tmxu.run_mxu("float32", (64, 64, 64), dependent, (1, 2),
+                     device="cpu")
+    assert r.reps == (None if dependent else 1)
+    assert r.block is None and r.per_op_s >= tmxu.PER_OP_FLOOR_S
+
+
+# tolerance ratios (error over REL_TOL) of the controls at seed 0 on the
+# CPU: stale_panel 6.1e12 (bf16) / 6.1e12 (f32), last_kslab_dropped 13.8 /
+# 13.7, neighbour_rows 75.6 / 75.7
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(chip_smoke.MXU_MUST_CATCH))
+def test_mxu_must_catch_controls_exceed_the_gate(name, dtype):
+    m, k, n, chain = chip_smoke.MXU_MUST_CATCH[name]
+    an, bn = chip_smoke.mxu_inputs(np, m, k, n, 0)
+    dt = getattr(torch, dtype)
+    a, b = torch.from_numpy(an).to(dt), torch.from_numpy(bn).to(dt)
+    want = tref.mxu_probe_plain(a, b, chain=chain)
+    # the sound kernel's path on the CPU passes the gate
+    assert chip_smoke._rel_err(tops.mxu_probe(a, b, chain=chain,
+                                              block=(m, 64) if chain > 1
+                                              else None), want) \
+        <= tprobe.REL_TOL
+    got = chip_smoke.mxu_fault(torch, tref, name, a, b, chain)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert chip_smoke._rel_err(got, want) > 10 * tprobe.REL_TOL
+    row = chip_smoke.mxu_controls(torch, np, tref, dt, torch.device("cpu"),
+                                  0)[name]
+    assert row["caught"] and row["tol_ratio"] > 10
