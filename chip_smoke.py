@@ -106,8 +106,17 @@ exits non-zero):
 12. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
-   f32; block_d 256 -> 64); with the same times and checks (controls:
-   dt or B one step late, dt rounded to bf16).
+   f32; block_d 256 -> 64) in two cases (``SSM_CASES``): "eval", init_mamba's
+   A (one row for every channel), and "long", an A drawn for each channel
+   and dt in [1e-4, 2e-3] (states that carry over thousands of steps);
+   with the same times and checks, ``stream_ms`` as the flash kernels',
+   the bound counting one exponential a (row, step, channel, state) on
+   the special-function units (``EX2_PER_S``), the controls of
+   ``SSM_MUST_CATCH`` on the case where each shows (dt or B one step late,
+   dt rounded to bf16; channel 0's A for every channel, the state zeroed
+   every 256 steps, the last state's term left out of y), and the
+   kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
+   biased exponential shows against the f32 tolerance.
 13. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
@@ -121,7 +130,8 @@ exits non-zero):
    f32); the gates must catch those ``MUST_CATCH`` names.
 14. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
-   its parity_eval.
+   its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
+   with a CUDA event pair around each call of the recurrence kernel.
 15. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
@@ -147,6 +157,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+# exponentials: one MUFU.EX2 each, 16 a cycle on each of 132 SMs at the
+# H100 SXM's nominal 1,980 MHz boost clock
+EX2_PER_S = 132 * 16 * 1.98e9
 OUT = ROOT / "chiprun_out"
 KERNEL_TOL = dict(atol=1e-2, rtol=1e-2)
 LOGIT_ATOL = 0.1
@@ -904,10 +917,14 @@ def phase_reference(torch, np, seed):
     return counts["flash_attention"]
 
 
-def _bound(nbytes, ops, ops_per_s):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def _bound(nbytes, ops, ops_per_s, exps=0):
+    """The least ms the card could take, and what sets it: the bytes over
+    the memory rate, the operations over their type's peak, or ``exps``
+    exponentials over the special-function units' rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / ops_per_s,
+             "exponentials": exps / EX2_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 # the mxu_probe cases (m, k, n, chain, block): the JAX kernel tests' sweep,
@@ -1407,30 +1424,92 @@ def phase_wkv6_kernel(torch, dev, seed):
     return case, max_err
 
 
+# the selective scan's input cases: "sweep" (the reference tests' scales),
+# "eval" (unit-scale x, B, C as the model's; A = -exp(a_log) of
+# init_mamba, the same row for every channel; dt in [0.001, 0.1]) and
+# "long" (A drawn for each channel; dt in [1e-4, 2e-3], so a state carries
+# over thousands of steps)
+SSM_CASES = {"sweep": dict(std=0.2, dt=(0.001, 0.1), model_a=False),
+             "eval": dict(std=1.0, dt=(0.001, 0.1), model_a=True),
+             "long": dict(std=1.0, dt=(1e-4, 2e-3), model_a=False)}
+# the scan gate's fault controls, each the plain version with one fault,
+# and the case where it shows: dt or B read one step late, dt rounded to
+# bf16, every channel reading channel 0's A, the state zeroed every 256
+# steps, and the last state's term left out of y
+SSM_MUST_CATCH = {"dt_late": "eval", "B_late": "eval", "dt_bf16": "eval",
+                  "A_row0": "long", "carry_dropped": "long",
+                  "C_last_dropped": "long"}
+
+
+def ssm_inputs(torch, g, dev, Bt, S, Di, N, dtype, case):
+    """Seeded inputs of ``SSM_CASES[case]``: x, dt, B, C, A."""
+    c = SSM_CASES[case]
+    lo, hi = c["dt"]
+    x = torch.randn((Bt, S, Di), generator=g, device=dev).mul(c["std"])
+    dt = torch.rand((Bt, S, Di), generator=g, device=dev) * (hi - lo) + lo
+    B, C = (torch.randn((Bt, S, N), generator=g, device=dev).mul(c["std"])
+            .to(dtype) for _ in range(2))
+    if c["model_a"]:                     # -exp(a_log) of init_mamba
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device=dev).repeat(Di, 1)
+    else:
+        A = -torch.randn((Di, N), generator=g, device=dev).abs()
+    return x.to(dtype), dt, B, C, A
+
+
+def ssm_fault(torch, ref, name, x, dt, B, C, A):
+    """The plain version with fault ``name`` (``SSM_MUST_CATCH``)."""
+    f = ref.ssm_scan_plain
+    if name == "dt_late":
+        return f(x, _late(torch, dt), B, C, A)
+    if name == "B_late":
+        return f(x, dt, _late(torch, B), C, A)
+    if name == "dt_bf16":
+        return f(x, _bf16(torch, dt), B, C, A)
+    if name == "A_row0":
+        return f(x, dt, B, C, A[:1].expand_as(A).contiguous())
+    if name == "carry_dropped":
+        return torch.cat([f(*(t[:, s:s + 256] for t in (x, dt, B, C)), A)
+                          for s in range(0, x.shape[1], 256)], dim=1)
+    if name == "C_last_dropped":
+        C = C.clone()
+        C[..., -1] = 0
+        return f(x, dt, B, C, A)
+    raise KeyError(name)
+
+
+def ssm_bound(Bt, S, Di, N, elem=2):
+    """(ms, by) for the scan: x, dt, B, C, A read and y written once; 6 N + 1
+    f32 operations a (row, step, channel) besides the N exponentials."""
+    n = Bt * S * Di
+    nbytes = n * (elem + 4 + elem) + 2 * Bt * S * N * elem + Di * N * 4
+    return _bound(nbytes, n * (6 * N + 1), F32_OPS_PER_S, exps=n * N)
+
+
+def ssm_sass():
+    """Each built ssm_scan instance's instruction count, MUFU.EX2 count
+    and top opcodes (``_build.sass_mix``), or why there is none."""
+    from repro_torch.kernels import _build
+    try:
+        mix = _build.sass_mix("ssm_scan", top=100)
+    except (RuntimeError, OSError) as e:
+        return {"unavailable": str(e)[:200]}
+    return {fn: {**m, "mufu_ex2": m["top"].get("MUFU.EX2", 0)}
+            for fn, m in mix.items()}
+
+
 def phase_ssm_kernel(torch, dev, seed):
     """The ssm_scan kernel against its plain version: the sweep's shapes
-    in f32 and bf16 and the eval shape in bf16; times at the eval
-    shape."""
+    in f32 and bf16, then two eval-shape cases in bf16 ("eval" and "long"
+    of ``SSM_CASES``), each beside the ``SSM_MUST_CATCH`` controls that
+    show on it, with times; then "long" in f32 on one row."""
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(seed)
-
-    def inputs(Bt, S, Di, N, dtype, std=0.2, model_a=False):
-        x = torch.randn((Bt, S, Di), generator=g, device=dev).mul(std)
-        dt = torch.rand((Bt, S, Di), generator=g, device=dev) * 0.099 + 0.001
-        B, C = (torch.randn((Bt, S, N), generator=g, device=dev).mul(std)
-                .to(dtype) for _ in range(2))
-        if model_a:                      # -exp(a_log) of init_mamba
-            A = -torch.arange(1, N + 1, dtype=torch.float32,
-                              device=dev).repeat(Di, 1)
-        else:
-            A = -torch.randn((Di, N), generator=g, device=dev).abs()
-        return x.to(dtype), dt, B, C, A
-
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for Di, N, block in ((256, 8, 128), (512, 16, 256)):
-            args = inputs(2, 32, Di, N, dtype)
+            args = ssm_inputs(torch, g, dev, 2, 32, Di, N, dtype, "sweep")
             out = ops.ssm_scan(*args, block_d=block)
             torch.cuda.synchronize()
             err = _check_close(torch, out, ref.ssm_scan_plain(*args))
@@ -1439,33 +1518,40 @@ def phase_ssm_kernel(torch, dev, seed):
                   "block_d": block, "dtype": str(dtype).split(".")[-1],
                   "max_abs_err": err})
     Bt, S, Di, N = 4, 4224, 1600, 16
-    # inputs of unit scale, so y is too (the model's x, B, C are)
-    args = inputs(Bt, S, Di, N, torch.bfloat16, std=1.0, model_a=True)
-    want, plain_ms = timed_once(torch, lambda: ref.ssm_scan_plain(*args))
-    x, dt, Bm, Cm, A = args
-    controls = _kernel_controls(torch, want, {
-        "dt_late": lambda: ref.ssm_scan_plain(x, _late(torch, dt), Bm, Cm, A),
-        "B_late": lambda: ref.ssm_scan_plain(x, dt, _late(torch, Bm), Cm, A),
-        "dt_bf16": lambda: ref.ssm_scan_plain(x, _bf16(torch, dt), Bm, Cm,
-                                              A)})
-    out = ops.ssm_scan(*args)
-    torch.cuda.synchronize()
-    err = _check_close(torch, out, want)
+    bound, bound_by = ssm_bound(Bt, S, Di, N)
+    cases = {}
+    for case in ("eval", "long"):
+        args = ssm_inputs(torch, g, dev, Bt, S, Di, N, torch.bfloat16, case)
+        want, plain_ms = timed_once(torch, lambda: ref.ssm_scan_plain(*args))
+        controls = _kernel_controls(torch, want, {
+            name: (lambda name=name: ssm_fault(torch, ref, name, *args))
+            for name, at in SSM_MUST_CATCH.items() if at == case})
+        out = ops.ssm_scan(*args)
+        torch.cuda.synchronize()
+        err = _check_close(torch, out, want)
+        max_err = max(max_err, err)
+        c = {"case": case, "Bt": Bt, "S": S, "Di": Di, "N": N,
+             "dtype": "bfloat16", "block_d": ops.divisor_clamp(256, Di),
+             "max_abs_err": err, "mismatch": _mismatch(torch, out, want),
+             "ms": gpu_ms(torch, lambda: ops.ssm_scan(*args), 10),
+             "stream_ms": stream_ms(torch, lambda: ops.ssm_scan(*args)),
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+             "library_ms": None, "library": NO_LIBRARY,
+             "max_abs_out": want.float().abs().max().item(),
+             "controls": controls}
+        emit({"phase": "ssm_kernel", **c})
+        cases[case] = c
+        del args, want, out
+    # a bias of the exponential accumulates over the steps a slowly
+    # decaying state carries: the long case in f32, one row
+    args = ssm_inputs(torch, g, dev, 1, S, Di, N, torch.float32, "long")
+    err = _check_close(torch, ops.ssm_scan(*args), ref.ssm_scan_plain(*args))
     max_err = max(max_err, err)
-    mismatch = _mismatch(torch, out, want)
-    ms = gpu_ms(torch, lambda: ops.ssm_scan(*args), 10)
-    n = Bt * S * Di
-    nbytes = n * (2 + 4 + 2) + 2 * Bt * S * N * 2 + Di * N * 4
-    bound, bound_by = _bound(nbytes, n * (7 * N + 1), F32_OPS_PER_S)
-    case = {"Bt": Bt, "S": S, "Di": Di, "N": N, "dtype": "bfloat16",
-            "block_d": ops.divisor_clamp(256, Di), "max_abs_err": err,
-            "mismatch": mismatch,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None, "library": NO_LIBRARY,
-            "max_abs_out": want.float().abs().max().item(),
-            "controls": controls}
-    emit({"phase": "ssm_kernel", **case})
-    return case, max_err
+    emit({"phase": "ssm_kernel", "case": "long", "Bt": 1, "S": S, "Di": Di,
+          "N": N, "dtype": "float32", "max_abs_err": err})
+    del args
+    emit({"phase": "ssm_kernel", "sass": ssm_sass()})
+    return cases["eval"], max_err
 
 
 def phase_eval(torch, dev, seed, arch, kernel):
@@ -1509,6 +1595,7 @@ def phase_eval(torch, dev, seed, arch, kernel):
         _, ms = timed_once(torch, lambda: step(params, batch))
         times.append(ms)
     step_ms = statistics.median(times)
+    kernel_ms = _kernel_ms_in_step(torch, step, params, batch, kernel)
     loss = out["loss"].item()
     if not math.isfinite(loss):
         raise AssertionError(f"{arch}: eval loss {loss}")
@@ -1521,6 +1608,7 @@ def phase_eval(torch, dev, seed, arch, kernel):
           "ln_vocab": math.log(cfg.vocab_size), "kernel_launches": counts,
           "init_s": init_s, "step_ms": step_ms, "step_ms_min": min(times),
           "step_ms_max": max(times), "step_reps": EVAL_REPS,
+          "kernel_ms": kernel_ms,
           "eval_tok_per_s": 1e3 * rows * seq / step_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
@@ -1550,6 +1638,34 @@ def phase_eval(torch, dev, seed, arch, kernel):
     del kern, k32, model, params, batch
     torch.cuda.empty_cache()
     return counts[kernel]
+
+
+def _kernel_ms_in_step(torch, step, params, batch, kernel):
+    """One more step with a CUDA event pair around each call of
+    ``ops.<kernel>`` (the host's share of the call included): the calls,
+    their ms summed, and the median call."""
+    from repro_torch.kernels import ops
+
+    orig, pairs = getattr(ops, kernel), []
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(*a, **kw)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+
+    setattr(ops, kernel, timed)
+    try:
+        step(params, batch)
+    finally:
+        setattr(ops, kernel, orig)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in pairs]
+    return {"calls": len(ms), "sum_ms": sum(ms),
+            "median_ms": statistics.median(ms)}
 
 
 def _plain_fns():
@@ -1787,12 +1903,12 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces, "launches": launches, "max_abs_err": err,
-         **{k: case[k] for k in keys}}
-        for name, replaces, launches, err, case in (
+         **{k: case[k] for k in case_keys}}
+        for name, replaces, launches, err, case, case_keys in (
             ("wkv6", "src/repro/kernels/wkv6.py:46", wkv_launches, wkv_err,
-             wkv_case),
+             wkv_case, keys),
             ("ssm_scan", "src/repro/kernels/ssm_scan.py:39", ssm_launches,
-             ssm_err, ssm_case))]})
+             ssm_err, ssm_case, keys + ("stream_ms",)))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -87,7 +87,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 def ssm_scan(x, dt, B, C, A, block_d=None, config=None):
     """The selective scan (``kernels.ssm_scan``) with ``block_d`` resolved
     explicit > ``config=`` > default 256, then clamped to a divisor of
-    d_inner as the Pallas kernel clamps it (256 -> 64 at d_inner 1600)."""
+    d_inner as the Pallas kernel clamps it (256 -> 64 at d_inner 1600).
+    It keeps the reference's meaning, the channel tile; the CUDA kernel
+    cuts its own grid from the shapes alone (8 channels a one-warp
+    block), so on the card it changes neither the function nor the
+    work."""
     c = resolve_kernel_config("ssm_scan", config=config,
                               explicit={"block_d": block_d})
     bd = divisor_clamp(int(c["block_d"]), x.shape[2])

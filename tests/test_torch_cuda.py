@@ -570,22 +570,35 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(dev):
         wkv6(r, k, v, w, u)
 
 
-def _ssm_inputs(dev, Bt, S, Di, N, dtype, seed=0):
+# dt ranges: the reference tests' and a long memory, where a state carries
+# over thousands of steps
+SSM_DT = {"short": (0.001, 0.1), "long": (1e-4, 2e-3)}
+
+
+def _ssm_inputs(dev, Bt, S, Di, N, dtype, seed=0, memory="short"):
+    lo, hi = SSM_DT[memory]
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((Bt, S, Di), generator=g, device=dev).mul(0.2).to(dtype)
-    dt = torch.rand((Bt, S, Di), generator=g, device=dev) * 0.099 + 0.001
+    dt = torch.rand((Bt, S, Di), generator=g, device=dev) * (hi - lo) + lo
     B, C = (torch.randn((Bt, S, N), generator=g, device=dev).mul(0.2)
             .to(dtype) for _ in range(2))
-    A = -torch.randn((Di, N), generator=g, device=dev).abs()
+    A = -torch.randn((Di, N), generator=g, device=dev).abs()   # per channel
     return x, dt, B, C, A
 
 
-@pytest.mark.parametrize("shape,block_d", [
-    ((2, 32, 256, 8), 128), ((2, 32, 512, 16), 256), ((1, 100, 1600, 16), 64),
-    ((2, 45, 64, 4), 64), ((1, 9, 96, 8), 32)])
+# the kernel's chunk is 32 steps: S = 100 and 161 end on a ragged chunk
+# after three or more whole ones; hymba's Di 1600 at its block_d 64, Bt 1
+# and 4, N 4, 8 and 16, and the reduced model's (64, 4)
+@pytest.mark.parametrize("shape,block_d,memory", [
+    ((2, 32, 256, 8), 128, "short"), ((2, 32, 512, 16), 256, "short"),
+    ((1, 100, 1600, 16), 64, "short"), ((2, 45, 64, 4), 64, "short"),
+    ((1, 9, 96, 8), 32, "short"), ((4, 100, 1600, 16), 64, "short"),
+    ((4, 161, 1600, 4), 64, "short"), ((1, 161, 1600, 8), 64, "short"),
+    ((4, 100, 1600, 16), 64, "long"), ((1, 3000, 1600, 16), 64, "long"),
+    ((2, 2049, 64, 4), 64, "long")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssm_scan_kernel_matches_plain(dev, dtype, shape, block_d):
-    args = _ssm_inputs(dev, *shape, dtype)
+def test_ssm_scan_kernel_matches_plain(dev, dtype, shape, block_d, memory):
+    args = _ssm_inputs(dev, *shape, dtype, memory=memory)
     before = ssm_scan.launches
     out = ssm_scan(*args, block_d=block_d)
     torch.cuda.synchronize()
@@ -597,10 +610,24 @@ def test_ssm_scan_kernel_matches_plain(dev, dtype, shape, block_d):
                                   else BF16_TOL))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_block_d_changes_no_value_on_the_card(dev, dtype):
+    """block_d keeps the Pallas kernel's meaning but not its grid: every
+    divisor of d_inner gives the same bits."""
+    args = _ssm_inputs(dev, 2, 77, 320, 16, dtype)
+    want = ssm_scan(*args, block_d=320)
+    for block_d in (8, 40, 64, 160):
+        assert torch.equal(ssm_scan(*args, block_d=block_d), want)
+
+
 def test_ssm_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, dt, B, C, A = _ssm_inputs(dev, 1, 4, 100, 16, torch.bfloat16)
+    with pytest.raises(ValueError):                    # 100 channels, not 8k
+        ssm_scan(x, dt, B, C, A, block_d=100)
     x, dt, B, C, A = _ssm_inputs(dev, 1, 4, 2048, 16, torch.bfloat16)
-    with pytest.raises(ValueError):                    # 2048 threads
-        ssm_scan(x, dt, B, C, A, block_d=2048)
+    with pytest.raises(ValueError):                    # x not 16-byte aligned
+        ssm_scan(torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+                 .view(x.shape), dt, B, C, A)
     with pytest.raises(TypeError):
         ssm_scan(x, dt, B.float(), C, A)
     with pytest.raises(ValueError):

@@ -3,12 +3,17 @@ numpy inputs: the plain versions of the ``wkv6`` and ``ssm_scan`` kernels
 against ``repro.kernels.ref`` and the Pallas kernels in interpret mode (the
 sweeps of ``tests/test_kernels.py``), the launch-parameter resolution, and
 the rwkv6 and mamba layers in train mode against ``use_pallas=False`` and
-``use_pallas=True``.
+``use_pallas=True``.  Also ``chip_smoke.py``'s scan checks rehearsed on the
+plain version: the ``SSM_MUST_CATCH`` fault controls, the long-memory case
+against the JAX reference, the bound, and the CUDA wrapper's refusals.
 
 Tolerances: f32 atol/rtol 1e-5 (the same f32 arithmetic in another
 summation order); bf16 atol/rtol 1e-2 (outputs rounded to bf16 may differ
 by one bf16 ulp where the f32 values straddle a rounding boundary).
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +32,11 @@ from repro_torch.kernels import ssm_scan as tssm
 from repro_torch.kernels import wkv6 as twkv
 from repro_torch.models.layers import mamba as tmamba
 from repro_torch.models.layers import rwkv as trwkv
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)
@@ -137,6 +147,100 @@ def test_wrappers_refuse_bad_shapes_on_cpu():
     with pytest.raises(ValueError):
         tssm.ssm_scan(x, x, torch.zeros(1, 3, 4), torch.zeros(1, 3, 4),
                       torch.zeros(8, 4), block_d=3)
+
+
+# --- chip_smoke.py's scan checks, rehearsed on the CPU -----------------------
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.SSM_MUST_CATCH))
+def test_ssm_must_catch_controls_exceed_the_gate(name):
+    """Each fault of ``SSM_MUST_CATCH`` on its case, at a small shape (three
+    256-step carries): the phase's bf16 gate catches it, and the sound plain
+    version passes the same gate."""
+    g = torch.Generator().manual_seed(0)
+    case = chip_smoke.SSM_MUST_CATCH[name]
+    args = chip_smoke.ssm_inputs(torch, g, "cpu", 1, 1024, 64, 16,
+                                 torch.bfloat16, case)
+    want = ref.ssm_scan_plain(*args)
+    chip_smoke._check_close(torch, ops.ssm_scan(*args), want)
+    got = chip_smoke.ssm_fault(torch, ref, name, *args)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    row = chip_smoke._kernel_controls(torch, want, {name: lambda: got})[name]
+    assert row["caught"]
+    # beyond the gate by 10x: dt_bf16 by its share of outputs not
+    # bit-equal (the scale-relative tolerance passes it), the rest by it
+    assert (row["mismatch"] > 10 * chip_smoke.REC_MISMATCH_BF16
+            if name == "dt_bf16" else row["tol_ratio"] > 10)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_plain_matches_ref_on_long_memory(dtype):
+    """dt in [1e-4, 2e-3] and an A drawn for each channel (the card's
+    "long" case): a state carries over the whole sequence."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(13)
+    Bt, S, di, n = 1, 600, 64, 16
+    x, dt, Bm, Cm = (_pair(a, jdt, tdt) for a in (
+        rng.normal(size=(Bt, S, di)),
+        rng.uniform(1e-4, 2e-3, size=(Bt, S, di)),
+        rng.normal(size=(Bt, S, n)),
+        rng.normal(size=(Bt, S, n))))
+    A = _pair(-np.abs(rng.normal(size=(di, n))), jnp.float32, torch.float32)
+    want = jref.ssm_scan_ref(x[0], dt[0], Bm[0], Cm[0], A[0])
+    got = ops.ssm_scan(x[1], dt[1], Bm[1], Cm[1], A[1])
+    assert got.dtype == tdt and tuple(got.shape) == (Bt, S, di)
+    _close(got, want, tol)
+
+
+def test_ssm_bound_counts_the_exponentials():
+    """At the eval shape the N exponentials a (row, step, channel), one
+    MUFU.EX2 each at 16 a cycle on 132 SMs, bound the scan, above the
+    bytes' 0.065 ms."""
+    ms, by = chip_smoke.ssm_bound(4, 4224, 1600, 16)
+    assert by == "exponentials"
+    assert ms == pytest.approx(4 * 4224 * 1600 * 16 / (132 * 16 * 1.98e9)
+                               * 1e3)
+    assert 0.103 < ms < 0.104
+    t_bytes, _ = chip_smoke._bound(4 * 4224 * 1600 * 8 + 4 * 4224 * 64
+                                   + 1600 * 64, 0, 1.0)
+    assert t_bytes == pytest.approx(0.0649, abs=1e-4)
+
+
+def _ssm_case(Di=64, N=16, dtype=torch.bfloat16):
+    x = torch.zeros(1, 4, Di, dtype=dtype)
+    B = torch.zeros(1, 4, N, dtype=dtype)
+    return x, torch.zeros(1, 4, Di), B, B.clone(), torch.zeros(Di, N)
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view 2 elements into a new buffer."""
+    buf = torch.zeros(t.numel() + 2, dtype=t.dtype)[2:]
+    return buf.view(t.shape)
+
+
+@pytest.mark.parametrize("fault,exc", [
+    ("d_inner_100", ValueError),     # not a multiple of 8 channels
+    ("state_32", ValueError),        # N = 32 not built
+    ("x_f16", TypeError),
+    ("x_misaligned", ValueError),
+    ("dt_misaligned", ValueError),
+])
+def test_ssm_cuda_wrapper_refuses_what_the_kernel_does_not_take(fault, exc):
+    """The checks the wrapper makes before a launch (``_check_cuda``), on
+    CPU tensors: the plain version takes all of these, the kernel none."""
+    tssm._check_cuda(*_ssm_case())         # the sound case passes
+    x, dt, B, C, A = {"d_inner_100": lambda: _ssm_case(Di=100),
+                      "state_32": lambda: _ssm_case(N=32)}.get(
+        fault, _ssm_case)()
+    if fault == "x_f16":
+        x, B, C = x.half(), B.half(), C.half()
+    if fault == "x_misaligned":
+        x = _misaligned(x)
+    if fault == "dt_misaligned":
+        dt = _misaligned(dt)
+    tssm._check_args(x, dt, B, C, A, 4)
+    assert tssm.ssm_scan(x, dt, B, C, A, block_d=4).shape == x.shape
+    with pytest.raises(exc):
+        tssm._check_cuda(x, dt, B, C, A)
 
 
 # --- layers ----------------------------------------------------------------
