@@ -99,10 +99,17 @@ exits non-zero):
 11. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
-   f32) with block_h 1 and 2; with times for the kernel, the plain version
-   (once, at the eval shape) and the bound.  In bf16 at most 1% of the
-   outputs may differ from the plain version's at all; beside the checks,
-   controls (w one step late, w rounded to bf16) that they must catch.
+   f32; block_h 1, which changes no value on the card) in three cases
+   (``WKV_CASES``): "short", w in [0.7, 0.999]; "long", w = exp(-exp(x))
+   with x in [-9, -5] (w in [0.9933, 0.99988], states that carry over
+   thousands of steps); "fast", x in [-1, 2.5] (w in [5e-6, 0.69]); with
+   times for the kernel (``ms``, ``stream_ms``), the plain version (once)
+   and the bound (``wkv_bound``).  In bf16 at most 1% of the outputs may
+   differ from the plain version's at all; beside the checks, the
+   controls of ``WKV_MUST_CATCH`` on the case where each shows (w one
+   step late, w rounded to bf16, u's term dropped, head 0's u for every
+   head; the state zeroed every 256 steps, one thread's rows left out of
+   y), which they must catch; then "long" and "fast" in f32 at B=1.
 12. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
@@ -1367,61 +1374,125 @@ def _kernel_controls(torch, want, faults):
     return out
 
 
+# the wkv6 kernel's input cases: r, k, v, u scaled by 0.3 and a decay w of
+# "short" (w in [0.7, 0.999], the reference sweep's), "long" (w = exp(-exp(x)), x in
+# [-9, -5]: w in [0.9933, 0.99988], a state carries over thousands of
+# steps, as the model's w_base of -6 gives) and "fast" (x in [-1, 2.5]: w
+# in [5e-6, 0.69], where a design that divides by a cumulative decay breaks)
+WKV_CASES = {"short": dict(w=(0.7, 0.999), log_log=False),
+             "long": dict(w=(-9.0, -5.0), log_log=True),
+             "fast": dict(w=(-1.0, 2.5), log_log=True)}
+# rows of the state one thread of the kernel keeps (csrc/wkv6.cu kTileR)
+WKV_TILE_ROWS = 4
+# the recurrence gate's fault controls, each the plain version with one
+# fault, and the case where it shows: w read one step late, w rounded to
+# bf16, the bonus term left out (a_t = 0), every head reading head 0's u,
+# the state zeroed every 256 steps, and one thread's share of the rows
+# (the last WKV_TILE_ROWS) left out of y's sum
+WKV_MUST_CATCH = {"w_late": "short", "w_bf16": "short", "u_dropped": "fast",
+                  "u_head0": "short", "carry_dropped": "long",
+                  "rows_dropped": "long"}
+
+
+def wkv_inputs(torch, g, dev, B, S, H, N, dtype, case):
+    """Seeded inputs of ``WKV_CASES[case]``: r, k, v, w (f32), u."""
+    c = WKV_CASES[case]
+    lo, hi = c["w"]
+    r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev)
+               .mul(0.3).to(dtype) for _ in range(3))
+    w = torch.rand((B, S, H, N), generator=g, device=dev) * (hi - lo) + lo
+    if c["log_log"]:
+        w = torch.exp(-torch.exp(w))
+    u = torch.randn((H, N), generator=g, device=dev).mul(0.3).to(dtype)
+    return r, k, v, w, u
+
+
+def wkv_fault(torch, ref, name, r, k, v, w, u):
+    """The plain version with fault ``name`` (``WKV_MUST_CATCH``)."""
+    f = ref.wkv6_plain
+    if name == "w_late":
+        return f(r, k, v, _late(torch, w), u)
+    if name == "w_bf16":
+        return f(r, k, v, _bf16(torch, w), u)
+    if name == "u_dropped":
+        return f(r, k, v, w, torch.zeros_like(u))
+    if name == "u_head0":
+        return f(r, k, v, w, u[:1].expand_as(u).contiguous())
+    if name == "carry_dropped":
+        return torch.cat([f(*(t[:, s:s + 256] for t in (r, k, v, w)), u)
+                          for s in range(0, r.shape[1], 256)], dim=1)
+    if name == "rows_dropped":
+        # y less the r.S sum of those rows alone (u = 0 keeps the bonus
+        # term whole), in f32 and rounded once
+        rows = torch.zeros_like(r, dtype=torch.float32)
+        rows[..., -WKV_TILE_ROWS:] = r[..., -WKV_TILE_ROWS:]
+        k, v, u = k.float(), v.float(), u.float()
+        return (f(r.float(), k, v, w, u)
+                - f(rows, k, v, w, torch.zeros_like(u))).to(r.dtype)
+    raise KeyError(name)
+
+
+def wkv_bound(B, S, H, N, elem=2):
+    """(ms, by) for the recurrence: r, k, v, w, u read and y written once;
+    5 N^2 + 5 N f32 operations a (row, step, head): r.S 2 N^2, S <- w S +
+    k v^T 3 N^2 (product, FMA), r.(u k) 3 N and a_t v 2 N."""
+    n = B * S * H * N
+    nbytes = n * (3 * elem + 4 + elem) + H * N * elem
+    return _bound(nbytes, (5 * N * N + 5 * N) * B * S * H, F32_OPS_PER_S)
+
+
 def phase_wkv6_kernel(torch, dev, seed):
     """The wkv6 kernel against its plain version: the sweep's shapes in
-    f32 and the eval shape in bf16; times at the eval shape."""
+    f32, then the eval shape in bf16 in each case of ``WKV_CASES``, each
+    beside the ``WKV_MUST_CATCH`` controls that show on it, with times;
+    then "long" and "fast" in f32 on one row."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.wkv6 import wkv6
 
     g = torch.Generator(device=dev).manual_seed(seed)
-
-    def inputs(B, S, H, N, dtype):
-        r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev)
-                   .mul(0.3).to(dtype) for _ in range(3))
-        w = torch.rand((B, S, H, N), generator=g, device=dev) * 0.299 + 0.7
-        u = torch.randn((H, N), generator=g, device=dev).mul(0.3).to(dtype)
-        return r, k, v, w, u
-
     max_err = 0.0
     for H, N in ((2, 32), (4, 64)):
-        args = inputs(2, 24, H, N, torch.float32)
-        out = wkv6(*args)
-        torch.cuda.synchronize()
-        err = _check_close(torch, out, ref.wkv6_plain(*args))
+        args = wkv_inputs(torch, g, dev, 2, 24, H, N, torch.float32, "short")
+        err = _check_close(torch, ops.wkv6(*args), ref.wkv6_plain(*args))
         max_err = max(max_err, err)
         emit({"phase": "wkv6_kernel", "B": 2, "S": 24, "H": H, "N": N,
               "dtype": "float32", "max_abs_err": err})
     B, S, H, N = 4, 4096, 32, 64
-    args = inputs(B, S, H, N, torch.bfloat16)
-    want, plain_ms = timed_once(torch, lambda: ref.wkv6_plain(*args))
-    r, k, v, w, u = args
-    controls = _kernel_controls(torch, want, {
-        "w_late": lambda: ref.wkv6_plain(r, k, v, _late(torch, w), u),
-        "w_bf16": lambda: ref.wkv6_plain(r, k, v, _bf16(torch, w), u)})
-    case = None
-    for block_h in (1, 2):
-        out = ops.wkv6(*args, block_h=block_h)
+    bound, bound_by = wkv_bound(B, S, H, N)
+    cases = {}
+    for case in WKV_CASES:
+        args = wkv_inputs(torch, g, dev, B, S, H, N, torch.bfloat16, case)
+        want, plain_ms = timed_once(torch, lambda: ref.wkv6_plain(*args))
+        controls = _kernel_controls(torch, want, {
+            name: (lambda name=name: wkv_fault(torch, ref, name, *args))
+            for name, at in WKV_MUST_CATCH.items() if at == case})
+        out = ops.wkv6(*args)
         torch.cuda.synchronize()
         err = _check_close(torch, out, want)
         max_err = max(max_err, err)
-        mismatch = _mismatch(torch, out, want)
-        ms = gpu_ms(torch, lambda: ops.wkv6(*args, block_h=block_h), 10)
-        n = B * S * H * N
-        nbytes = n * (3 * 2 + 4 + 2) + H * N * 2
-        # what the recurrence needs per (row, step, head): r.S 2N^2,
-        # S <- w S + k v^T 3N^2 (product, FMA), r.(u*k) 3N and v*that 2N
-        bound, bound_by = _bound(nbytes, (5 * N * N + 5 * N) * B * S * H,
-                                 F32_OPS_PER_S)
-        c = {"B": B, "S": S, "H": H, "N": N, "dtype": "bfloat16",
-             "block_h": block_h, "max_abs_err": err, "mismatch": mismatch,
-             "ms": ms,
+        c = {"case": case, "B": B, "S": S, "H": H, "N": N,
+             "dtype": "bfloat16",
+             "block_h": ops.divisor_clamp(
+                 ops.KERNEL_DEFAULTS["wkv6"]["block_h"], H),
+             "max_abs_err": err, "mismatch": _mismatch(torch, out, want),
+             "ms": gpu_ms(torch, lambda: ops.wkv6(*args), 10),
+             "stream_ms": stream_ms(torch, lambda: ops.wkv6(*args)),
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
              "library_ms": None, "library": NO_LIBRARY,
              "max_abs_out": want.float().abs().max().item(),
              "controls": controls}
         emit({"phase": "wkv6_kernel", **c})
-        case = case or c
-    return case, max_err
+        cases[case] = c
+        del args, want, out
+    # f32 shows what bf16's rounding hides: a state carried over thousands
+    # of steps, and one that decays within a few
+    for case in ("long", "fast"):
+        args = wkv_inputs(torch, g, dev, 1, S, H, N, torch.float32, case)
+        err = _check_close(torch, ops.wkv6(*args), ref.wkv6_plain(*args))
+        max_err = max(max_err, err)
+        emit({"phase": "wkv6_kernel", "case": case, "B": 1, "S": S, "H": H,
+              "N": N, "dtype": "float32", "max_abs_err": err})
+        del args
+    return cases["short"], max_err
 
 
 # the selective scan's input cases: "sweep" (the reference tests' scales),
@@ -1906,7 +1977,7 @@ def main(argv=None) -> int:
          **{k: case[k] for k in case_keys}}
         for name, replaces, launches, err, case, case_keys in (
             ("wkv6", "src/repro/kernels/wkv6.py:46", wkv_launches, wkv_err,
-             wkv_case, keys),
+             wkv_case, keys + ("stream_ms",)),
             ("ssm_scan", "src/repro/kernels/ssm_scan.py:39", ssm_launches,
              ssm_err, ssm_case, keys + ("stream_ms",)))]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,6 +7,9 @@ runs on a machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,11 @@ from repro_torch.models.convert import params_to
 from repro_torch.models.zoo import build_model
 from repro_torch.train.step import make_eval_step
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 pytestmark = pytest.mark.cuda
 
@@ -527,44 +535,98 @@ def test_quick_calibration_on_card(dev, tmp_path):
 
 # --- the recurrences: wkv6 and ssm_scan --------------------------------------
 
-def _wkv_inputs(dev, B, S, H, N, dtype, seed=0):
+def _wkv_inputs(dev, B, S, H, N, dtype, seed=0, case="short"):
+    """``chip_smoke.wkv_inputs`` of ``WKV_CASES[case]``, from ``seed``."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    r, k, v = (torch.randn((B, S, H, N), generator=g, device=dev).mul(0.3)
-               .to(dtype) for _ in range(3))
-    w = torch.rand((B, S, H, N), generator=g, device=dev) * 0.3 + 0.699
-    u = torch.randn((H, N), generator=g, device=dev).mul(0.3).to(dtype)
-    return r, k, v, w, u
+    return chip_smoke.wkv_inputs(torch, g, dev, B, S, H, N, dtype, case)
 
 
-@pytest.mark.parametrize("block_h", [1, 2])
-@pytest.mark.parametrize("shape", [(2, 24, 2, 32), (2, 24, 4, 64),
-                                   (1, 70, 4, 16), (3, 33, 2, 64)])
+# the kernel's chunk is 16 steps: S = 70, 77 and 53 end on a ragged chunk
+# after three or more whole ones, 33 after two; B 1 and 4; N 16, 32 and
+# 64; rwkv6-1.6b's 32 heads of 64 (two blocks a head); "long" and "fast"
+# over 2,048 steps and more; block_h as the Pallas kernel's, which changes
+# no value on the card
+@pytest.mark.parametrize("shape,case,block_h", [
+    ((2, 24, 2, 32), "short", 1), ((2, 24, 4, 64), "short", 2),
+    ((1, 70, 4, 16), "short", 1), ((3, 33, 2, 64), "short", 2),
+    ((4, 77, 32, 64), "short", 1), ((1, 53, 3, 32), "short", 3),
+    ((4, 70, 2, 16), "short", 2), ((1, 16, 1, 64), "short", 1),
+    ((1, 2049, 32, 64), "long", 1), ((2, 2048, 4, 16), "long", 4),
+    ((1, 3000, 2, 32), "long", 1), ((1, 2049, 32, 64), "fast", 8),
+    ((4, 2050, 2, 16), "fast", 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_kernel_matches_plain(dev, dtype, shape, block_h):
-    """Chunks of the kernel's staging (70 and 33 steps: ragged last chunk)
-    and one or two heads a block."""
-    args = _wkv_inputs(dev, *shape, dtype)
+def test_wkv6_kernel_matches_plain(dev, dtype, shape, case, block_h):
+    args = _wkv_inputs(dev, *shape, dtype, case=case)
     before = wkv6.launches
-    out = wkv6(*args, block_h=block_h)
+    out = ops.wkv6(*args, block_h=block_h)
     torch.cuda.synchronize()
     assert wkv6.launches == before + 1
     want = ref.wkv6_plain(*args)
     assert out.dtype == dtype
-    torch.testing.assert_close(out.float(), want.float(),
-                               **(F32_TOL if dtype == torch.float32
-                                  else BF16_TOL))
+    # f32 over thousands of steps ("long", "fast"): atol at the scale of y,
+    # whose largest value reaches ~20 where a state carries that far; the
+    # kernel rounds w S + k v once (an FMA), the plain version the product
+    # and the sum.  The cases at the scale of 1 ("short") keep F32_TOL.
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    if dtype == torch.float32 and case != "short":
+        scale = max(1.0, want.float().abs().max().item())
+        tol = dict(tol, atol=tol["atol"] * scale)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_is_deterministic(dev, dtype):
+    """Partial sums in a fixed order, no atomics: two calls are bit-equal,
+    whatever ``block_h`` the caller names."""
+    args = _wkv_inputs(dev, 2, 100, 32, 64, dtype, case="long")
+    a = wkv6(*args)
+    for block_h in (1, 2, 32):
+        assert torch.equal(wkv6(*args, block_h=block_h), a)
+
+
+def test_wkv6_kernel_replays_from_a_cuda_graph(dev):
+    """The launch reads no device value: captured once, the graph replays
+    correctly after every input changes in place."""
+    r, k, v, w, u = _wkv_inputs(dev, 2, 90, 4, 64, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up: build and load
+        wkv6(r, k, v, w, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wkv6(r, k, v, w, u)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               ref.wkv6_plain(r, k, v, w, u).float(),
+                               **BF16_TOL)
+    for t, new in zip((r, k, v, w, u), _wkv_inputs(dev, 2, 90, 4, 64,
+                                                   torch.bfloat16, seed=1,
+                                                   case="fast")):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               ref.wkv6_plain(r, k, v, w, u).float(),
+                               **BF16_TOL)
 
 
 def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(dev):
     r, k, v, w, u = _wkv_inputs(dev, 1, 4, 32, 64, torch.bfloat16)
-    with pytest.raises(ValueError):                    # 32 x 64 threads
-        wkv6(r, k, v, w, u, block_h=32)
+    # the Pallas kernel's widest head tile runs: the grid ignores block_h
+    torch.testing.assert_close(wkv6(r, k, v, w, u, block_h=32).float(),
+                               ref.wkv6_plain(r, k, v, w, u).float(),
+                               **BF16_TOL)
     with pytest.raises(TypeError):
         wkv6(r, k.float(), v, w, u)
     with pytest.raises(ValueError):
         wkv6(r, k, v, w, u.cpu())
     with pytest.raises(ValueError):
         wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError):                    # r not 16-byte aligned
+        wkv6(torch.empty(r.numel() + 1, dtype=r.dtype, device=dev)[1:]
+             .view(r.shape), k, v, w, u)
     r, k, v, w, u = _wkv_inputs(dev, 1, 4, 2, 48, torch.float32)
     with pytest.raises(ValueError):                    # N = 48 not built
         wkv6(r, k, v, w, u)

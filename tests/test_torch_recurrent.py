@@ -3,9 +3,10 @@ numpy inputs: the plain versions of the ``wkv6`` and ``ssm_scan`` kernels
 against ``repro.kernels.ref`` and the Pallas kernels in interpret mode (the
 sweeps of ``tests/test_kernels.py``), the launch-parameter resolution, and
 the rwkv6 and mamba layers in train mode against ``use_pallas=False`` and
-``use_pallas=True``.  Also ``chip_smoke.py``'s scan checks rehearsed on the
-plain version: the ``SSM_MUST_CATCH`` fault controls, the long-memory case
-against the JAX reference, the bound, and the CUDA wrapper's refusals.
+``use_pallas=True``.  Also ``chip_smoke.py``'s recurrence checks rehearsed
+on the plain version: the ``WKV_MUST_CATCH`` and ``SSM_MUST_CATCH`` fault
+controls, the long-memory (and for wkv6 fast-decay) cases against the JAX
+reference, the bounds, and the CUDA wrappers' refusals.
 
 Tolerances: f32 atol/rtol 1e-5 (the same f32 arithmetic in another
 summation order); bf16 atol/rtol 1e-2 (outputs rounded to bf16 may differ
@@ -147,6 +148,90 @@ def test_wrappers_refuse_bad_shapes_on_cpu():
     with pytest.raises(ValueError):
         tssm.ssm_scan(x, x, torch.zeros(1, 3, 4), torch.zeros(1, 3, 4),
                       torch.zeros(8, 4), block_d=3)
+
+
+# --- chip_smoke.py's recurrence checks, rehearsed on the CPU ----------------
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.WKV_MUST_CATCH))
+def test_wkv_must_catch_controls_exceed_the_gate(name):
+    """Each fault of ``WKV_MUST_CATCH`` on its case, at a small shape (three
+    256-step carries, N 16): the phase's bf16 gate catches it by 10x, by
+    the scale-relative tolerance or by the share of outputs not bit-equal
+    (w_bf16 passes the tolerance), and the sound plain version passes the
+    same gate."""
+    g = torch.Generator().manual_seed(0)
+    case = chip_smoke.WKV_MUST_CATCH[name]
+    args = chip_smoke.wkv_inputs(torch, g, "cpu", 1, 1024, 2, 16,
+                                 torch.bfloat16, case)
+    want = ref.wkv6_plain(*args)
+    chip_smoke._check_close(torch, ops.wkv6(*args), want)
+    got = chip_smoke.wkv_fault(torch, ref, name, *args)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    row = chip_smoke._kernel_controls(torch, want, {name: lambda: got})[name]
+    assert row["caught"]
+    assert max(row["tol_ratio"],
+               row["mismatch"] / chip_smoke.REC_MISMATCH_BF16) > 10
+
+
+@pytest.mark.parametrize("case", ["long", "fast"])
+def test_wkv6_matches_ref_on_long_and_fast_decay(case):
+    """The card's "long" (w = exp(-exp(x)), x in [-9, -5]: w in [0.99328,
+    0.99988], a state carried over the whole sequence) and "fast" (x in
+    [-1, 2.5]: w in [5.1e-6, 0.692]) cases through ``ops.wkv6`` against
+    the JAX reference, in f32."""
+    g = torch.Generator().manual_seed(14)
+    ts = chip_smoke.wkv_inputs(torch, g, "cpu", 2, 300, 2, 16,
+                               torch.float32, case)
+    x_lo, x_hi = {"long": (-9, -5), "fast": (-1, 2.5)}[case]
+    assert np.exp(-np.exp(x_hi)) <= ts[3].min()
+    assert ts[3].max() <= np.exp(-np.exp(x_lo))
+    want = jref.wkv6_ref(*(jnp.asarray(t.numpy()) for t in ts))
+    got = ops.wkv6(*ts)
+    assert got.dtype == torch.float32 and got.shape == ts[0].shape
+    _close(got, want, F32_TOL)
+
+
+def test_wkv_bound_counts_the_recurrence():
+    """At the eval shape the recurrence's 5 N^2 + 5 N f32 operations a
+    (row, step, head) at 67 TFLOP/s bound the kernel, above the bytes'
+    0.120 ms (r, k, v, y bf16 and w f32 once)."""
+    ms, by = chip_smoke.wkv_bound(4, 4096, 32, 64)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 4096 * 32 * (5 * 64 * 64 + 5 * 64)
+                               / 67e12 * 1e3)
+    assert 0.1627 < ms < 0.1628
+    t_bytes, _ = chip_smoke._bound(4 * 4096 * 32 * 64 * 12 + 32 * 64 * 2, 0,
+                                   1.0)
+    assert t_bytes == pytest.approx(0.1202, abs=1e-4)
+
+
+def _wkv_case(N=16, dtype=torch.bfloat16):
+    r = torch.zeros(1, 4, 2, N, dtype=dtype)
+    return r, r.clone(), r.clone(), torch.zeros(1, 4, 2, N), torch.zeros(2, N)
+
+
+@pytest.mark.parametrize("fault,exc", [
+    ("head_48", ValueError),         # N = 48 not built
+    ("r_f16", TypeError),
+    ("r_misaligned", ValueError),
+    ("k_misaligned", ValueError),
+    ("v_misaligned", ValueError),
+    ("w_misaligned", ValueError),
+])
+def test_wkv6_cuda_wrapper_refuses_what_the_kernel_does_not_take(fault, exc):
+    """The checks the wrapper makes before a launch (``_check_cuda``), on
+    CPU tensors: the plain version takes all of these, the kernel none."""
+    twkv._check_cuda(*_wkv_case())         # the sound case passes
+    r, k, v, w, u = _wkv_case(N=48) if fault == "head_48" else _wkv_case()
+    if fault == "r_f16":
+        r, k, v = r.half(), k.half(), v.half()
+    if fault.endswith("_misaligned"):
+        name = fault.split("_")[0]
+        r, k, v, w = (_misaligned(t) if n == name else t
+                      for n, t in zip("rkvw", (r, k, v, w)))
+    assert twkv.wkv6(r, k, v, w, u, block_h=2).shape == r.shape
+    with pytest.raises(exc):
+        twkv._check_cuda(r, k, v, w, u)
 
 
 # --- chip_smoke.py's scan checks, rehearsed on the CPU -----------------------
