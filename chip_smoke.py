@@ -42,19 +42,27 @@ exits non-zero):
    the serve trace) and B=8, Sq=Skv=512, each causal with window {None,
    64, 4096} x softcap {None, 50}, one non-causal case and one case where
    the softcap binds (q scaled so raw scores pass +-50); the CUDA-core
-   kernel (``flash_attention.cu``) on one f32 case and one
-   ``acc_dtype="bf16"`` case.  Each case gives the share of outputs not
-   bit-equal to the plain version's and times for the kernel, the plain
-   version, ``F.scaled_dot_product_attention`` where it computes the same
-   function (no window, no softcap; a yardstick only) and the bound.
-   ``ms`` and ``library_ms`` are one call between a CUDA event pair,
-   median of 20, the host's cost of the call included, as every kernel
-   on the ``kernels`` line is timed; ``stream_ms`` and
-   ``library_stream_ms`` are 20 calls back to back between one event
-   pair, over 20, where that cost hides behind the card's work.  Beside the
-   checks, fault controls the gate must catch (``FLASH_MUST_CATCH``): the
-   plain version with the window one key wider, with the softcap dropped
-   where it binds, and with the diagonal key excluded.
+   kernel (``flash_attention.cu``) in f32 at B=1, Sq=Skv=900 over window
+   {None, 64, 4096} x softcap {None, 50}, at B=8, Sq=Skv=512, non-causal,
+   where the softcap binds and at a GQA group of 7 (H=56, KH=8, D=128),
+   each held at ``FLASH_F32_TOL`` (1e-5, scaled by max|want|), and with
+   the bf16 accumulator (``acc_dtype="bf16"``, bf16 inputs) at block_k
+   {16, 128, 256}.  Each case gives the share of outputs not bit-equal to
+   the plain version's, the CUDA-core kernel's work split (``T``,
+   ``smax``) and times for the kernel, the plain version,
+   ``F.scaled_dot_product_attention`` where it computes the same function
+   (no window, no softcap; a yardstick only) and the bound.  ``ms`` and
+   ``library_ms`` are one call between a CUDA event pair, median of 20,
+   the host's cost of the call included, as every kernel on the
+   ``kernels`` line is timed; ``stream_ms`` and ``library_stream_ms`` are
+   20 calls back to back between one event pair, over 20, where that cost
+   hides behind the card's work.  Beside the checks, fault controls the
+   gate must catch in bf16 and in f32 (``FLASH_MUST_CATCH``): the plain
+   version with the window one key wider, with the softcap dropped where
+   it binds, and with the diagonal key excluded; and in f32 the split's
+   own (``SPLIT_MUST_CATCH``): the plain version item by item with one
+   item's partial dropped, merged without its rescale, and with the key
+   at each item boundary counted twice.
 6. serve_slot: the same model and prompts through ``ServingEngine``
    (max_batch 8, max_len 1024), under sync debugging; every layer of
    every prefill must go through the tensor-core flash kernel.
@@ -535,14 +543,26 @@ def stream_ms(torch, fn, n=20, reps=5):
 
 
 # the flash gate's fault controls, each the plain version with one fault,
-# and the case that runs it: the window one key wider, the softcap dropped
+# and the case that runs it (in bf16 on the tensor-core kernel and in f32
+# on the CUDA-core one): the window one key wider, the softcap dropped
 # where raw scores pass +-50, and the diagonal key excluded (keys < q_pos)
-FLASH_MUST_CATCH = {"window_65": dict(B=1, S=900, window=64, softcap=None,
-                                      q_mul=1.0),
-                    "softcap_dropped": dict(B=1, S=900, window=None,
+FLASH_MUST_CATCH = {"window_65": dict(B=1, S=900, H=8, window=64,
+                                      softcap=None, q_mul=1.0),
+                    "softcap_dropped": dict(B=1, S=900, H=8, window=None,
                                             softcap=50.0, q_mul=30.0),
-                    "diagonal_excluded": dict(B=1, S=900, window=None,
+                    "diagonal_excluded": dict(B=1, S=900, H=8, window=None,
                                               softcap=None, q_mul=1.0)}
+# the CUDA-core kernel's split faults, each the plain version run item by
+# item (``work_split``, ``item_partial``) and merged with one fault, on the
+# f32 prefill case (B=1, S=900, causal), whose query tiles split into up
+# to 4 items: the first item of the last split tile dropped, the merge
+# without its exp(m_s - m*) rescale, and each later item starting one key
+# early (the key at an item boundary counted twice)
+SPLIT_MUST_CATCH = ("partial_dropped", "merge_unscaled", "boundary_key_twice")
+# the f32 gate of the CUDA-core kernel, scaled by max|want| as
+# ``_check_close`` scales it: the kernel and the plain version differ in
+# summation order only
+FLASH_F32_TOL = 1e-5
 
 
 def _flash_fault(torch, ref, name, q, k, v, kw, want):
@@ -557,11 +577,43 @@ def _flash_fault(torch, ref, name, q, k, v, kw, want):
     return torch.cat([want[:, :1], strict], dim=1)
 
 
+def _split_fault(torch, name, q, k, v, kw):
+    """The plain version item by item, merged, with split fault ``name``."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, _ = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    sp = fa.work_split(B, Sq, Skv, H, KH, causal=kw["causal"],
+                       window=kw["window"])
+    split = [i for i in range(sp.nq) if len(sp.items(i)) > 1]
+    pkw = {key: kw[key] for key in ("causal", "window", "softcap", "scale")}
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for i in range(sp.nq):
+        q_lo, q_hi = i * sp.bq, min((i + 1) * sp.bq, Sq)
+        keys = [(jb * sp.lk, je * sp.lk) for jb, je in sp.items(i) if je > jb]
+        if name == "partial_dropped" and i == split[-1]:
+            keys = keys[1:]
+        if name == "boundary_key_twice":
+            keys = [(lo - (s > 0), hi) for s, (lo, hi) in enumerate(keys)]
+        parts = [fa.item_partial(q, k, v, q_lo, q_hi, lo, hi, **pkw)
+                 for lo, hi in keys]
+        if name == "merge_unscaled":
+            out[:, q_lo:q_hi] = sum(p[2] for p in parts) / torch.clamp(
+                sum(p[1] for p in parts), min=1e-30)[..., None]
+        else:
+            out[:, q_lo:q_hi] = fa.merge_partials(parts)
+    return out.to(q.dtype)
+
+
 def _tol_ratio(got, want):
-    """max |got - want| / (atol + rtol |want|) under ``KERNEL_TOL``: the
-    gate passes at <= 1."""
+    """max |got - want| / the gate's limit for ``want``'s dtype: in bf16
+    atol + rtol |want| under ``KERNEL_TOL``, in f32 ``FLASH_F32_TOL``
+    (|want| + max|want|); the gate passes at <= 1."""
+    f32 = want.dtype == want.float().dtype
     got, want = got.float(), want.float()
-    lim = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * want.abs()
+    if f32:
+        lim = FLASH_F32_TOL * (want.abs() + want.abs().max())
+    else:
+        lim = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * want.abs()
     return ((got - want).abs() / lim).max().item()
 
 
@@ -569,50 +621,75 @@ def phase_flash_kernel(torch, dev, seed):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (SIMT, flash_attention,
                                                       kernel_for,
-                                                      kernel_tiles)
+                                                      kernel_tiles,
+                                                      work_split)
 
-    H, KH, D = 8, 4, 256
-    scale = D ** -0.5
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [dict(B=B, S=S, window=w, softcap=c, causal=True, acc="f32",
-                  dtype=bf16, q_mul=1.0)
+    base = dict(B=1, S=900, H=8, KH=4, D=256, window=None, softcap=None,
+                causal=True, acc="f32", dtype=bf16, q_mul=1.0, block_k=128)
+    cases = [{**base, "B": B, "S": S, "window": w, "softcap": c}
              for B, S in ((1, 1), (1, 52), (1, 768), (1, 900), (8, 512))
              for w in (None, 64, 4096) for c in (None, 50.0)]
-    cases += [dict(B=1, S=900, window=None, softcap=None, causal=False,
-                   acc="f32", dtype=bf16, q_mul=1.0),
-              dict(B=1, S=900, window=None, softcap=50.0, causal=True,
-                   acc="f32", dtype=bf16, q_mul=30.0),
-              dict(B=1, S=900, window=None, softcap=None, causal=True,
-                   acc="f32", dtype=f32, q_mul=1.0),
-              dict(B=1, S=900, window=4096, softcap=50.0, causal=True,
-                   acc="bf16", dtype=bf16, q_mul=1.0)]
+    cases += [{**base, "causal": False},
+              {**base, "softcap": 50.0, "q_mul": 30.0}]
+    # the CUDA-core kernel in f32: window x softcap at the prefill, the
+    # batch, non-causal, the binding softcap and a GQA group of 7
+    cases += [{**base, "dtype": f32, "window": w, "softcap": c}
+              for w in (None, 64, 4096) for c in (None, 50.0)]
+    cases += [{**base, "dtype": f32, "B": 8, "S": 512},
+              {**base, "dtype": f32, "causal": False},
+              {**base, "dtype": f32, "softcap": 50.0, "q_mul": 30.0},
+              {**base, "dtype": f32, "H": 56, "KH": 8, "D": 128}]
+    # ... and with the bf16 accumulator, which rounds every block_k keys
+    cases += [{**base, "window": 4096, "softcap": 50.0, "acc": "bf16",
+               "block_k": bk} for bk in (16, 128, 256)]
     g = torch.Generator(device=dev).manual_seed(seed)
-    out_cases, max_err, controls = [], {}, {}
+    out_cases, max_err = [], {}
+    controls = {"bfloat16": {}, "float32": {}}
     for c in cases:
         B, S, dt, q_mul = c["B"], c["S"], c["dtype"], c["q_mul"]
+        H, KH, D = c["H"], c["KH"], c["D"]
+        scale = D ** -0.5
         q = (torch.randn((B, S, H, D), generator=g, device=dev)
              * q_mul).to(dt)
         k = torch.randn((B, S, KH, D), generator=g, device=dev).to(dt)
         v = torch.randn((B, S, KH, D), generator=g, device=dev).to(dt)
         kw = dict(causal=c["causal"], window=c["window"],
-                  softcap=c["softcap"], scale=scale, acc_dtype=c["acc"])
+                  softcap=c["softcap"], scale=scale, acc_dtype=c["acc"],
+                  block_k=c["block_k"])
         kernel = kernel_for(dt, c["acc"], D)
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = ref.flash_attention_plain(q, k, v, **kw)
         err = (out.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(out.float(), want.float(), **KERNEL_TOL)
+        if dt == f32:
+            tol = FLASH_F32_TOL
+            torch.testing.assert_close(
+                out, want, rtol=tol, atol=tol * want.abs().max().item())
+        else:
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **KERNEL_TOL)
         max_err[kernel] = max(max_err.get(kernel, 0.0), err)
-        for name, at in FLASH_MUST_CATCH.items():
-            if (c["causal"] and c["acc"] == "f32" and dt == bf16
-                    and all(c[key] == val for key, val in at.items())):
-                got = _flash_fault(torch, ref, name, q, k, v, kw, want)
-                controls[name] = {"tol_ratio": _tol_ratio(got, want),
-                                  "mismatch": (got != want).float()
-                                  .mean().item()}
-                controls[name]["caught"] = controls[name]["tol_ratio"] > 1
+        dname = str(dt).split(".")[-1]
+        faults = {}
+        if c["causal"] and c["acc"] == "f32":
+            faults = {name: lambda name=name: _flash_fault(
+                torch, ref, name, q, k, v, kw, want)
+                for name, at in FLASH_MUST_CATCH.items()
+                if all(c[key] == val for key, val in at.items())}
+            if (dt == f32 and c["H"] == 8 and (B, S, q_mul) == (1, 900, 1.0)
+                    and c["window"] is None and c["softcap"] is None):
+                faults.update({name: lambda name=name: _split_fault(
+                    torch, name, q, k, v, kw) for name in SPLIT_MUST_CATCH})
+        for name, fn in faults.items():
+            got = fn()
+            controls[dname][name] = {
+                "tol_ratio": _tol_ratio(got, want),
+                "mismatch": (got != want).float().mean().item()}
+            controls[dname][name]["caught"] = \
+                controls[dname][name]["tol_ratio"] > 1
         ms = gpu_ms(torch, lambda: flash_attention(q, k, v, **kw), 20)
         s_ms = stream_ms(torch, lambda: flash_attention(q, k, v, **kw))
         plain_ms = gpu_ms(torch, lambda: ref.flash_attention_plain(
@@ -630,21 +707,30 @@ def phase_flash_kernel(torch, dev, seed):
         bound, bound_by = _flash_bound_ms(
             B, S, S, H, KH, D, c["causal"], c["window"], elem,
             BF16_OPS_PER_S if dt == bf16 else F32_OPS_PER_S)
-        case = {"kernel": kernel, "dtype": str(dt).split(".")[-1],
-                "B": B, "Sq": S, "Skv": S, "causal": c["causal"],
+        case = {"kernel": kernel, "dtype": dname, "B": B, "Sq": S, "Skv": S,
+                "H": H, "KH": KH, "D": D, "causal": c["causal"],
                 "window": c["window"], "softcap": c["softcap"],
                 "q_mul": q_mul, "acc_dtype": c["acc"],
-                "tiles": kernel_tiles(H, KH, D, S, 128, c["acc"], dt),
+                "block_k": c["block_k"],
+                "tiles": kernel_tiles(H, KH, D, S, c["block_k"], c["acc"],
+                                      dt),
                 "max_abs_err": err,
                 "mismatch": (out != want).float().mean().item(),
                 "ms": ms, "stream_ms": s_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "library_stream_ms": lib_s_ms,
                 "bound_ms": bound, "bound_by": bound_by}
+        if kernel == SIMT:
+            sp = work_split(B, S, S, H, KH, causal=c["causal"],
+                            window=c["window"], acc_dtype=c["acc"],
+                            block_k=c["block_k"])
+            case["split"] = {"T": sp.T, "smax": sp.smax}
         out_cases.append(case)
         emit({"phase": "flash_kernel", "name": "flash_attention", **case})
     emit({"phase": "flash_kernel", "controls": controls})
-    missed = [n for n in FLASH_MUST_CATCH
-              if not controls.get(n, {}).get("caught")]
+    missed = [f"{d}:{n}" for d, names in (
+        ("bfloat16", FLASH_MUST_CATCH),
+        ("float32", tuple(FLASH_MUST_CATCH) + SPLIT_MUST_CATCH))
+        for n in names if not controls[d].get(n, {}).get("caught")]
     if missed:
         raise AssertionError(f"the flash gate misses {missed}: {controls}")
     return out_cases, max_err
@@ -1937,7 +2023,8 @@ def main(argv=None) -> int:
     # f32 (the reference phase's path)
     fa_case, fa_f32_case = (
         next(c for c in fa_cases if c["dtype"] == dtype and c["B"] == 1
-             and c["Sq"] == 900 and c["causal"] and c["window"] is None
+             and c["Sq"] == 900 and c["H"] == 8 and c["causal"]
+             and c["window"] is None
              and c["softcap"] is None and c["q_mul"] == 1.0
              and c["acc_dtype"] == "f32")
         for dtype in ("bfloat16", "float32"))

@@ -18,10 +18,20 @@ never of a failure):
 
 Tiles (``kernel_tiles``): the tensor-core kernel runs 64 query rows of one
 head a block and 64-key KV tiles whatever the hints.  The CUDA-core kernel
-with ``acc_dtype="f32"`` runs 64 query rows a block (the GQA group's heads
-times ``64 // G`` positions) and 64-key KV tiles; with ``"bf16"`` it
-honours ``block_k`` (clamped to Skv, as the Pallas kernel clamps it) and
-matches the plain version's rounding points.
+runs 64 query rows a block (the GQA group's heads times ``64 // G``
+positions), 16 warps, one block an SM; with ``acc_dtype="f32"`` its KV
+tiles are 64 keys, with ``"bf16"`` it honours ``block_k`` (clamped to
+Skv, as the Pallas kernel clamps it; at most 256) and matches the plain
+version's rounding points.
+
+The work split (``work_split``, a function of the shapes alone): with an
+f32 accumulator each query tile's KV range is cut into items of at most
+``T`` tiles, ``T`` chosen so that the call makes about ``ITEMS_PER_SM``
+items for each of the H100's ``SMS`` SMs; a tile with several items
+writes f32 partials (m, l, acc) to a workspace, which a merge kernel
+folds (``merge_partials`` is its arithmetic).  The bf16 accumulator is
+never split.  ``split_plain`` runs the plain arithmetic item by item and
+merges, the CPU's rehearsal of the kernel's split.
 
 ``flash_attention.launches`` counts the launches of both kernels and
 ``flash_attention.mma_launches`` those of the tensor-core kernel (plain
@@ -30,18 +40,27 @@ integers; reset them to 0 before a run to prove which kernel it took).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ACC_DTYPES, flash_attention_plain
+from repro_torch.kernels.ref import (ACC_DTYPES, NEG_INF,
+                                     flash_attention_plain)
 
 SIMT = "flash_attention"          # the CUDA-core kernel (csrc name)
 MMA = "flash_attention_mma"       # the tensor-core kernel (csrc name)
 ROWS = 64                 # query rows per block (csrc: kRows, kBM)
-SUB = 64                  # KV tile of the f32 path (csrc: kSub, kBN)
+SUB = 64                  # KV tile of the f32 accumulator (csrc: kSub, kBN)
 SMEM_LIMIT = 232448       # shared memory a Hopper block may use (227 KB)
-_NC = (1, 2, 4, 8, 16)
+# the CUDA-core kernel's shared memory (csrc: kSlabD, kSlabV, kStages,
+# kLdK, kLdP, kMaxSub)
+SLAB_D, SLAB_V, STAGES = 64, 16, 4
+LDK, LDP = SLAB_D + 16, ROWS + 4
+MAX_LK = 4 * SUB
+# the split's aim: about ITEMS_PER_SM items for each SM of an H100
+SMS, ITEMS_PER_SM = 132, 2
 # head dims the tensor-core kernel is built for (csrc: DP); a D in between
 # runs at the next one, its extra columns zero
 MMA_DIMS = (16, 32, 64, 128, 256)
@@ -57,8 +76,7 @@ def _launcher(name):
         if name == MMA:
             fn.argtypes = [P, P, P, P, I, I, I, I, I, I, F, I, I, F, P]
         else:
-            fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, I,
-                           I, F, P]
+            fn.argtypes = [P, P, P, P, P] + [I] * 13 + [F, I, I, F, P]
         fn.restype = I
         _fns[name] = fn
     return fn
@@ -74,42 +92,170 @@ def kernel_for(dtype, acc_dtype: str, D: int) -> str:
     return SIMT
 
 
-def smem_bytes(D: int, lk: int, kernel: str = SIMT) -> int:
-    """Dynamic shared memory of one block.  ``SIMT`` (csrc ``smem_bytes``):
-    the Q tile and one K/V sub-tile of ``D + 1`` f32 columns, the score
-    tile of ``lk + 1`` columns, and three per-row f32 vectors.  ``MMA``
-    (csrc ``Tile<DP>::kSmem``): the Q tile and the K/V ring's slots, each
-    64 rows of DP + 8 bf16 (``lk`` is its fixed 64)."""
+def smem_bytes(D: int, lk: int, kernel: str = SIMT, elem: int = 4) -> int:
+    """Dynamic shared memory of one block.  ``SIMT`` (csrc
+    ``smem_bytes``): the scaled Q tile (64 rows of D + 4 f32), the
+    ``cp.async`` ring's 4 slots in the inputs' type (``elem`` bytes), each
+    a K slab of 64 keys x 80 or a V slab of 16 keys x (D + 16 / elem),
+    the P tile (``ceil(lk / 64)`` x 64 keys of 68 f32) and seven per-row
+    f32 vectors.  ``MMA`` (csrc ``Tile<DP>::kSmem``): the Q tile and the
+    K/V ring's slots, each 64 rows of DP + 8 bf16 (``lk`` is its fixed
+    64)."""
     if kernel == MMA:
         dp = next(d for d in MMA_DIMS if d >= D)
         return 2 * ROWS * (dp + 8) * (1 + MMA_SLOTS)
-    return 4 * ((ROWS + SUB) * (D + 1) + ROWS * (lk + 1) + 3 * ROWS)
+    slot = max(SUB * LDK, SLAB_V * (D + 16 // elem))
+    nsub = -(-lk // SUB)
+    return (4 * ROWS * (D + 4) + elem * STAGES * slot
+            + 4 * (nsub * SUB * LDP + 7 * ROWS))
+
+
+def _simt_lk(Skv: int, block_k: int, acc_dtype: str) -> int:
+    return SUB if acc_dtype == "f32" else max(min(int(block_k), Skv), 1)
 
 
 def kernel_tiles(H: int, KH: int, D: int, Skv: int, block_k: int,
                  acc_dtype: str, dtype):
     """The launch shape of the kernel that ``kernel_for(dtype, acc_dtype,
-    D)`` picks, as ``(nc, bq, lk)``.  ``SIMT``: head-dim columns per
-    thread, query positions per block, KV tile.  ``MMA``: the padded head
-    dim's n8 tiles of O a warp (DP / 8), the block's 64 query positions
-    of one head, the 64-key KV tile.  Raises ``ValueError`` on what the
-    kernel does not take."""
+    D)`` picks, as ``(nc, bq, lk)``.  ``SIMT``: 16-byte column chunks of O
+    a thread owns (1 for D <= 128, else 2), query positions per block, KV
+    tile.  ``MMA``: the padded head dim's n8 tiles of O a warp (DP / 8),
+    the block's 64 query positions of one head, the 64-key KV tile.
+    Raises ``ValueError`` on what the kernel does not take."""
     if kernel_for(dtype, acc_dtype, D) == MMA:      # takes every such D
         return next(d for d in MMA_DIMS if d >= D) // 8, ROWS, SUB
     G = H // KH
     if G > ROWS:
         raise ValueError(f"flash_attention kernel takes GQA groups <= {ROWS}, "
                          f"got {G}")
-    nc = next((n for n in _NC if 16 * n >= D), None)
-    if nc is None or D % 8:
-        raise ValueError(f"flash_attention kernel takes head_dim <= "
-                         f"{16 * _NC[-1]} with head_dim % 8 == 0, got {D}")
-    lk = SUB if acc_dtype == "f32" else max(min(int(block_k), Skv), 1)
-    if smem_bytes(D, lk) > SMEM_LIMIT:
+    if not 0 < D <= 256 or D % 8:
+        raise ValueError(f"flash_attention kernel takes head_dim <= 256 "
+                         f"with head_dim % 8 == 0, got {D}")
+    lk = _simt_lk(Skv, block_k, acc_dtype)
+    if lk > MAX_LK:
+        raise ValueError(f"flash_attention: a bf16-accumulator KV tile of "
+                         f"{lk} keys > {MAX_LK}")
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if smem_bytes(D, lk, elem=elem) > SMEM_LIMIT:
         raise ValueError(f"flash_attention: a KV tile of {lk} keys at "
-                         f"head_dim {D} needs {smem_bytes(D, lk)} bytes of "
-                         f"shared memory > {SMEM_LIMIT}")
-    return nc, ROWS // G, lk
+                         f"head_dim {D} needs {smem_bytes(D, lk, elem=elem)} "
+                         f"bytes of shared memory > {SMEM_LIMIT}")
+    return (1 if D <= 128 else 2), ROWS // G, lk
+
+
+def tile_range(i: int, bq: int, lk: int, Sq: int, Skv: int, causal: bool,
+               window) -> Tuple[int, int]:
+    """The KV tiles ``[lo, hi)`` of ``lk`` keys that hold a key the mask
+    keeps for a row of query tile ``i`` (positions ``i * bq`` ..), as the
+    kernel computes them (csrc ``tile_range``)."""
+    nt = -(-Skv // lk)
+    q0 = i * bq
+    q_last = min(q0 + bq, Sq) - 1
+    hi = min(q_last // lk + 1, nt) if causal else nt
+    lo = max(q0 - window + 1, 0) // lk if window else 0
+    return lo, max(hi, lo)
+
+
+class Split(NamedTuple):
+    """The CUDA-core kernel's work split: ``bq`` query positions a tile,
+    ``lk`` keys a KV tile, ``nq`` query tiles, at most ``T`` KV tiles an
+    item, at most ``smax`` items a query tile, and each query tile's KV
+    tile range."""
+    bq: int
+    lk: int
+    nq: int
+    T: int
+    smax: int
+    ranges: Tuple[Tuple[int, int], ...]
+
+    def items(self, i: int) -> List[Tuple[int, int]]:
+        """Query tile ``i``'s items, each a KV tile range ``[jb, je)``: its
+        range cut into ``max(1, ceil(n / T))`` near-equal parts (csrc)."""
+        lo, hi = self.ranges[i]
+        n = hi - lo
+        ns = max(1, -(-n // self.T))
+        return [(lo + s * n // ns, lo + (s + 1) * n // ns) for s in range(ns)]
+
+
+@functools.lru_cache(maxsize=256)
+def work_split(B: int, Sq: int, Skv: int, H: int, KH: int, *, causal=True,
+               window=None, acc_dtype="f32", block_k=128) -> Split:
+    """The CUDA-core kernel's split, from the shapes alone (cached: a call
+    at seen shapes costs the host nothing).  With an f32 accumulator
+    ``T`` is the KV tiles of the whole call over ``ITEMS_PER_SM * SMS``
+    (at least 1); with a bf16 one every query tile is one item (``T`` =
+    every KV tile)."""
+    bq = ROWS // (H // KH)
+    lk = _simt_lk(Skv, block_k, acc_dtype)
+    nq = -(-Sq // bq)
+    ranges = tuple(tile_range(i, bq, lk, Sq, Skv, causal, window)
+                   for i in range(nq))
+    if acc_dtype == "f32":
+        work = B * KH * sum(hi - lo for lo, hi in ranges)
+        T = max(1, -(-work // (ITEMS_PER_SM * SMS)))
+    else:
+        T = max(1, -(-Skv // lk))
+    smax = max(max(1, -(-(hi - lo) // T)) for lo, hi in ranges)
+    return Split(bq, lk, nq, T, smax, ranges)
+
+
+def item_partial(q, k, v, q_lo: int, q_hi: int, k_lo: int, k_hi: int, *,
+                 causal=True, window=None, softcap=None, scale=None):
+    """One work item's partial in plain f32: ``(m, l, acc)`` of the query
+    positions ``[q_lo, q_hi)`` over the keys ``[k_lo, k_hi)`` (clipped to
+    Skv), m and l [B, n, H], acc [B, n, H, D]; masked keys score
+    ``NEG_INF``."""
+    D, G = q.shape[-1], q.shape[2] // k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    k_hi = min(k_hi, k.shape[1])
+    qf = q[:, q_lo:q_hi].float() * scale
+    kf = k[:, k_lo:k_hi].float().repeat_interleave(G, dim=2)
+    vf = v[:, k_lo:k_hi].float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bqhk", qf, kf)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(q_lo, q_hi, device=q.device)[:, None]
+    kp = torch.arange(k_lo, k_hi, device=q.device)[None, :]
+    ok = torch.ones_like(qp - kp, dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= (qp - kp) < window
+    s = torch.where(ok[None, :, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bqhk,bkhd->bqhd", p, vf)
+
+
+def merge_partials(parts):
+    """The merge kernel's fold of partials ``[(m, l, acc), ...]``: each
+    weighted by exp(m_s - m*), m* the largest m; out = sum w acc /
+    max(sum w l, 1e-30)."""
+    m = torch.stack([p[0] for p in parts])
+    w = torch.exp(m - m.amax(dim=0))
+    l = (w * torch.stack([p[1] for p in parts])).sum(dim=0)
+    acc = (w[..., None] * torch.stack([p[2] for p in parts])).sum(dim=0)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def split_plain(q, k, v, *, causal=True, window=None, softcap=None,
+                scale=None):
+    """The f32-accumulator kernel's split in plain torch: every query
+    tile's items (``work_split``) as ``item_partial``, folded by
+    ``merge_partials``; a query tile with no KV tile gives 0, as the
+    kernel does.  q [B,Sq,H,D]; k,v [B,Skv,KH,D] -> [B,Sq,H,D] f32."""
+    B, Sq, H, _ = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    sp = work_split(B, Sq, Skv, H, KH, causal=causal, window=window)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    for i in range(sp.nq):
+        q_lo, q_hi = i * sp.bq, min((i + 1) * sp.bq, Sq)
+        parts = [item_partial(q, k, v, q_lo, q_hi, jb * sp.lk, je * sp.lk,
+                              **kw) for jb, je in sp.items(i) if je > jb]
+        if parts:
+            out[:, q_lo:q_hi] = merge_partials(parts)
+    return out
 
 
 def _check_args(q, k, v, window, softcap, acc_dtype):
@@ -184,8 +330,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     if kernel == MMA:
         rc = _launcher(MMA)(*ptrs, B, Sq, Skv, H, KH, D, scale, *tail)
     else:
-        rc = _launcher(SIMT)(*ptrs, int(q.dtype == torch.bfloat16), B, Sq,
-                             Skv, H, KH, D, nc, bq, lk,
+        sp = work_split(B, Sq, Skv, H, KH, causal=bool(causal),
+                        window=int(window) if window else None,
+                        acc_dtype=acc_dtype, block_k=int(block_k))
+        if B * KH * sp.nq * sp.smax > 2 ** 31 - 1:
+            raise ValueError(f"flash_attention: {B * KH * sp.nq * sp.smax} "
+                             f"blocks exceed 2^31 - 1")
+        ws = None
+        if sp.smax > 1:     # split partials: m, l and acc of every item
+            ws = torch.empty(B * KH * sp.nq * sp.smax * ROWS * (D + 2),
+                             dtype=torch.float32, device=q.device)
+        rc = _launcher(SIMT)(*ptrs, ws.data_ptr() if ws is not None else None,
+                             int(q.dtype == torch.bfloat16), B, Sq, Skv, H,
+                             KH, D, nc, bq, lk, sp.T, sp.smax,
                              int(acc_dtype == "bf16"), scale, *tail)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed (rc={rc})")

@@ -230,11 +230,15 @@ def _fa_inputs(dev, B, Sq, Skv, H, KH, D, dtype, seed=0):
     (2, 65, 127, 8, 4, 256),      # neither length a multiple of 64
     (1, 127, 127, 7, 1, 128),     # yi-34b's group of 7, ragged
     (1, 40, 40, 4, 2, 24),        # D % 16 == 8: the CUDA-core kernel
+    (1, 4096, 4096, 8, 4, 256),   # long: the f32 split's many items
+    (1, 2048, 2048, 8, 4, 256),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_matches_plain(dev, dtype, shape, kw):
     """bf16 with D % 16 == 0 takes the tensor-core kernel; f32 and bf16
-    with D % 16 == 8 the CUDA-core one."""
+    with D % 16 == 8 the CUDA-core one, whose f32 accumulator splits long
+    KV ranges into items merged by a second kernel (at 2048 and 4096
+    keys: causal, windows of 20, 64 and 4096 keys, and non-causal)."""
     B, Sq, Skv, H, KH, D = shape
     q, k, v = _fa_inputs(dev, B, Sq, Skv, H, KH, D, dtype)
     before, before_mma = flash_attention.launches, flash_attention.mma_launches
@@ -261,6 +265,45 @@ def test_flash_kernel_bf16_accumulator_matches_plain(dev, block_k):
         want = ref.flash_attention_plain(q, k, v, block_k=block_k,
                                          acc_dtype="bf16", **kw)
         torch.testing.assert_close(out.float(), want.float(), **BF16_TOL)
+
+
+def test_flash_kernel_replays_from_a_cuda_graph(dev):
+    """The CUDA-core kernel's split (its items, workspace and merge) is a
+    function of the shapes: captured once, the graph replays correctly
+    after q, k and v change in place."""
+    from repro_torch.kernels.flash_attention import work_split
+    q, k, v = _fa_inputs(dev, 1, 900, 900, 8, 4, 256, torch.float32)
+    assert work_split(1, 900, 900, 8, 4).smax > 1
+    kw = dict(window=4096, softcap=50.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up: build and load
+        flash_attention(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, ref.flash_attention_plain(q, k, v, **kw), **F32_TOL)
+    for t, new in zip((q, k, v), _fa_inputs(dev, 1, 900, 900, 8, 4, 256,
+                                            torch.float32, seed=1)):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, ref.flash_attention_plain(q, k, v, **kw), **F32_TOL)
+
+
+def test_flash_kernel_is_deterministic(dev):
+    """Fixed summation order and item order, no atomics: two calls of the
+    split f32 path and of the bf16 accumulator are bit-equal."""
+    for dtype, kw in ((torch.float32, dict()),
+                      (torch.bfloat16, dict(acc_dtype="bf16", block_k=52))):
+        q, k, v = _fa_inputs(dev, 1, 900, 900, 8, 4, 256, dtype)
+        assert torch.equal(flash_attention(q, k, v, **kw),
+                           flash_attention(q, k, v, **kw))
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -20,7 +20,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (MMA, SIMT, flash_attention,
                                                   kernel_for, kernel_tiles,
-                                                  smem_bytes)
+                                                  smem_bytes, split_plain,
+                                                  work_split)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 8e-2)}
@@ -141,14 +142,18 @@ def test_wrapper_rejects_what_neither_version_takes():
 
 
 def test_kernel_tiles():
-    """The CUDA-core kernel (f32 inputs, or a bf16 accumulator), with an
-    f32 accumulator: its own tiles (64 query rows over the group, 64-key
-    KV tiles) whatever the hints; with a bf16 one: the KV tile is block_k
-    clamped to Skv, and a tile past 227 KB of shared memory is refused
-    here, before any launch.  The tensor-core kernel (bf16 inputs, f32
-    accumulator): 64 query rows of one head and 64-key tiles whatever the
-    hints or the group, its head dim padded to the next built DP, and
-    shared memory for Q and a 2-slot K/V ring of 64 x (DP + 8) bf16."""
+    """The CUDA-core kernel (f32 inputs, or a bf16 accumulator): 64 query
+    rows over the group, O in 1 (D <= 128) or 2 16-byte column chunks a
+    thread, 64-key KV tiles with an f32 accumulator whatever the hints;
+    with a bf16 one the KV tile is block_k clamped to Skv, at most 256
+    keys, refused here, before any launch, past that.  Its shared memory:
+    Q (64 x (D + 4) f32), a 4-slot ring whose slots hold a K slab (64 x
+    80) or a V slab (16 x (D + 16 / elem)) in the inputs' type, the P
+    tile (ceil(lk / 64) x 64 keys x 68 f32) and 7 x 64 f32.  The
+    tensor-core kernel (bf16 inputs, f32 accumulator): 64 query rows of
+    one head and 64-key tiles whatever the hints or the group, its head
+    dim padded to the next built DP, and shared memory for Q and a 2-slot
+    K/V ring of 64 x (DP + 8) bf16."""
     bf16, f32 = torch.bfloat16, torch.float32
     assert kernel_tiles(8, 4, 256, 900, 128, "f32", bf16) == (32, 64, 64)
     assert kernel_tiles(8, 4, 256, 52, 7, "f32", bf16) == (32, 64, 64)
@@ -161,23 +166,120 @@ def test_kernel_tiles():
     assert smem_bytes(96, 64, MMA) == smem_bytes(128, 64, MMA)
     assert smem_bytes(16, 64, MMA) == 9216
     # bf16 that the tensor-core kernel does not take: the CUDA-core tiles
-    assert kernel_tiles(8, 4, 24, 900, 128, "f32", bf16) == (2, 32, 64)
-    assert kernel_tiles(8, 4, 256, 900, 128, "bf16", bf16) == (16, 32, 128)
+    assert kernel_tiles(8, 4, 24, 900, 128, "f32", bf16) == (1, 32, 64)
+    assert kernel_tiles(8, 4, 256, 900, 128, "bf16", bf16) == (2, 32, 128)
     with pytest.raises(ValueError):
         kernel_tiles(8, 4, 272, 900, 128, "f32", bf16)  # head_dim > 256
-    assert kernel_tiles(8, 4, 256, 900, 128, "f32", f32) == (16, 32, 64)
+    assert kernel_tiles(8, 4, 256, 900, 128, "f32", f32) == (2, 32, 64)
+    assert kernel_tiles(56, 8, 128, 900, 128, "f32", f32) == (1, 9, 64)
     assert kernel_tiles(4, 2, 16, 900, 7, "f32", f32) == (1, 32, 64)
-    assert kernel_tiles(8, 1, 128, 52, 128, "bf16", f32) == (8, 8, 52)
-    assert kernel_tiles(8, 4, 256, 900, 256, "bf16", f32) == (16, 32, 256)
-    assert smem_bytes(256, 64) == 148992
+    assert kernel_tiles(8, 1, 128, 52, 128, "bf16", f32) == (1, 8, 52)
+    assert kernel_tiles(8, 4, 256, 900, 256, "bf16", f32) == (2, 32, 256)
+    # 66,560 Q + 4 x 20,480 ring + 17,408 P + 1,792
+    assert smem_bytes(256, 64) == 167680
+    assert smem_bytes(256, 256) == 219904            # P of 256 keys
+    assert smem_bytes(256, 256, elem=2) == 178944    # a bf16 ring
+    assert smem_bytes(16, 64) == 5120 + 81920 + 17408 + 1792
     with pytest.raises(ValueError):
-        kernel_tiles(8, 4, 256, 900, 512, "bf16", f32)  # 263,680 bytes
+        kernel_tiles(8, 4, 256, 900, 512, "bf16", f32)  # a 512-key tile
     with pytest.raises(ValueError):
         kernel_tiles(8, 4, 260, 900, 128, "f32", f32)   # head_dim > 256
     with pytest.raises(ValueError):
         kernel_tiles(8, 4, 20, 900, 128, "f32", f32)    # 20 % 8 != 0
     with pytest.raises(ValueError):
         kernel_tiles(128, 1, 64, 900, 128, "f32", f32)  # group of 128
+
+
+SPLIT_SHAPES = [
+    # B, Sq, Skv, H, KH, causal, window, acc_dtype, block_k
+    (1, 900, 900, 8, 4, True, None, "f32", 128),     # the f32 prefill
+    (1, 900, 900, 8, 4, True, 64, "f32", 128),
+    (1, 900, 900, 8, 4, False, None, "f32", 128),
+    (8, 512, 512, 8, 4, True, 4096, "f32", 128),
+    (1, 4096, 4096, 8, 4, True, None, "f32", 128),
+    (2, 2048, 2048, 8, 4, True, 64, "f32", 128),
+    (1, 2048, 2048, 8, 4, False, 300, "f32", 128),
+    (1, 70, 127, 56, 8, True, None, "f32", 128),     # a GQA group of 7
+    (3, 37, 53, 4, 2, True, 7, "f32", 128),          # Sq < Skv
+    (1, 5, 1, 4, 2, True, None, "f32", 128),         # Skv = 1
+    (1, 300, 300, 8, 4, True, 100, "bf16", 52),
+    (1, 900, 900, 8, 4, False, 20, "bf16", 16),
+    (1, 900, 900, 8, 4, True, None, "bf16", 256),
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_work_split_covers_every_kept_pair_once(shape):
+    """The kernel's work split, a function of the shapes: every (query
+    row, key) pair the mask keeps lies in exactly one item of its query
+    tile, no item walks more than T KV tiles, and the bf16 accumulator is
+    never split (one item a query tile)."""
+    B, Sq, Skv, H, KH, causal, window, acc, block_k = shape
+    sp = work_split(B, Sq, Skv, H, KH, causal=causal, window=window,
+                    acc_dtype=acc, block_k=block_k)
+    assert (sp.bq, sp.lk) == kernel_tiles(H, KH, 128, Skv, block_k, acc,
+                                          torch.float32)[1:]
+    assert sp.nq == -(-Sq // sp.bq)
+    most = 1
+    for i in range(sp.nq):
+        items = sp.items(i)
+        most = max(most, len(items))
+        assert all(je - jb <= sp.T for jb, je in items)
+        if acc == "bf16":
+            assert len(items) == 1
+        cover = np.zeros(Skv, int)
+        for jb, je in items:
+            cover[jb * sp.lk:min(je * sp.lk, Skv)] += 1
+        for qp in range(i * sp.bq, min((i + 1) * sp.bq, Sq)):
+            keep = np.ones(Skv, bool)
+            kp = np.arange(Skv)
+            if causal:
+                keep &= kp <= qp
+            if window is not None:
+                keep &= qp - kp < window
+            assert np.all(cover[keep] == 1), (i, qp)
+            assert np.all(cover <= 1)
+    assert sp.smax == most
+    if acc == "bf16":
+        assert sp.smax == 1
+
+
+def test_work_split_at_the_prefill():
+    """The f32 prefill (B=1, Sq=Skv=900, H=8, KH=4): 29 query tiles of 32
+    positions and 225 KV tiles of 64 keys a KV head, 900 in all; T = 900
+    over 2 x 132 = 4, so the last query tile's 15 KV tiles make 4 items."""
+    sp = work_split(1, 900, 900, 8, 4)
+    assert (sp.bq, sp.lk, sp.nq, sp.T, sp.smax) == (32, 64, 29, 4, 4)
+    assert sum(hi - lo for lo, hi in sp.ranges) == 225
+    assert sp.items(28) == [(0, 3), (3, 7), (7, 11), (11, 15)]
+    assert work_split(1, 900, 900, 8, 4, acc_dtype="bf16").smax == 1
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 300, 300, 8, 4, 32), dict()),
+    ((1, 300, 300, 8, 4, 32), dict(window=40)),
+    ((1, 300, 300, 8, 4, 32), dict(softcap=5.0)),
+    ((2, 200, 200, 4, 2, 16), dict(causal=False)),
+    ((1, 150, 150, 14, 2, 16), dict()),               # a group of 7
+    ((2, 70, 200, 4, 2, 16), dict()),                 # Sq < Skv
+    ((2, 70, 200, 4, 2, 16), dict(causal=False, window=30)),
+    ((1, 9, 1, 4, 2, 16), dict()),                    # Skv = 1
+])
+def test_split_rehearsal_matches_plain(shape, kw):
+    """The kernel's split on the CPU: the plain version on each item's
+    keys, merged by the merge kernel's formula (``split_plain``), equals
+    ``flash_attention_plain`` within 1e-5 (f32; the two differ in
+    summation order only)."""
+    B, Sq, Skv, H, KH, D = shape
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B, Sq, Skv, H, KH, D,
+                                                      seed=3))
+    sp = work_split(B, Sq, Skv, H, KH, causal=kw.get("causal", True),
+                    window=kw.get("window"))
+    assert sp.smax > 1 or Skv == 1          # the split is exercised
+    got = split_plain(q, k, v, **kw)
+    want = tref.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,acc_dtype,D,kernel", [
