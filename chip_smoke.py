@@ -8,7 +8,7 @@ exits non-zero):
 
 1. card: the ``nvidia-smi`` name and power limit, and the build of every
    CUDA kernel from this checkout's sources (one nvcc per source, all at
-   once).
+   once), beside them the ``alu_chain`` fault controls' builds.
 2. kernel: the paged-attention kernels (chunks, then merge) against their
    plain PyTorch version at the serving shapes (B=8, H=8, KH=4, D=256,
    block 16, 64-entry tables, bf16 pools), ragged contexts {0, 1, 17, 300,
@@ -77,7 +77,19 @@ exits non-zero):
    through the CUDA-core flash kernel, none through the tensor-core one.
 9. probes: the paper's three probe kernels against their plain versions:
    ``alu_chain`` for every (op, dtype, dependent) the harness runs, at
-   length 12; ``pointer_chase`` in shared memory and in global memory under
+   lengths 12 and 256 (a counted loop, and a body of the sweep's own),
+   beside its gates, each with fault controls it must catch
+   (``ALU_MUST_CATCH``): one call is one device kernel and no copy under
+   torch.profiler, for c as a number, a CUDA tensor and a CPU tensor
+   (one_kernel); a length-1 call's event-timed ms at most
+   ``ALU_LAUNCH_FACTOR`` x one ``torch.add`` on 1,024 elements
+   (launch_cost); no reading under one cycle per op (folded); the
+   independent f32 and int32 add/mul/fma readings at most
+   ``ALU_SERIAL_FACTOR`` x their 256-op body's SASS instructions per op
+   (serial; the SASS by ``cuobjdump``, ``alu_chain.timed_body``); and
+   dependent fma and independent add at length 256 with ``chain_ms`` (the
+   in-kernel ``%globaltimer`` span) and the bound, 256 x the cycles per op
+   the same case measured over its measured clock; ``pointer_chase`` in shared memory and in global memory under
    ``.ca``/``.cg``/``.cv``, on cycles of 64, 4096 and 2^20 entries (shared
    where the array fits); ``mxu_probe`` in bf16 and f32 on the JAX kernel
    tests' sweep, the ``mxu_shapes`` grid's shapes and chains that keep A
@@ -99,8 +111,8 @@ exits non-zero):
    ``chiprun_out/campaign/`` and writes the table they make to
    ``chiprun_out/hopper_h100.json``; it fails on an error cell other than
    the three ``(512,512,128)`` dependent ``mxu_shapes`` cells that the
-   reference fails too, a dependent ALU cell under 1 cycle per op (a folded
-   chain), a 64 MiB chase no slower per hop than a 16 KiB one, or a
+   reference fails too, an ALU cell under 1 cycle per op in either mode (a
+   folded chain), a 64 MiB chase no slower per hop than a 16 KiB one, or a
    tensor-core reading no card can give (``mxu_rate_faults``: an
    ``mxu_shapes`` cell or ``mxu_peak_tflops`` not above 0 or above its
    type's dense peak, or a per-op time at the harness's floor).
@@ -235,14 +247,16 @@ def phase_card(torch):
     print(card, flush=True)
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    libs = _build.build_all(variants=alu_control_sources())
     build_s = time.perf_counter() - t0
     for name in libs:
         print(f"[{name}] nvcc:\n{_build.BUILD_LOG[name]['log']}",
               file=sys.stderr)
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "kernels_built": sorted(libs)})
+          "build_s": build_s, "kernels_built": sorted(libs),
+          "build_seconds": {n: _build.BUILD_LOG[n]["seconds"]
+                            for n in sorted(libs)}})
     return card
 
 
@@ -1111,19 +1125,210 @@ def mxu_sass():
         return {"unavailable": str(e)[:200]}
 
 
-def phase_probes(torch, np, dev, seed):
-    """Each probe kernel against its plain version on the card; one timed
-    case per kernel for the kernels line."""
-    from repro_torch.core.microbench.memory import _random_cycle
-    from repro_torch.core.microbench.mxu import card_reps, dependent_block
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.alu_chain import tolerance
-    from repro_torch.kernels.mxu_probe import REL_TOL
+# the alu_chain gates and their fault controls.  Each control must be
+# caught by the gate named beside it:
+# * host_side_cbuf (one_kernel, launch_cost): the wrapper's old staging of
+#   c, {c, c, 0} built on the card by a fill and a stack (and, for a
+#   number, a host-to-device copy) before the launch;
+# * const_c (folded): c a compile-time constant in a chain without its
+#   guards (no `asm volatile` on y, no side words), where the compiler
+#   folds idempotent chains (max, and) to one op;
+# * dropped_tail (folded): an independent tail that does not read y, so
+#   every term is dead;
+# * serial_tail (serial): the independent tail through one accumulator,
+#   which serialises the chain on the tail's latency.
+ALU_MUST_CATCH = {"host_side_cbuf": ("one_kernel", "launch_cost"),
+                  "const_c": ("folded",), "dropped_tail": ("folded",),
+                  "serial_tail": ("serial",)}
+ALU_FAULTS = {
+    "const_c": [
+        ("  const T c0 = Ops<T>::of_bits(cb0), c1 = Ops<T>::of_bits(cb1);",
+         "  const T c0 = Ops<T>::of_bits(sizeof(T) == 2 ? 0x3F80u\n"
+         "      : Ops<T>::kInt ? 1u : 0x3F802000u), c1 = c0;"),
+        ("    keep(y);\n    side[j % kSide] = side_op<T>(side[j % kSide], "
+         "Ops<T>::bits(y), m);\n", "")],
+    "dropped_tail": [("    acc[i % kAcc] = Ops<T>::template tail<OP>("
+                      "acc[i % kAcc], y, z);", "    (void)y;")],
+    "serial_tail": [("constexpr int kAcc = 8;", "constexpr int kAcc = 1;")],
+}
+# the cells the serial gate holds: the independent reading at most
+# ALU_SERIAL_FACTOR x the timed body's SASS instructions per op
+ALU_SERIAL_CELLS = tuple((op, dt, False) for op, dt in (
+    ("add", "float32"), ("mul", "float32"), ("fma", "float32"),
+    ("add", "int32"), ("mul", "int32")))
+ALU_SERIAL_FACTOR = 1.25
+# the cells each built control runs
+ALU_FAULT_CELLS = {
+    "const_c": (("max", "float32", True), ("and", "int32", True),
+                ("max", "int32", True)),
+    "dropped_tail": (("add", "float32", False), ("add", "int32", False)),
+    "serial_tail": ALU_SERIAL_CELLS,
+}
+# the launch-cost gate: one length-1 call at most this many times one
+# PyTorch elementwise launch on 1,024 elements, timed the same way
+ALU_LAUNCH_FACTOR = 1.5
+# the ops each control build holds (the kernel's instance lists cut short)
+ALU_CONTROL_OPS = {"FLOAT_OPS": "X(ADD) X(MUL) X(FMA) X(MAX)",
+                   "INT_OPS": "X(ADD) X(MUL) X(AND) X(MAX)"}
 
-    rng = np.random.default_rng(seed)
+
+def alu_source(subs, ops=None):
+    """``csrc/alu_chain.cu`` with ``subs`` (text, replacement) applied, each
+    checked to apply once, and its instance lists cut to ``ops``."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "alu_chain.cu").read_text()
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise RuntimeError(f"alu_chain.cu: anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    for macro, body in (ops or {}).items():
+        src, n = re.subn(rf"#define {macro}\(X\)(?:[^\n]*\\\n)*[^\n]*\n",
+                         f"#define {macro}(X) {body}\n", src)
+        if n != 1:
+            raise RuntimeError(f"alu_chain.cu: no #define {macro}")
+    return src
+
+
+def alu_control_sources():
+    """name -> source of every built control, to build beside the kernels."""
+    return {f"alu_chain_{name}": alu_source(subs, ALU_CONTROL_OPS)
+            for name, subs in ALU_FAULTS.items()}
+
+
+def alu_bind(lib_path):
+    """A built alu_chain library's launch function, bound as the wrapper
+    binds its own."""
+    import ctypes
+    fn = ctypes.CDLL(str(lib_path)).alu_chain_launch
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn.argtypes = [I, I, I, P, P, U, U, U, P, I, P, P]
+    fn.restype = I
+    return fn
+
+
+def alu_readings(torch, dev, cells, fn=None):
+    """(op, dtype, dependent) -> the harness's cycles per op (the in-kernel
+    cycles' slope over lengths 4, 16, 64, 256), through the built library
+    ``fn`` (the kernel's own where None)."""
+    from repro_torch.core.microbench import harness
+    from repro_torch.kernels import alu_chain as talu
+    saved, talu._fn = talu._fn, fn or talu._fn
+    try:
+        return {(op, dt, dep): harness.run_chain(
+                    harness.OPS[op], op, getattr(torch, dt),
+                    dependent=dep, device=dev).cycles_per_op
+                for op, dt, dep in cells}
+    finally:
+        talu._fn = saved
+
+
+def alu_folded(readings):
+    """Cells under one cycle per op: one warp issues at most one
+    instruction a cycle, so such a chain lost ops."""
+    return sorted(f"{op}.{dt}.{'dep' if dep else 'ind'}"
+                  for (op, dt, dep), cyc in readings.items() if cyc < 1.0)
+
+
+def alu_serial(readings, body):
+    """Independent cells that read more than ``ALU_SERIAL_FACTOR`` x their
+    timed body's SASS instructions per op (``alu_chain.timed_body``): ops
+    that wait on each other."""
+    out = []
+    for (op, dt, dep), cyc in readings.items():
+        per_op = body[(op, dt, dep)]["per_op"]
+        if dep:
+            continue
+        if per_op is None:
+            raise AssertionError(f"{op}.{dt}: no 255-op body in the SASS")
+        if cyc > ALU_SERIAL_FACTOR * per_op:
+            out.append(f"{op}.{dt}")
+    return sorted(out)
+
+
+def alu_device_work(torch, call):
+    """The device kernels and copies of one ``call()``, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels, copies = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            (copies if e.name.startswith(("Memcpy", "Memset"))
+             else kernels).append(e.name)
+    return kernels, copies
+
+
+def alu_host_side_cbuf(torch, x, c, **kw):
+    """The host_side_cbuf fault: the call with the wrapper's old staging
+    of c ({c, c, 0} stacked on the card) ahead of the launch."""
+    from repro_torch.kernels.alu_chain import alu_chain
+    cv = torch.as_tensor(c, dtype=x.dtype).reshape(()).to(x.device)
+    cbuf = torch.stack([cv, cv, torch.zeros_like(cv)])
+    return alu_chain(x, cbuf[0], **kw)
+
+
+def paired_ms(torch, fns, reps=100):
+    """The median ms of one call of each of ``fns`` between a CUDA event
+    pair, as ``gpu_ms`` times it, the calls taken in turns so that the
+    host's drift falls on each alike."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def alu_call_gates(torch, x, c_forms, wrappers):
+    """The one_kernel and launch_cost gates of each wrapper (the kernel's,
+    then each control's) on each form of c: its device kernels and copies
+    for one call, and the event-timed ms of a length-1 call against one
+    ``torch.add`` on 1,024 elements timed the same way, in turns."""
+    t = torch.ones(1024, device=x.device)
+    out = {}
+    for name, call in wrappers.items():
+        res = {}
+        for form, c in c_forms.items():
+            kernels, copies = alu_device_work(
+                torch, lambda: call(x, c, op="add", length=256))
+            ms = paired_ms(torch, {
+                "call": lambda: call(x, c, op="add", length=1),
+                "torch_add": lambda: torch.add(t, 1.0)})
+            res[form] = {"kernels": kernels, "copies": copies, "ms":
+                         ms["call"], "torch_add_ms": ms["torch_add"],
+                         "ratio": ms["call"] / ms["torch_add"]}
+        out[name] = {"forms": res, "failed": sorted(
+            ({"one_kernel"} if any(len(r["kernels"]) != 1 or r["copies"]
+                                   for r in res.values()) else set())
+            | ({"launch_cost"} if any(r["ratio"] > ALU_LAUNCH_FACTOR
+                                      for r in res.values()) else set()))}
+    return out
+
+
+def probe_alu(torch, np, dev, rng):
+    """alu_chain on the card: every (op, dtype, mode) against the plain
+    version at lengths 12 and 256, the gates and their controls
+    (``ALU_MUST_CATCH``), and the kernels line's cases with their SASS."""
+    from repro_torch.core.microbench import harness
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import alu_chain as talu
+
     c = 1.0009765625
-    worst = {"alu_chain": 0.0, "pointer_chase": 0.0, "mxu_probe": 0.0}
-    n_alu = 0
+    worst, n_alu = 0.0, 0
     for dt in (torch.float32, torch.bfloat16, torch.int32):
         if dt == torch.int32:
             x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (8, 128))
@@ -1136,31 +1341,115 @@ def phase_probes(torch, np, dev, seed):
             if not ref.alu_legal(op, dt):
                 continue
             for dep in (True, False):
-                out = ops.alu_chain(x, cv, op=op, length=12, dependent=dep)
-                torch.cuda.synchronize()
-                want = ref.alu_chain_plain(x, cv, op=op, length=12,
-                                           dependent=dep)
-                torch.testing.assert_close(out.double(), want.double(),
-                                           equal_nan=True,
-                                           **tolerance(op, dt, 12))
-                worst["alu_chain"] = max(worst["alu_chain"], (
-                    out.double() - want.double()).abs().max().item())
-                n_alu += 1
-    # the kernels line's case: the f32 fma chain of the harness's longest
-    # length, dependent, on its (8,128) tile
+                for length in (12, 256):
+                    out = ops.alu_chain(x, cv, op=op, length=length,
+                                        dependent=dep)
+                    torch.cuda.synchronize()
+                    want = ref.alu_chain_plain(x, cv, op=op, length=length,
+                                               dependent=dep)
+                    torch.testing.assert_close(
+                        out.double(), want.double(), equal_nan=True,
+                        **talu.tolerance(op, dt, length))
+                    worst = max(worst, (out.double() - want.double())
+                                .abs().nan_to_num().max().item())
+                    n_alu += 1
+    # the SASS of each instance's 256-op body
+    body = talu.timed_body(_build.sass(_build.build("alu_chain")))
+    controls = {name: _build.build(name, src)
+                for name, src in alu_control_sources().items()}
+    # one call, one kernel, at a launch's cost
     x = torch.linspace(0.5, 1.5, 1024, device=dev).reshape(8, 128)
     cv = torch.tensor(c, device=dev)
-    kw = dict(op="fma", length=256, dependent=True)
-    alu = {"case": "fma f32 dependent, length 256, (8,128)",
-           "ms": gpu_ms(torch, lambda: ops.alu_chain(x, cv, **kw), 30),
-           "stream_ms": stream_ms(torch, lambda: ops.alu_chain(x, cv, **kw)),
-           "plain_ms": gpu_ms(torch, lambda: ref.alu_chain_plain(x, cv, **kw),
-                              5),
-           "library_ms": None, "library_stream_ms": None}
-    alu["bound_ms"], alu["bound_by"] = _bound(2 * 1024 * 4 + 12,
-                                              2 * 1024 * 256, F32_OPS_PER_S)
-    emit({"phase": "probes", "name": "alu_chain", "cases": n_alu,
-          "length": 12, "max_abs_err": worst["alu_chain"], **alu})
+    calls = alu_call_gates(
+        torch, x, {"number": c, "cuda_tensor": cv,
+                   "cpu_tensor": torch.tensor(c)},
+        {"kernel": talu.alu_chain,
+         "host_side_cbuf": lambda *a, **kw: alu_host_side_cbuf(torch, *a,
+                                                               **kw)})
+    if calls["kernel"]["failed"]:
+        raise AssertionError(f"alu_chain call gates failed "
+                             f"{calls['kernel']['failed']}: {calls}")
+    # no folded chain, no serial independent chain
+    cells = ALU_SERIAL_CELLS + ALU_FAULT_CELLS["const_c"]
+    readings = alu_readings(torch, dev, cells)
+    folded, serial = alu_folded(readings), alu_serial(readings, body)
+    if folded or serial:
+        raise AssertionError(f"alu_chain readings folded {folded}, serial "
+                             f"{serial}: {readings}")
+    caught = {"host_side_cbuf": calls["host_side_cbuf"]["failed"]}
+    control_readings = {}
+    for name, cells in ALU_FAULT_CELLS.items():
+        lib = controls[f"alu_chain_{name}"]
+        r = alu_readings(torch, dev, cells, alu_bind(lib))
+        cbody = talu.timed_body(_build.sass(lib))
+        control_readings[name] = {f"{op}.{dt}.{int(dep)}": v
+                                  for (op, dt, dep), v in r.items()}
+        caught[name] = ((["folded"] if alu_folded(r) else [])
+                        + (["serial"] if "serial" in ALU_MUST_CATCH[name]
+                           and alu_serial(r, cbody) else []))
+    missed = [n for n, gates in ALU_MUST_CATCH.items()
+              if not set(gates) <= set(caught[n])]
+    if missed:
+        raise AssertionError(f"the alu_chain gates miss {missed}: {caught}, "
+                             f"{control_readings}")
+    # the kernels line's case (dependent fma) and an independent add, at
+    # the sweep's longest length; the bound is the chain's own latency
+    cases = {}
+    for key, (op, dep) in (("dependent", ("fma", True)),
+                           ("independent", ("add", False))):
+        kw = dict(op=op, length=256, dependent=dep)
+        r = harness.run_chain(harness.OPS[op], op, torch.float32,
+                              dependent=dep, device=dev)
+        rows = torch.zeros((20, 2), dtype=torch.int64, device=dev)
+        for row in rows.unbind(0):
+            ops.alu_chain(x, cv, timing=row, **kw)
+        torch.cuda.synchronize()
+        chain_ns = statistics.median(rows[:, 1].tolist())
+        cases[key] = {
+            "case": f"{op} f32 {'dependent' if dep else 'independent'}, "
+                    "length 256, (8,128)",
+            "ms": gpu_ms(torch, lambda: ops.alu_chain(x, cv, **kw), 30),
+            "stream_ms": stream_ms(torch, lambda: ops.alu_chain(x, cv, **kw)),
+            "plain_ms": gpu_ms(torch, lambda: ref.alu_chain_plain(x, cv, **kw),
+                               5),
+            "chain_ms": chain_ns * 1e-6,
+            "cycles_per_op": r.cycles_per_op, "clock_mhz": r.clock_hz / 1e6,
+            "sass_per_op": body[(op, "float32", dep)]["per_op"],
+            "bound_ms": 1e3 * 256 * r.cycles_per_op / r.clock_hz,
+            "bound_by": "latency" if dep else "issue",
+            "library_ms": None, "library_stream_ms": None}
+    calls = {k: {"failed": v["failed"], "forms": {
+        f: {"ms": r["ms"], "torch_add_ms": r["torch_add_ms"],
+            "ratio": r["ratio"], "kernels": len(r["kernels"]),
+            "copies": len(r["copies"])} for f, r in v["forms"].items()}}
+        for k, v in calls.items()}
+    alu = dict(cases["dependent"], independent=cases["independent"],
+               cases=n_alu, lengths=[12, 256], max_abs_err=worst,
+               calls=calls,
+               readings={f"{op}.{dt}.{'dep' if dep else 'ind'}": {
+                   "cycles_per_op": v,
+                   "sass_per_op": body[(op, dt, dep)]["per_op"]}
+                   for (op, dt, dep), v in readings.items()},
+               controls={"caught": caught, "readings": control_readings})
+    OUT.mkdir(exist_ok=True)
+    (OUT / "alu_chain_sass.json").write_text(json.dumps(
+        {f"{op}.{dt}.{'dep' if dep else 'ind'}": b
+         for (op, dt, dep), b in sorted(body.items())}, indent=1))
+    return alu, worst
+
+
+def phase_probes(torch, np, dev, seed):
+    """Each probe kernel against its plain version on the card; one timed
+    case per kernel for the kernels line."""
+    from repro_torch.core.microbench.memory import _random_cycle
+    from repro_torch.core.microbench.mxu import card_reps, dependent_block
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mxu_probe import REL_TOL
+
+    rng = np.random.default_rng(seed)
+    worst = {"alu_chain": 0.0, "pointer_chase": 0.0, "mxu_probe": 0.0}
+    alu, worst["alu_chain"] = probe_alu(torch, np, dev, rng)
+    emit({"phase": "probes", "name": "alu_chain", **alu})
 
     chase = None
     n_chase = 0
@@ -1318,16 +1607,21 @@ def phase_calibration(torch, dev, card):
     import shutil
 
     from repro_torch.core.campaign.results import load_results_dir
-    from repro_torch.core.microbench import tables
+    from repro_torch.core.microbench import harness, tables
 
     results = OUT / "campaign"
     shutil.rmtree(results, ignore_errors=True)
+    t = torch.ones(1024, device=dev)
+    add_us = [harness.time_fn(torch.add, t, 1.0, iters=100, device=dev)
+              * 1e6]
     reset_launches()
     t0 = time.perf_counter()
     table = tables.calibrate(quick=False, results_dir=results, device=dev)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = launch_counts()
+    add_us.append(harness.time_fn(torch.add, t, 1.0, iters=100, device=dev)
+                  * 1e6)
     docs = load_results_dir(results, tables.CALIBRATION_EXPERIMENTS)
     errors = sorted(f"{name}:{key}" for name, doc in docs.items()
                     for key, rec in doc["cells"].items()
@@ -1339,11 +1633,10 @@ def phase_calibration(torch, dev, card):
                              f"expected exactly {expected}")
     alu = {(r["params"]["op"], r["params"]["dtype"], r["params"]["dependent"]):
            r["metrics"] for r in docs["alu_chain"]["cells"].values()}
-    folded = sorted(f"{op}.{dt}" for (op, dt, dep), m in alu.items()
-                    if dep and m["per_op_cycles"] < 1.0)
+    folded = alu_folded({k: m["per_op_cycles"] for k, m in alu.items()})
     if folded:
-        raise AssertionError(f"dependent ALU cells under 1 cycle per op "
-                             f"(a folded chain): {folded}")
+        raise AssertionError(f"ALU cells under 1 cycle per op (a folded "
+                             f"chain): {folded}")
     chase = {r["params"]["size_kib"]: r["metrics"]
              for r in docs["memory_chase"]["cells"].values()
              if r["params"]["access"] == "chase"}
@@ -1376,12 +1669,22 @@ def phase_calibration(torch, dev, card):
                        "(phase calibration: the full grids of alu_chain, "
                        "memory_chase, mxu_shapes and roofline_calibration "
                        "through the port's probe kernels)")
+    # what one PyTorch elementwise launch costs, timed as the harness times
+    # a probe call, just before and just after the grids
+    table["launch_reference"] = {
+        "torch_add_us": statistics.median(add_us), "runs_us": add_us,
+        "detail": "one torch.add on 1,024 f32 elements between CUDA events, "
+                  "median of 100, before and after the grids"}
+    overhead_us = sorted(r["overhead_ns"] / 1e3 for r in table["ops"].values())
     (OUT / "hopper_h100.json").write_text(json.dumps(table, indent=1))
     emit({"phase": "calibration", "run_s": run_s, "launches": counts,
           "cells": {n: len(d["cells"]) for n, d in docs.items()},
           "seconds": {n: sum(r["elapsed_s"] for r in d["cells"].values())
                       for n, d in docs.items()},
           "errors": errors, "clock_mhz": table["clock_mhz"],
+          "launch_reference": table["launch_reference"],
+          "overhead_us": {"min": overhead_us[0], "max": overhead_us[-1],
+                          "median": statistics.median(overhead_us)},
           "alu_cycles": cycles, "chase": hops, "mxu": mxu,
           "roofline": {k: v["value"] for k, v in table["roofline"].items()}})
     return counts
@@ -2053,7 +2356,8 @@ def main(argv=None) -> int:
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces, "launches": cal_counts[name],
          "max_abs_err": probe_err[name],
-         **{k: probes[name][k] for k in fa_keys}}
+         **{k: probes[name][k] for k in fa_keys + (
+             ("chain_ms",) if name == "alu_chain" else ())}}
         for name, replaces in (
             ("alu_chain", "src/repro/kernels/microbench_alu.py:51"),
             ("pointer_chase", "src/repro/kernels/microbench_chase.py:28"),

@@ -107,6 +107,15 @@ def run_mxu_cell(params: Dict[str, Any], quick: bool = False,
     return out
 
 
+# what ``dispatch_overhead_us`` measures: on the card one ``alu_chain``
+# kernel launch, the call's other host work done before the events
+DISPATCH_DETAIL = ("launch intercept: a of t(K)=a+bK over dependent add.f32 "
+                   "alu_chain chains, K=1..8 (on the card the CUDA-event "
+                   "time of one kernel launch, its host side included, the "
+                   "call's checks and output made before the events; on "
+                   "the CPU the plain chain's perf_counter time)")
+
+
 def run_roofline_cal_cell(params: Dict[str, Any], quick: bool = False,
                           device=None) -> Dict[str, Any]:
     """Measure one achieved-peak term of the roofline on this device."""
@@ -132,7 +141,7 @@ def run_roofline_cal_cell(params: Dict[str, Any], quick: bool = False,
                               lengths=(1, 2, 4, 8), dependent=True,
                               device=device)
         return {"value": r.overhead_s * 1e6, "unit": "us",
-                "detail": "t(K)=a+bK regression intercept, add.f32"}
+                "detail": DISPATCH_DETAIL}
     raise ValueError(f"unknown roofline calibration term {term!r}")
 
 

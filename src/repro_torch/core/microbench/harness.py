@@ -14,8 +14,11 @@ Where the clock is read depends on the device:
   per-op latency comes from the regression of the kernel's own ``clock64()``
   cycles over K (the paper's clock-overhead subtraction), divided by the SM
   clock that the same kernel measured (cycles over ``%globaltimer`` ns).
-  The intercept ``overhead_s`` (the launch/dispatch overhead) comes from the
-  regression of CUDA-event times, as the reference regresses wall time;
+  The intercept ``overhead_s`` comes from the regression of CUDA-event
+  times, as the reference regresses wall time: the events hold one
+  kernel launch and nothing else (the call's checks, c's bits and its
+  output are done before them, ``alu_chain.prepare``), so it is the
+  launch's cost, its host side included;
 * on the CPU, it times the plain chain (``repro_torch.kernels.ref``) with
   ``perf_counter``, on a (64,512) tile by default, as the reference does.
 """
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import alu_chain
 from repro_torch.kernels.ref import (ALU_OPS, FLOAT_ONLY, INT_OPS,  # noqa: F401
                                      alu_legal)
 
@@ -76,31 +79,61 @@ def time_fn(fn, *args, iters: int = 30, warmup: int = 5,
     return float(np.median(ts))
 
 
-def time_kernel(launch: Callable, iters: int, warmup: int = 3,
-                device="cuda", before: Optional[Callable] = None
-                ) -> Tuple[float, List[int], List[int]]:
-    """Time ``launch(timing)`` of a probe kernel ``iters`` times: the median
-    CUDA-event seconds, and each launch's in-kernel cycles and ns (the
-    kernel writes them into its ``timing`` row).  ``before()`` runs ahead
-    of each launch, outside the events."""
+def time_kernels(launches: Sequence[Callable], iters: int, warmup: int = 3,
+                 device="cuda", before: Optional[Callable] = None,
+                 staged: bool = False
+                 ) -> List[Tuple[float, List[int], List[int]]]:
+    """Time ``launch(timing)`` of a probe kernel ``iters`` times for each of
+    ``launches``, in turns (one of each, then again), so that the host's
+    drift falls on each alike: for each, the median CUDA-event seconds and
+    each launch's in-kernel cycles and ns (the kernel writes them into its
+    ``timing`` row).  Where there are several, an untimed launch of the
+    same one runs just ahead of each timed launch, so that its code is in
+    the SM's instruction cache as it would be in a run of that launch
+    alone.  ``before()`` runs ahead of each launch, outside the events, as
+    does taking the launch's row.  With ``staged``, ``launch(timing)`` does
+    the call's work up to its kernel launch and returns that launch, which
+    alone runs between the events."""
     dev = torch.device(device)
-    rows = torch.zeros((iters, 2), dtype=torch.int64, device=dev)
-    for _ in range(warmup):
-        launch(None)
+    rows = torch.zeros((len(launches), iters, 2), dtype=torch.int64,
+                       device=dev)
+
+    def untimed(launch):
+        go = launch(None)
+        if staged:
+            go()
+
+    for launch in launches:
+        for _ in range(warmup):
+            untimed(launch)
     torch.cuda.synchronize(dev)
-    ts = []
+    ts = [[] for _ in launches]
     for j in range(iters):
-        if before is not None:
-            before()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        launch(rows[j])
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) * 1e-3)
-    cyc, ns = rows.cpu().numpy().T
-    return float(np.median(ts)), [int(v) for v in cyc], [int(v) for v in ns]
+        for i, launch in enumerate(launches):
+            if len(launches) > 1:
+                untimed(launch)
+                torch.cuda.synchronize(dev)
+            row = rows[i, j]
+            if before is not None:
+                before()
+            go = launch(row) if staged else (lambda: launch(row))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            go()
+            b.record()
+            b.synchronize()
+            ts[i].append(a.elapsed_time(b) * 1e-3)
+    data = rows.cpu().numpy()
+    return [(float(np.median(t)), [int(v) for v in data[i, :, 0]],
+             [int(v) for v in data[i, :, 1]]) for i, t in enumerate(ts)]
+
+
+def time_kernel(launch: Callable, iters: int, warmup: int = 3,
+                device="cuda", before: Optional[Callable] = None,
+                staged: bool = False) -> Tuple[float, List[int], List[int]]:
+    """``time_kernels`` of one launch."""
+    return time_kernels([launch], iters, warmup, device, before, staged)[0]
 
 
 def fit_latency(lengths: Sequence[int], times: Sequence[float]
@@ -122,7 +155,8 @@ def steady_slope(lengths: Sequence[int], values: Sequence[float]) -> float:
 
 def clock_hz(launch: Callable, base_len: int, cycles_per_unit: float,
              cycles: Sequence[int], ns: Sequence[int], cap: int,
-             device="cuda", before: Optional[Callable] = None) -> float:
+             device="cuda", before: Optional[Callable] = None,
+             staged: bool = False) -> float:
     """The SM clock a probe kernel measured: its cycles over its
     globaltimer ns, pooled over the series' launches and ``CLOCK_LAUNCHES``
     launches of the same kernel at a length of about ``CLOCK_CYCLES``
@@ -130,7 +164,8 @@ def clock_hz(launch: Callable, base_len: int, cycles_per_unit: float,
     n = min(max(base_len, math.ceil(CLOCK_CYCLES / max(cycles_per_unit, 0.5))),
             cap)
     _, c2, n2 = time_kernel(lambda t: launch(n, t), CLOCK_LAUNCHES,
-                            warmup=0, device=device, before=before)
+                            warmup=0, device=device, before=before,
+                            staged=staged)
     total_ns = sum(ns) + sum(n2)
     if total_ns <= 0:
         raise RuntimeError("the kernel's globaltimer did not advance")
@@ -210,13 +245,14 @@ def run_chain(op: Callable, name: str, dtype=torch.float32,
 def _run_chain_card(name, dtype, lengths, dependent, dev) -> ChainResult:
     x, c = _chain_inputs(dtype, (8, 128), dev)
 
-    def launch(k, timing):
-        ops.alu_chain(x, c, op=name, length=k, dependent=dependent,
-                      timing=timing)
+    def launch(k, timing):          # the call's work; its launch is timed
+        return alu_chain.prepare(x, c, op=name, length=k,
+                                 dependent=dependent, timing=timing)[0]
 
     times, cycles, all_cyc, all_ns = [], [], [], []
-    for k in lengths:
-        t, cyc, ns = time_kernel(lambda tm: launch(k, tm), 30, device=dev)
+    for t, cyc, ns in time_kernels(
+            [lambda tm, k=k: launch(k, tm) for k in lengths], 30, device=dev,
+            staged=True):
         times.append(t)
         cycles.append(float(np.median(cyc)))
         all_cyc += cyc
@@ -224,7 +260,7 @@ def _run_chain_card(name, dtype, lengths, dependent, dev) -> ChainResult:
     a, _ = fit_latency(lengths, times)
     per_cyc = steady_slope(lengths, cycles)
     hz = clock_hz(launch, lengths[-1], per_cyc, all_cyc, all_ns,
-                  cap=1 << 22, device=dev)
+                  cap=1 << 22, device=dev, staged=True)
     c_inf = max(per_cyc, 1e-12)
     cpi_curve = {k: float(cy / (k * c_inf)) for k, cy in zip(lengths, cycles)}
     return ChainResult(op=name, dtype=str(dtype).replace("torch.", ""),

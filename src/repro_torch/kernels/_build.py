@@ -38,25 +38,27 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+def build(name: str, source: Optional[str] = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or ``source``, the text of a variant of
+    a kernel, under ``name``) unless an up-to-date library exists; returns
+    its path.  Raises with nvcc's output when the build fails."""
+    text = ((CSRC / f"{name}.cu").read_text() if source is None
+            else source).encode()
+    h = hashlib.sha256(text)
     for dep in sorted(CSRC.glob("*.cuh")):
         h.update(dep.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns its path.  Raises with nvcc's output when the build fails."""
-    out = _target(name)
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         BUILD_LOG[name] = {"cached": True, "seconds": 0.0, "log": ""}
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = CSRC / f"{name}.cu"
+    if source is not None:      # beside csrc, so its includes resolve
+        src = out.with_suffix(".cu")
+        src.write_bytes(text)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -70,11 +72,16 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
-    """Build every kernel source at once, one nvcc process per source."""
-    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        futures = {n: pool.submit(build, n) for n in names}
+def build_all(names: Optional[List[str]] = None,
+              variants: Optional[Dict[str, str]] = None) -> Dict[str, Path]:
+    """Build every kernel source at once, one nvcc process per source,
+    and beside them ``variants`` (name -> source text)."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    jobs = {n: (n, None) for n in names}
+    jobs.update({n: (n, src) for n, src in (variants or {}).items()})
+    with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
+        futures = {n: pool.submit(build, *job) for n, job in jobs.items()}
         return {n: f.result() for n, f in futures.items()}
 
 
@@ -87,6 +94,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library.  Raises where the toolkit
+    has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found")
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def sass_mix(name: str, top: int = 16) -> Dict[str, dict]:
     """The SASS of ``csrc/<name>.cu``'s built library by ``cuobjdump
     -sass``: for each kernel function (mangled name), its instruction
@@ -95,17 +112,13 @@ def sass_mix(name: str, top: int = 16) -> Dict[str, dict]:
     import re
     from collections import Counter
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        raise RuntimeError("cuobjdump not found")
-    proc = subprocess.run([tool, "-sass", str(build(name))],
-                          capture_output=True, text=True, check=True)
+    text = sass(build(name))
     func = re.compile(r"Function : (\S+)")
     inst = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)")
     mixes: Dict[str, Counter] = {}
     cur = None
-    for line in proc.stdout.splitlines():
+    for line in text.splitlines():
         m = func.search(line)
         if m:
             cur = mixes.setdefault(m.group(1), Counter())

@@ -7,49 +7,78 @@
 // element per thread, a `length`-long chain of one elementwise op with a
 // scalar `c`:
 //   dependent:   y <- f(y, c), `length` times, from y = x (latency);
-//   independent: out = f(x + 0, c); out <- out + f(x + i, c) * 0 for
-//                i = 1..length-1 (throughput; the `out + y*0` tail of the
-//                reference stays, so every f stays live).
+//   independent: out = f(x + 0, c) + sum over i = 1..length-1 of
+//                f(x + i, c) * 0 (throughput; every f stays live through
+//                the `* 0` tail of the reference).
 // Ops: the harness's 21 (`repro.core.microbench.harness.OPS`), in f32, bf16
-// and int32 where the harness runs them.  `length` is a run-time argument:
-// an unrolled chain of 8 inside a counted loop, so one build serves every
-// length.  Thread 0 writes the chain's clock64() cycles and %globaltimer ns
-// (`timing[0]`, `timing[1]`); the host regresses cycles over lengths, which
-// is the paper's clock-overhead subtraction.  The tile's 1024 threads run
-// as 32 blocks of one warp, which the card spreads over its SMs: a warp
-// alone on its SM sees the op's latency, as the paper's single-warp timing
-// does, where 32 warps on one SM would queue at its 4 schedulers.
+// and int32 where the harness runs them (FLOAT_OPS, INT_OPS below).  Thread
+// 0 writes the chain's clock64() cycles and %globaltimer ns (`timing[0]`,
+// `timing[1]`); the host regresses cycles over lengths, which is the
+// paper's clock-overhead subtraction.  The tile's 1024 threads run as 32
+// blocks of one warp, which the card spreads over its SMs: a warp alone on
+// its SM sees the op's latency, as the paper's single-warp timing does.
+//
+// One launch a call.  `c` arrives by value as two copies of its bits, or,
+// where the caller holds it on the card, as a pointer that the kernel reads
+// twice with ld.volatile before the first clock read; the zero of `y * 0`
+// arrives by value.  So the wrapper runs no other device work (no staging
+// buffer, no host-to-device copy), and the harness's CUDA events around a
+// call time the launch alone.
+//
+// No loop in the timed region.  The harness sweeps lengths 4, 16, 64 and
+// 256; each has its own body, unrolled in full, so the slope of cycles over
+// length carries no loop counter, compare or branch.  Other lengths (a
+// check's 12, the clock launch's ~1e5 ops) run an unrolled block of kBlock
+// ops in a counted loop, then single ops.
+//
+// Dependent.  The chain is y alone; an empty `asm volatile` on y after
+// every op stops the compiler from reassociating it or hoisting it past the
+// clock reads.  ptxas still fuses two dependent integer adds or bitwise ops
+// into one three-input IADD3/LOP3 (and collapses an and/xor chain over two
+// constants to one LOP3), so every intermediate also folds into a side word
+// by an op of another class, which each intermediate must then exist for.
+// The side words cost the chain no latency: kSide of them in turn, so none
+// waits on its own last update, each an IMAD by a multiplier of 1 the
+// compiler cannot see (on the FMA pipe, off the integer ALU pipe where
+// most integer chains run; for bf16, whose 16-bit value an IMAD would
+// first widen on the chain, an XOR).  An and/xor chain still reads its
+// side words' rate, not its op's latency: ptxas folds y & c0 & c1 & c0 to
+// y & c0 & c1 (and an xor pair likewise), which every value allows.
+//
+// Independent.  f(x + i, c) for every i, with i an immediate in the sweep's
+// bodies (one add a term, no counter); each term's `* 0` goes into one of
+// kAcc accumulators in turn as one instruction (f32 FFMA y*z + acc, bf16
+// HFMA2, int32 IMAD, or for mul, whose op is an IMAD, a LOP3 acc ^ (y & z)
+// on the ALU pipe), so no op waits on the one before, and the accumulators
+// are summed after the second clock read.  Every tail term is +-0 or NaN,
+// so the sum in any order is the reference's sequential `out + y*0`, bit
+// for bit up to a NaN's payload: a sum of zeros is -0 only if every term
+// is (the accumulators start at -0, the identity), and y0 + (+-0) = y0.
+// In bf16, x + i for an i below 256 is one bf16 add of the exact bf16 i:
+// with 8 significant bits in x and in i, the f32 sum PyTorch rounds is
+// exact, so one rounding gives its result.
 //
 // What is timed, per op (f32): add/sub/mul -> FADD/FMUL (`.rn`, never
 // contracted); fma -> one FFMA (the reference rounds y*c and +c apart: a
-// last-bit difference); max/min/abs/select -> FMNMX/FADD|.|/FSETP+FSEL;
+// last-bit difference); max/min/abs/select -> FMNMX.NAN (NaN in, NaN out,
+// as PyTorch; between zeros of two signs it keeps +0 for max, -0 for min,
+// where PyTorch keeps its first input)/FADD|.|/FSETP+FSEL;
 // div -> the IEEE div.rn.f32 sequence; rem -> fmodf with jnp's floor-mod
 // sign fix.  The MUFU-class ops use the instructions the paper times, each
 // an approximation: exp -> ex2.approx (of y*0.001*log2 e), log -> lg2.approx
 // (times ln 2), sin -> sin.approx, tanh -> tanh.approx (relative error
 // 2^-11), rsqrt -> rsqrt.approx, sqrt -> sqrt.approx, sigmoid -> ex2.approx
 // and rcp.approx.  bf16: add/sub/mul/fma/max/min run natively (HADD2/HMUL2/
-// HFMA2/HMNMX2 .BF16); the other ops compute in f32 and round to bf16 where
+// HFMA2/HMNMX2.NAN .BF16); the other ops compute in f32 and round to bf16 where
 // PyTorch does: after every op, and inside rsqrt/exp/log after their first
-// step (|y| + 1e-6, y * 0.001, |y| + 1).  int32: IADD3/IMAD/IMNMX/LOP3/POPC/FLO/...
+// step (|y| + 1e-6, y * 0.001, |y| + 1).  int32: IADD3/IMAD/IMNMX/LOP3/POPC/
+// FLO/...  Against folding, beside the side words: c's two copies alternate
+// along the chain (an idempotent op such as max(max(y,c),c) cannot
+// collapse), and the zero of `y*0` and `c*0` is a run-time value.
 //
-// Against folding: `c` comes from memory in two registers that alternate
-// along the chain (an idempotent op such as max(max(y,c),c) cannot collapse),
-// the zero of `y*0` and `c*0` comes from memory too, and an empty
-// `asm volatile` on y after every op stops the compiler from reassociating
-// or hoisting the chain past the clock reads.  ptxas still fuses two
-// dependent integer adds or bitwise ops into one three-input IADD3/LOP3
-// (and collapses an and/xor chain over two constants to one LOP3); so a
-// dependent chain also folds every intermediate into a side word with an
-// op of another class (xor, or add for the bitwise ops), which each
-// intermediate must then exist for.  The side word is off the chain and
-// costs an issue slot, not latency.  The independent chain's `x + i` uses
-// a float counter (one FADD), not an I2F conversion per op.
-//
-// Bound: operations.  1024 elements x `length` ops; the bytes (x read once,
-// the output written once: 8 KB in f32) are a few ns at 3.35 TB/s, so the
-// least time is the op count over the card's scalar rate (67 TFLOP/s f32).
-// The chain runs one warp per SM by design: it measures latency, not rate.
+// Bound: latency by design.  A dependent chain of `length` ops takes at
+// least `length` times one op's latency; the bytes (x read once, the output
+// written once: 8 KB in f32) are a few ns at 3.35 TB/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,8 +93,21 @@ enum Op {
   SQRT, EXP, LOG, SIN, TANH, SIGMOID, SELECT
 };
 
+// the kernel's instances: the ops each dtype runs (ref.alu_legal)
+#define FLOAT_OPS(X)                                                      \
+  X(ADD) X(SUB) X(MUL) X(FMA) X(MAX) X(MIN) X(ABS) X(DIV) X(REM) X(RSQRT) \
+  X(SQRT) X(EXP) X(LOG) X(SIN) X(TANH) X(SIGMOID) X(SELECT)
+#define INT_OPS(X)                                                      \
+  X(ADD) X(SUB) X(MUL) X(MAX) X(MIN) X(ABS) X(AND) X(XOR) X(POPC) X(CLZ) \
+  X(REM) X(SELECT)
+
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr int kWarps = 32;  // the (8,128) tile: one warp per block
+constexpr int kBlock = 8;   // ops a trip of the counted loop
+constexpr int kSide = 4;    // dependent: side words in turn
+constexpr int kAcc = 8;     // independent: accumulators in turn
 
 __device__ __forceinline__ void keep(float& y) { asm volatile("" : "+f"(y)); }
 __device__ __forceinline__ void keep(int& y) { asm volatile("" : "+r"(y)); }
@@ -105,13 +147,25 @@ __device__ __forceinline__ float sqrt_approx(float a) {
   asm volatile("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(a));
   return r;
 }
+// max and min that return NaN where either input is NaN, as torch.maximum
+// and jnp.maximum do (fmaxf returns the other input): FMNMX.NAN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 __device__ __forceinline__ float rcp_approx(float a) {
   float r;
   asm volatile("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(a));
   return r;
 }
 
-// one op in f32; `z` is a zero read from memory
+// one op in f32; `z` is the run-time zero
 template <int OP>
 __device__ __forceinline__ float apply_f32(float y, float c, float z) {
   switch (OP) {
@@ -119,8 +173,8 @@ __device__ __forceinline__ float apply_f32(float y, float c, float z) {
     case SUB: return __fsub_rn(y, c);
     case MUL: return __fmul_rn(y, c);
     case FMA: return __fmaf_rn(y, c, c);
-    case MAX: return fmaxf(y, c);
-    case MIN: return fminf(y, c);
+    case MAX: return max_nan(y, c);
+    case MIN: return min_nan(y, c);
     case ABS: return __fadd_rn(fabsf(y), __fmul_rn(c, z));
     case DIV: return __fdiv_rn(y, c);
     case REM: {
@@ -183,8 +237,8 @@ __device__ __forceinline__ bf16 apply_bf16(bf16 y, bf16 c, bf16 z) {
     case SUB: return __hsub(y, c);
     case MUL: return __hmul(y, c);
     case FMA: return __hfma(y, c, c);
-    case MAX: return __hmax(y, c);
-    case MIN: return __hmin(y, c);
+    case MAX: return __hmax_nan(y, c);
+    case MIN: return __hmin_nan(y, c);
     case SELECT: return __hgt(y, c) ? y : c;
     // the composite ops round their inner step as the plain version does
     // (`+ c*0` adds an exact zero)
@@ -200,11 +254,15 @@ __device__ __forceinline__ bf16 apply_bf16(bf16 y, bf16 c, bf16 z) {
   }
 }
 
+// per type: the op, its bits, x + i (a run-time counter or an immediate),
+// the independent tail acc + y*z as one instruction, its identity (-0),
+// and the add of the accumulators' sum
 template <typename T>
 struct Ops;
 template <>
 struct Ops<float> {
   typedef float Count;
+  static constexpr bool kInt = false;
   template <int OP>
   static __device__ __forceinline__ float f(float y, float c, float z) {
     return apply_f32<OP>(y, c, z);
@@ -212,16 +270,28 @@ struct Ops<float> {
   static __device__ __forceinline__ unsigned bits(float y) {
     return __float_as_uint(y);
   }
+  static __device__ __forceinline__ float of_bits(unsigned b) {
+    return __uint_as_float(b);
+  }
   static __device__ __forceinline__ float plus(float x, float i) {
     return __fadd_rn(x, i);
   }
-  static __device__ __forceinline__ float tail(float out, float y, float z) {
-    return __fadd_rn(out, __fmul_rn(y, z));
+  static __device__ __forceinline__ float plus_imm(float x, int i) {
+    return __fadd_rn(x, static_cast<float>(i));
+  }
+  template <int OP>
+  static __device__ __forceinline__ float tail(float acc, float y, float z) {
+    return __fmaf_rn(y, z, acc);
+  }
+  static __device__ __forceinline__ float identity() { return -0.f; }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
   }
 };
 template <>
 struct Ops<int> {
   typedef int Count;
+  static constexpr bool kInt = true;
   template <int OP>
   static __device__ __forceinline__ int f(int y, int c, int z) {
     return apply_i32<OP>(y, c, z);
@@ -229,14 +299,26 @@ struct Ops<int> {
   static __device__ __forceinline__ unsigned bits(int y) {
     return static_cast<unsigned>(y);
   }
-  static __device__ __forceinline__ int plus(int x, int i) { return x + i; }
-  static __device__ __forceinline__ int tail(int out, int y, int z) {
-    return out + y * z;
+  static __device__ __forceinline__ int of_bits(unsigned b) {
+    return static_cast<int>(b);
   }
+  static __device__ __forceinline__ int plus(int x, int i) { return x + i; }
+  static __device__ __forceinline__ int plus_imm(int x, int i) {
+    return x + i;
+  }
+  // on the pipe the op does not use: mul runs on the FMA pipe (IMAD), the
+  // other integer ops on the ALU pipe
+  template <int OP>
+  static __device__ __forceinline__ int tail(int acc, int y, int z) {
+    return OP == MUL ? acc ^ (y & z) : y * z + acc;
+  }
+  static __device__ __forceinline__ int identity() { return 0; }
+  static __device__ __forceinline__ int add(int a, int b) { return a + b; }
 };
 template <>
 struct Ops<bf16> {
   typedef float Count;
+  static constexpr bool kInt = false;
   template <int OP>
   static __device__ __forceinline__ bf16 f(bf16 y, bf16 c, bf16 z) {
     return apply_bf16<OP>(y, c, z);
@@ -244,13 +326,42 @@ struct Ops<bf16> {
   static __device__ __forceinline__ unsigned bits(bf16 y) {
     return __bfloat16_as_ushort(y);
   }
+  static __device__ __forceinline__ bf16 of_bits(unsigned b) {
+    return __ushort_as_bfloat16(static_cast<unsigned short>(b));
+  }
   static __device__ __forceinline__ bf16 plus(bf16 x, float i) {
     return __float2bfloat16_rn(__bfloat162float(x) + i);
   }
-  static __device__ __forceinline__ bf16 tail(bf16 out, bf16 y, bf16 z) {
-    return __hadd(out, __hmul(y, z));
+  // i < 256: the bf16 i is exact, its top f32 bits
+  static __device__ __forceinline__ bf16 plus_imm(bf16 x, int i) {
+    return __hadd(x, __ushort_as_bfloat16(static_cast<unsigned short>(
+                         __float_as_uint(static_cast<float>(i)) >> 16)));
+  }
+  template <int OP>
+  static __device__ __forceinline__ bf16 tail(bf16 acc, bf16 y, bf16 z) {
+    return __hfma(y, z, acc);
+  }
+  static __device__ __forceinline__ bf16 identity() {
+    return __ushort_as_bfloat16(0x8000);
+  }
+  static __device__ __forceinline__ bf16 add(bf16 a, bf16 b) {
+    return __hadd(a, b);
   }
 };
+
+// c from the card: a volatile load, so two reads stay two values
+template <typename T>
+__device__ __forceinline__ unsigned load_bits(const void* p) {
+  unsigned v;
+  if (sizeof(T) == 2) {
+    unsigned short h;
+    asm volatile("ld.volatile.global.u16 %0, [%1];" : "=h"(h) : "l"(p));
+    v = h;
+  } else {
+    asm volatile("ld.volatile.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  }
+  return v;
+}
 
 __device__ __forceinline__ unsigned long long globaltimer() {
   unsigned long long t;
@@ -258,79 +369,148 @@ __device__ __forceinline__ unsigned long long globaltimer() {
   return t;
 }
 
-constexpr int kUnroll = 8;
-
-// the side word's op: of another instruction class than the chain's op
-template <int OP>
-__device__ __forceinline__ unsigned side_op(unsigned side, unsigned b) {
-  return (OP == AND || OP == XOR) ? side + b : side ^ b;
+// the side word's op: an IMAD by `m`, 1 at run time (for bf16, whose
+// 16-bit value an IMAD would first widen on the chain, an XOR)
+template <typename T>
+__device__ __forceinline__ unsigned side_op(unsigned s, unsigned b,
+                                            unsigned m) {
+  return sizeof(T) == 2 ? s ^ b : s * m + b;
 }
 
-// cbuf = {c, c, 0} in T: two copies of c that alternate, and a zero
-constexpr int kWarps = 32;   // the (8,128) tile: one warp per block
+// dependent: N ops, unrolled in full
+template <typename T, int OP, int N>
+__device__ __forceinline__ void dep_ops(T& y, T c0, T c1, T z,
+                                        unsigned (&side)[kSide], unsigned m) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    y = Ops<T>::template f<OP>(y, (j & 1) ? c1 : c0, z);
+    keep(y);
+    side[j % kSide] = side_op<T>(side[j % kSide], Ops<T>::bits(y), m);
+  }
+}
 
 template <typename T, int OP>
+__device__ __forceinline__ void dep_chain(T& y, T c0, T c1, T z, int length,
+                                          unsigned (&side)[kSide],
+                                          unsigned m) {
+  switch (length) {
+    case 4: dep_ops<T, OP, 4>(y, c0, c1, z, side, m); return;
+    case 16: dep_ops<T, OP, 16>(y, c0, c1, z, side, m); return;
+    case 64: dep_ops<T, OP, 64>(y, c0, c1, z, side, m); return;
+    case 256: dep_ops<T, OP, 256>(y, c0, c1, z, side, m); return;
+    default: break;
+  }
+  int k = 0;
+#pragma unroll 1
+  for (; k + kBlock <= length; k += kBlock)
+    dep_ops<T, OP, kBlock>(y, c0, c1, z, side, m);
+#pragma unroll 1
+  for (; k < length; ++k) dep_ops<T, OP, 1>(y, c0, c1, z, side, m);
+}
+
+// independent: the terms i = I0 .. I0+N-1, each i an immediate
+template <typename T, int OP, int I0, int N>
+__device__ __forceinline__ void ind_ops(T xv, T c0, T c1, T z,
+                                        T (&acc)[kAcc]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int i = I0 + j;
+    const T y = Ops<T>::template f<OP>(Ops<T>::plus_imm(xv, i),
+                                       (i & 1) ? c1 : c0, z);
+    acc[i % kAcc] = Ops<T>::template tail<OP>(acc[i % kAcc], y, z);
+    keep(acc[i % kAcc]);
+  }
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ void ind_chain(T xv, T c0, T c1, T z, int length,
+                                          T (&acc)[kAcc]) {
+  switch (length) {
+    case 4: ind_ops<T, OP, 1, 3>(xv, c0, c1, z, acc); return;
+    case 16: ind_ops<T, OP, 1, 15>(xv, c0, c1, z, acc); return;
+    case 64: ind_ops<T, OP, 1, 63>(xv, c0, c1, z, acc); return;
+    case 256: ind_ops<T, OP, 1, 255>(xv, c0, c1, z, acc); return;
+    default: break;
+  }
+  typedef typename Ops<T>::Count Count;
+  Count ci = Count(1);
+  int i = 1;
+#pragma unroll 1
+  for (; i + kBlock <= length; i += kBlock) {
+#pragma unroll
+    for (int j = 0; j < kBlock; ++j) {
+      const T y = Ops<T>::template f<OP>(Ops<T>::plus(xv, ci),
+                                         (j & 1) ? c1 : c0, z);
+      ci = ci + Count(1);
+      acc[j % kAcc] = Ops<T>::template tail<OP>(acc[j % kAcc], y, z);
+      keep(acc[j % kAcc]);
+    }
+  }
+#pragma unroll 1
+  for (; i < length; ++i) {
+    const T y = Ops<T>::template f<OP>(Ops<T>::plus(xv, ci), c0, z);
+    ci = ci + Count(1);
+    acc[0] = Ops<T>::template tail<OP>(acc[0], y, z);
+    keep(acc[0]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T tree_sum(T (&a)[kAcc]) {
+#pragma unroll
+  for (int w = kAcc / 2; w > 0; w /= 2) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) a[j] = Ops<T>::add(a[j], a[j + w]);
+  }
+  return a[0];
+}
+
+// c: NULL, or c's address on the card (read twice); cb0, cb1: c's bits
+// otherwise; zb: the bits of a zero of T
+template <typename T, int OP, bool DEP>
 __global__ void __launch_bounds__(32)
-    alu_chain_kernel(const T* __restrict__ x, const T* __restrict__ cbuf,
-                     T* __restrict__ out, int length, int dependent,
-                     long long* __restrict__ timing) {
+    alu_chain_kernel(const T* __restrict__ x, const void* c, unsigned cb0,
+                     unsigned cb1, unsigned zb, T* __restrict__ out,
+                     int length, long long* __restrict__ timing) {
   const int t = blockIdx.x * 32 + threadIdx.x;
-  const T c0 = cbuf[0], c1 = cbuf[1], z = cbuf[2];
-  const T xv = x[t];
+  if (c != nullptr) {
+    cb0 = load_bits<T>(c);
+    cb1 = load_bits<T>(c);
+  }
+  const T c0 = Ops<T>::of_bits(cb0), c1 = Ops<T>::of_bits(cb1);
+  const T z = Ops<T>::of_bits(zb);
+  const unsigned m = zb | 1u;
+  T xv = x[t];
   T res;
+  unsigned side[kSide] = {};
+  T acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = Ops<T>::identity();
   __syncwarp();
   const unsigned long long g0 = globaltimer();
   const long long t0 = clock64();
-  unsigned side = 0;
-  if (dependent) {
-    T y = xv;
-    keep(y);
-    int k = 0;
-    for (; k + kUnroll <= length; k += kUnroll) {
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        y = Ops<T>::template f<OP>(y, (j & 1) ? c1 : c0, z);
-        keep(y);
-        side = side_op<OP>(side, Ops<T>::bits(y));
-      }
-    }
-#pragma unroll 1
-    for (; k < length; ++k) {
-      y = Ops<T>::template f<OP>(y, c0, z);
-      keep(y);
-      side = side_op<OP>(side, Ops<T>::bits(y));
-    }
-    res = y;
+  keep(xv);  // the chain starts after the clock read
+  if (DEP) {
+    dep_chain<T, OP>(xv, c0, c1, z, length, side, m);
+    res = xv;
   } else {
-    typedef typename Ops<T>::Count Count;
-    T acc = Ops<T>::template f<OP>(Ops<T>::plus(xv, Count(0)), c0, z);
-    keep(acc);
-    Count ci = Count(1);
-    int i = 1;
-    for (; i + kUnroll <= length; i += kUnroll) {
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        T y = Ops<T>::template f<OP>(Ops<T>::plus(xv, ci), (j & 1) ? c1 : c0,
-                                      z);
-        ci = ci + Count(1);
-        acc = Ops<T>::tail(acc, y, z);
-      }
-      keep(acc);
-    }
-#pragma unroll 1
-    for (; i < length; ++i) {
-      T y = Ops<T>::template f<OP>(Ops<T>::plus(xv, ci), c0, z);
-      ci = ci + Count(1);
-      acc = Ops<T>::tail(acc, y, z);
-      keep(acc);
-    }
-    res = acc;
+    res = Ops<T>::template f<OP>(Ops<T>::plus_imm(xv, 0), c0, z);
+    keep(res);
+    ind_chain<T, OP>(xv, c0, c1, z, length, acc);
   }
   const long long t1 = clock64();
   const unsigned long long g1 = globaltimer();
-  // the side word must exist: it lands in `timing` only for length < 0,
-  // which the host refuses
-  if (length < 0 && timing != nullptr) timing[2] = side;
+  if (!DEP) {
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k) keep(acc[k]);  // summed after the clock
+    res = Ops<T>::add(res, tree_sum<T>(acc));
+  }
+  // the side words must exist: they land in `timing` only for a nonzero
+  // zero, which the host never passes
+  if (zb != 0u && timing != nullptr) {
+#pragma unroll
+    for (int k = 0; k < kSide; ++k) timing[2 + k] = side[k];
+  }
   out[t] = res;
   if (t == 0 && timing != nullptr) {  // block 0, lane 0
     timing[0] = t1 - t0;
@@ -339,75 +519,66 @@ __global__ void __launch_bounds__(32)
 }
 
 template <typename T, int OP>
-int launch(const void* x, const void* cbuf, void* out, int length,
-           int dependent, long long* timing, cudaStream_t s) {
-  alu_chain_kernel<T, OP><<<kWarps, 32, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(cbuf),
-      static_cast<T*>(out), length, dependent, timing);
+int launch(int dependent, const void* x, const void* c, unsigned cb0,
+           unsigned cb1, unsigned zb, void* out, int length,
+           long long* timing, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  if (dependent)
+    alu_chain_kernel<T, OP, true>
+        <<<kWarps, 32, 0, s>>>(xp, c, cb0, cb1, zb, op, length, timing);
+  else
+    alu_chain_kernel<T, OP, false>
+        <<<kWarps, 32, 0, s>>>(xp, c, cb0, cb1, zb, op, length, timing);
   return static_cast<int>(cudaGetLastError());
 }
 
+#define ALU_CASE(O)  \
+  case O:            \
+    return launch<T, O>(dep, x, c, cb0, cb1, zb, out, n, tm, s);
+
 template <typename T>
-int dispatch_float(int op, const void* x, const void* c, void* out, int n,
-                   int dep, long long* tm, cudaStream_t s) {
+int dispatch_float(int op, int dep, const void* x, const void* c,
+                   unsigned cb0, unsigned cb1, unsigned zb, void* out, int n,
+                   long long* tm, cudaStream_t s) {
   switch (op) {
-    case ADD: return launch<T, ADD>(x, c, out, n, dep, tm, s);
-    case SUB: return launch<T, SUB>(x, c, out, n, dep, tm, s);
-    case MUL: return launch<T, MUL>(x, c, out, n, dep, tm, s);
-    case FMA: return launch<T, FMA>(x, c, out, n, dep, tm, s);
-    case MAX: return launch<T, MAX>(x, c, out, n, dep, tm, s);
-    case MIN: return launch<T, MIN>(x, c, out, n, dep, tm, s);
-    case ABS: return launch<T, ABS>(x, c, out, n, dep, tm, s);
-    case DIV: return launch<T, DIV>(x, c, out, n, dep, tm, s);
-    case REM: return launch<T, REM>(x, c, out, n, dep, tm, s);
-    case RSQRT: return launch<T, RSQRT>(x, c, out, n, dep, tm, s);
-    case SQRT: return launch<T, SQRT>(x, c, out, n, dep, tm, s);
-    case EXP: return launch<T, EXP>(x, c, out, n, dep, tm, s);
-    case LOG: return launch<T, LOG>(x, c, out, n, dep, tm, s);
-    case SIN: return launch<T, SIN>(x, c, out, n, dep, tm, s);
-    case TANH: return launch<T, TANH>(x, c, out, n, dep, tm, s);
-    case SIGMOID: return launch<T, SIGMOID>(x, c, out, n, dep, tm, s);
-    case SELECT: return launch<T, SELECT>(x, c, out, n, dep, tm, s);
+    FLOAT_OPS(ALU_CASE)
     default: return -2;
   }
 }
 
-int dispatch_int(int op, const void* x, const void* c, void* out, int n,
-                 int dep, long long* tm, cudaStream_t s) {
+template <typename T>
+int dispatch_int(int op, int dep, const void* x, const void* c, unsigned cb0,
+                 unsigned cb1, unsigned zb, void* out, int n, long long* tm,
+                 cudaStream_t s) {
   switch (op) {
-    case ADD: return launch<int, ADD>(x, c, out, n, dep, tm, s);
-    case SUB: return launch<int, SUB>(x, c, out, n, dep, tm, s);
-    case MUL: return launch<int, MUL>(x, c, out, n, dep, tm, s);
-    case MAX: return launch<int, MAX>(x, c, out, n, dep, tm, s);
-    case MIN: return launch<int, MIN>(x, c, out, n, dep, tm, s);
-    case ABS: return launch<int, ABS>(x, c, out, n, dep, tm, s);
-    case AND: return launch<int, AND>(x, c, out, n, dep, tm, s);
-    case XOR: return launch<int, XOR>(x, c, out, n, dep, tm, s);
-    case POPC: return launch<int, POPC>(x, c, out, n, dep, tm, s);
-    case CLZ: return launch<int, CLZ>(x, c, out, n, dep, tm, s);
-    case REM: return launch<int, REM>(x, c, out, n, dep, tm, s);
-    case SELECT: return launch<int, SELECT>(x, c, out, n, dep, tm, s);
+    INT_OPS(ALU_CASE)
     default: return -2;
   }
 }
+
+#undef ALU_CASE
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16, 2 int32.  x, out: 1024 elements; cbuf: {c, c, 0}.
-// timing: NULL or 2 int64 (cycles, ns).  Returns 0 or a CUDA error code
-// (-1: bad arguments, -2: op not defined for the dtype).
+// dtype: 0 f32, 1 bf16, 2 int32.  x, out: 1024 elements.  c: NULL (then
+// cb0 and cb1 are c's bits, equal, in the dtype's width) or c's address on
+// the card; zb: the bits of zero.  timing: NULL or 2 int64 (cycles, ns).
+// Returns 0 or a CUDA error code (-1: bad arguments, -2: op not defined
+// for the dtype).
 extern "C" int alu_chain_launch(int op, int dtype, int dependent,
-                                const void* x, const void* cbuf, void* out,
+                                const void* x, const void* c, unsigned cb0,
+                                unsigned cb1, unsigned zb, void* out,
                                 int length, long long* timing, void* stream) {
   if (length <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_float<float>(op, x, cbuf, out, length, dependent,
-                                         timing, s);
-    case 1: return dispatch_float<bf16>(op, x, cbuf, out, length, dependent,
-                                        timing, s);
-    case 2: return dispatch_int(op, x, cbuf, out, length, dependent, timing,
-                                s);
+    case 0: return dispatch_float<float>(op, dependent, x, c, cb0, cb1, zb,
+                                         out, length, timing, s);
+    case 1: return dispatch_float<bf16>(op, dependent, x, c, cb0, cb1, zb,
+                                        out, length, timing, s);
+    case 2: return dispatch_int<int>(op, dependent, x, c, cb0, cb1, zb, out,
+                                     length, timing, s);
     default: return -1;
   }
 }

@@ -168,8 +168,11 @@ def test_cli_calibrate_on_cpu(tmp_path, capsys):
 def test_committed_hopper_table_is_a_full_measured_calibration():
     """``hopper_h100.json`` is the table the full grids made on the card:
     every ok cell of the four experiments, the SM clock, no folded chain
-    (every dependent f32 op at least one cycle), and a 64 MiB chase slower
-    per hop than a 16 KiB one."""
+    (every dependent f32 op, and every op row in either mode, at least one
+    cycle), a 64 MiB chase slower per hop than a 16 KiB one, intercepts
+    that read one launch (under 20 us, or 1.5x the run's own
+    ``launch_reference``), and f32 independent rows of the FMA-pipe and
+    MUFU-class ops at most their dependent rows."""
     t = tables.load_table("hopper_h100")
     paper = tables.ampere_table()
     assert t["schema_version"] == paper["schema_version"] == 1
@@ -183,6 +186,23 @@ def test_committed_hopper_table_is_a_full_measured_calibration():
     assert all(row["cpi"] >= 1 for row in t["vpu"].values())
     mem = t["memory"]
     assert mem[str(64 * 2 ** 20)]["per_hop_ns"] > mem["16384"]["per_hop_ns"]
+    # the intercepts read one kernel launch: under 20 us, or, where one
+    # PyTorch elementwise launch timed the same way in the same run
+    # already costs more than 13 us (the card's host), under 1.5x that
+    ref_us = t.get("launch_reference", {}).get("torch_add_us", 0.0)
+    limit_us = 1.5 * ref_us if ref_us > 13 else 20.0
+    assert t["roofline"]["dispatch_overhead_us"]["value"] < limit_us
+    assert all(row["overhead_ns"] < limit_us * 1e3
+               for row in t["ops"].values())
+    # no folded chain in either mode, and the f32 independent chains of
+    # the FMA pipe and of the MUFU-class ops do not serialise: each reads
+    # no more cycles than its dependent chain
+    per_cycle_ns = 1e3 / t["clock_mhz"]
+    assert all(row["per_op_ns"] >= per_cycle_ns for row in t["ops"].values())
+    for op in ("add", "mul", "fma", "rsqrt", "sqrt", "exp", "log", "sin",
+               "tanh", "sigmoid"):
+        ind, dep = t["ops"][f"{op}.float32.ind"], t["ops"][f"{op}.float32.dep"]
+        assert ind["per_op_ns"] <= dep["per_op_ns"], op
 
 
 def test_committed_hopper_table_mxu_rows_are_rates_a_card_can_give():

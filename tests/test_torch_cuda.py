@@ -377,7 +377,7 @@ def _alu_input(dev, dtype, seed=0):
     return torch.from_numpy(x).to(dtype).to(dev)
 
 
-@pytest.mark.parametrize("length", [12, 1, 37])
+@pytest.mark.parametrize("length", [12, 1, 37, 4, 16, 64, 256])
 @pytest.mark.parametrize("op,dtype,dependent", ALU_CASES)
 def test_alu_chain_kernel_matches_plain(dev, op, dtype, dependent, length):
     x = _alu_input(dev, dtype)
@@ -413,6 +413,92 @@ def test_alu_chain_wrapper_refusals(dev):
         alu_chain(x, 1.0, op="nope")
     with pytest.raises(TypeError):
         alu_chain(x.double(), 1.0, op="add")
+    with pytest.raises(ValueError):
+        alu_chain(x, 1.0, op="add", length=0)
+    # a CUDA c must be x's dtype: converting it would be device work
+    with pytest.raises(TypeError):
+        alu_chain(x, torch.tensor(1.0, device=dev).double(), op="add")
+    with pytest.raises(TypeError):
+        alu_chain(x, torch.ones(2, device=dev), op="add")
+    with pytest.raises(ValueError):
+        alu_chain(x, 1.0, op="add",
+                  timing=torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("form", ["number", "cuda_tensor", "cpu_tensor"])
+@pytest.mark.parametrize("dependent", [True, False])
+def test_alu_chain_call_is_one_launch(dev, form, dependent):
+    """One call runs one device kernel and copies nothing, whatever form c
+    takes, and counts one launch."""
+    x = _alu_input(dev, torch.float32)
+    c = {"number": 1.0009765625,
+         "cuda_tensor": torch.tensor(1.0009765625, device=dev),
+         "cpu_tensor": torch.tensor(1.0009765625)}[form]
+    before = alu_chain.launches
+    kernels, copies = chip_smoke.alu_device_work(
+        torch, lambda: alu_chain(x, c, op="fma", length=256,
+                                 dependent=dependent))
+    assert alu_chain.launches == before + 2         # a warm-up, the traced
+    assert len(kernels) == 1 and "alu_chain_kernel" in kernels[0], kernels
+    assert copies == []
+
+
+def test_alu_chain_host_side_cbuf_is_more_than_one_launch(dev):
+    """The one_kernel gate's control, the wrapper's old staging of c, shows
+    extra device work under the profiler in every form of c."""
+    x = _alu_input(dev, torch.float32)
+    for c in (1.0, torch.tensor(1.0, device=dev), torch.tensor(1.0)):
+        kernels, copies = chip_smoke.alu_device_work(
+            torch, lambda: chip_smoke.alu_host_side_cbuf(torch, x, c,
+                                                         op="add", length=4))
+        assert len(kernels) + len(copies) > 1, (kernels, copies)
+
+
+@pytest.mark.parametrize("dependent", [True, False])
+def test_alu_chain_timing_advances_with_length(dev, dependent):
+    """The in-kernel cycles grow with the sweep's lengths, at least one
+    cycle per op, in each mode, read as the harness reads them: after
+    warm-up launches (a body's first launch also fetches its code)."""
+    x = _alu_input(dev, torch.float32)
+    cyc = []
+    for k in (4, 16, 64, 256, 1000):
+        t = torch.zeros(2, dtype=torch.int64, device=dev)
+        for _ in range(3):
+            alu_chain(x, 1.0, op="add", length=k, dependent=dependent,
+                      timing=t)
+        cyc.append(t[0].item())
+        assert t[1].item() > 0
+    assert all(b > a for a, b in zip(cyc, cyc[1:])), cyc
+    assert cyc[3] - cyc[1] >= 240, cyc
+
+
+@pytest.mark.parametrize("op", ["add", "mul", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_alu_chain_independent_tail_is_bit_equal(dev, op, dtype):
+    """The independent chain's rotated accumulators, summed after the
+    clock, give the plain chain's result bit for bit (up to a NaN's
+    payload) at length 256, with terms that give +-0, inf and NaN."""
+    x = _alu_input(dev, dtype).cpu()
+    if dtype == torch.int32:
+        x[0, :6] = torch.tensor([0, -1, 2 ** 31 - 1, -2 ** 31, -3, 1])
+    else:
+        x[0, :9] = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"),
+                                 float("nan"), -3.0009765625, -1e6, 1e38,
+                                 -2.5]).to(dtype)
+    x = x.to(dev)
+    for c in ((1.0009765625, 0.5) if dtype != torch.int32 else (1, 3)):
+        cv = torch.tensor(c).to(dtype)
+        got = alu_chain(x, cv, op=op, length=256, dependent=False).cpu()
+        want = ref.alu_chain_plain(x.cpu(), cv, op=op, length=256,
+                                   dependent=False)
+        if dtype == torch.int32:
+            assert torch.equal(got, want)
+            continue
+        view = torch.int32 if dtype == torch.float32 else torch.int16
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got.view(view)[~nan], want.view(view)[~nan])
 
 
 @pytest.mark.parametrize("n", [64, 4096, 1 << 20])

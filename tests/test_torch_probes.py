@@ -10,6 +10,10 @@ numpy inputs.  Tolerances:
   approximations differ in the last bits; 12 ops compound them); bf16
   rtol 1.6e-2, two bf16 ulps (XLA may keep f32 across a fused bf16 chain
   where torch rounds after every op).
+* the ALU kernel's independent tail (``_tail_plain`` below, its
+  rotated accumulators summed pairwise): bit-equal to the plain chain, and
+  to JAX's chain for every op but the transcendentals (libm and XLA differ
+  there in the last bits; their NaNs agree).
 * pointer chase: the index must be equal.
 * mxu probe: f32 atol 1e-6 · max|ref| (summation order only); bf16 one
   bf16 ulp of max|ref| per chain step (2^-8 · chain · max|ref|), the rounding
@@ -37,6 +41,7 @@ from repro.kernels import ref as jref
 from repro.kernels.microbench_alu import _KERNEL_OPS
 from repro_torch.core.microbench.memory import _random_cycle
 from repro_torch.core.microbench import mxu as tmxu
+from repro_torch.kernels import alu_chain as talu
 from repro_torch.kernels import mxu_probe as tprobe
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -303,3 +308,217 @@ def test_mxu_must_catch_controls_exceed_the_gate(name, dtype):
     row = chip_smoke.mxu_controls(torch, np, tref, dt, torch.device("cpu"),
                                   0)[name]
     assert row["caught"] and row["tol_ratio"] > 10
+
+
+ALU_PAIRS = sorted({(op, dt) for op, dt, _ in ALU_CASES})
+
+
+def _alu_special(dtype, seed=0):
+    """``_alu_input`` with terms that give +-0, inf and NaN in the tail: +-0,
+    +-inf, NaN, x + i + c near 0, and values that keep every term of one
+    sign."""
+    x = _alu_input(dtype, seed)
+    if dtype == "int32":
+        x[0, :6] = [0, -1, 2 ** 31 - 1, -2 ** 31, -3, 1]
+    else:
+        x[0, :9] = [-0.0, 0.0, np.inf, -np.inf, np.nan, -3.0009765625,
+                    -1e6, 1e38, -2.5]
+    return x
+
+
+def _same_bits(a, b):
+    """Bit-equal up to a NaN's payload."""
+    a, b = a.contiguous(), b.contiguous()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int32: torch.int32}[a.dtype]
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    zero = torch.zeros((), dtype=view)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, zero, a.view(view)), torch.where(nb, zero, b.view(view)))
+
+
+def _tail_plain(x, c, *, op="fma", length=64, accumulators=8):
+    """The kernel's independent chain in plain PyTorch: y0 = f(x + 0, c),
+    each f(x + i, c) * 0 into accumulator i % ``accumulators`` (starting at
+    -0, the identity), the accumulators summed pairwise, then y0 + that
+    sum.  Equal to ``alu_chain_plain(..., dependent=False)`` bit for bit up
+    to a NaN's payload (every term is +-0 or NaN)."""
+    f = tref.ALU_OPS[op]
+    c = torch.as_tensor(c, dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    acc = [torch.full_like(x, -0.0) if x.is_floating_point()
+           else torch.zeros_like(x) for _ in range(accumulators)]
+    for i in range(1, int(length)):
+        acc[i % accumulators] = acc[i % accumulators] + f(x + i, c) * zero
+    while len(acc) > 1:
+        h = len(acc) // 2
+        acc = [acc[j] + acc[j + h] for j in range(h)]
+    return f(x + 0, c) + acc[0]
+
+
+@pytest.mark.parametrize("op,dtype", ALU_PAIRS)
+def test_alu_rotated_tail_is_the_plain_chain_bit_for_bit(op, dtype):
+    """The kernel's independent chain (terms into 8 accumulators in turn,
+    summed pairwise after the chain) is the reference's sequential
+    ``out + y * 0`` at every length the kernel has a body for, and at 12."""
+    tdt = getattr(torch, dtype)
+    xn = _alu_special(dtype)
+    x = torch.from_numpy(xn).to(tdt)
+    xj = jnp.asarray(xn, dtype)
+    for c in ((C, 0.5) if dtype != "int32" else (C, 3)):
+        cv = torch.tensor(c).to(tdt)
+        for length in (1, 4, 12, 256):
+            got = _tail_plain(x, cv, op=op, length=length)
+            want = tref.alu_chain_plain(x, cv, op=op, length=length,
+                                        dependent=False)
+            assert _same_bits(got, want), (c, length)
+            jv = np.asarray(jref.alu_chain_ref(
+                xj, jnp.asarray(c, dtype), op=op, length=length,
+                dependent=False)).astype(np.float32 if dtype == "bfloat16"
+                                         else xn.dtype)
+            jt = torch.from_numpy(jv).to(tdt)
+            if op in talu.MUFU_OPS:
+                torch.testing.assert_close(got.double(), jt.double(),
+                                           equal_nan=True, **_alu_tol(dtype))
+            else:
+                assert _same_bits(got, jt), (c, length)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_alu_scalar_bits_are_the_bits_torch_holds(dtype):
+    """The wrapper passes c to the kernel as its bits in x's dtype: the
+    bits ``torch.as_tensor(c, dtype)`` holds, for numbers of every kind."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    if dtype == "int32":
+        values = [0, 1, -1, 2 ** 31 - 1, -2 ** 31, C, -2.7, 3.99, True] + [
+            int(v) for v in rng.integers(-2 ** 31, 2 ** 31, 50)]
+        for v in values:
+            want = torch.as_tensor(v, dtype=tdt).item() & 0xFFFFFFFF
+            assert talu.scalar_bits(v, tdt) == want, v
+        with pytest.raises(OverflowError):
+            talu.scalar_bits(2 ** 31, tdt)
+        return
+    view = torch.int32 if dtype == "float32" else torch.int16
+    mask = 0xFFFFFFFF if dtype == "float32" else 0xFFFF
+    values = [C, 0.0, -0.0, 1.0, -2.5, float("inf"), float("-inf"), 1e39,
+              -1e39, 3.4028235e38, 3.4028236e38, 1e-45, -1e-46, 2 ** -149,
+              1 + 2 ** -8, 1 + 3 * 2 ** -8, 1 + 2 ** -8 + 2 ** -30,
+              1 - 2 ** -9, 65504.0, 7, -3] + list(rng.normal(size=200) *
+                                                  10.0 ** rng.integers(
+                                                      -40, 40, 200))
+    for v in values:
+        want = torch.as_tensor(v, dtype=tdt).view(view).item() & mask
+        assert talu.scalar_bits(v, tdt) == want, v
+    nan = talu.scalar_bits(float("nan"), tdt)
+    assert nan == (torch.as_tensor(float("nan"), dtype=tdt).view(view)
+                   .item() & mask)
+
+
+def test_alu_kernel_instances_are_the_legal_pairs():
+    """The kernel's instance lists (``FLOAT_OPS``, ``INT_OPS`` in
+    ``csrc/alu_chain.cu``) and the wrapper's id table hold every pair the
+    harness runs, and no other; the ids are the kernel's ``enum Op``."""
+    import re
+    src = (Path(tprobe.__file__).parent / "csrc" / "alu_chain.cu").read_text()
+    lists = {m.group(1): re.findall(r"X\((\w+)\)", m.group(2)) for m in
+             re.finditer(r"#define (\w+_OPS)\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                         src)}
+    enum = re.search(r"enum Op \{([^}]*)\}", src).group(1)
+    assert [e.strip().lower() for e in enum.split(",")] == list(tref.ALU_OPS)
+    for macro, dts in (("FLOAT_OPS", ("float32", "bfloat16")),
+                       ("INT_OPS", ("int32",))):
+        for dt in dts:
+            legal = [op for op in tref.ALU_OPS
+                     if tref.alu_legal(op, getattr(torch, dt))]
+            assert [o.lower() for o in lists[macro]] == legal, (macro, dt)
+    assert sorted((op, str(dt).split(".")[1]) for op, dt in talu._IDS) == \
+        sorted((op, dt) for op, dt in ALU_PAIRS)
+
+
+def _sass(fn, blocks):
+    """cuobjdump-style SASS for one function: each block a list of
+    opcodes, a label line before every block but the first."""
+    lines = [f"        Function : {fn}", "        .headerflags  @\"EF_CUDA\""]
+    addr = 0
+    for b, ops in enumerate(blocks):
+        if b:
+            lines.append(f".L_x_{b}:")
+        for o in ops:
+            lines.append(f"        /*{addr:04x}*/                   {o} R0, R1 "
+                         f"; /* 0x000fe40000000800 */")
+            lines.append("                                              "
+                         "/* 0x000fe40000000800 */")
+            addr += 16
+    return "\n".join(lines)
+
+
+def test_alu_timed_body_counts_the_longest_block():
+    """``alu_chain.timed_body`` reads each instance's 256-op body from the
+    SASS: its longest basic block, over 256 (dependent) or 255 ops."""
+    dep = "_ZN12_GLOBAL__N_116alu_chain_kernelIfLi0ELb1EEEvPKT_PKvjjjPS1_iPx"
+    ind = ("_ZN12_GLOBAL__N_116alu_chain_kernelI13__nv_bfloat16Li3ELb0EEEv"
+           "PKT_PKvjjjPS2_iPx")
+    rem = "_ZN12_GLOBAL__N_116alu_chain_kernelIiLi12ELb1EEEvPKT_PKvjjjPS1_iPx"
+    text = "\n".join([
+        _sass(dep, [["S2R", "CS2R", "ISETP.NE.AND", "@P0 BRA"],
+                    ["FADD", "LOP3.LUT"] * 256 + ["BRA"], ["EXIT"]]),
+        _sass(ind, [["CS2R"], ["HADD2.BF16_V2", "HFMA2.BF16_V2", "HFMA2"]
+                    * 255, ["EXIT"]]),
+        _sass(rem, [["IMAD"] * 40 + ["BRA"], ["IADD3"] * 30])])
+    body = talu.timed_body(text)
+    assert set(body) == {("add", "float32", True), ("fma", "bfloat16", False),
+                         ("rem", "int32", True)}
+    d = body[("add", "float32", True)]
+    assert d["instructions"] == 513 and d["per_op"] == 513 / 256
+    assert d["top"]["FADD"] == 256 and d["top"]["LOP3.LUT"] == 256
+    assert body[("fma", "bfloat16", False)]["per_op"] == 3.0
+    assert body[("rem", "int32", True)]["per_op"] is None
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.ALU_FAULTS))
+def test_alu_fault_controls_apply_to_the_kernel_source(name):
+    """Each built control of ``chip_smoke.py``'s ``ALU_MUST_CATCH`` is the
+    kernel's source with its substitutions (each found once) and its
+    instance lists cut to the controls' ops, and differs from the kernel."""
+    src = chip_smoke.alu_source(chip_smoke.ALU_FAULTS[name],
+                                chip_smoke.ALU_CONTROL_OPS)
+    kernel = chip_smoke.alu_source([], chip_smoke.ALU_CONTROL_OPS)
+    assert src != kernel
+    assert "#define FLOAT_OPS(X) X(ADD) X(MUL) X(FMA) X(MAX)\n" in src
+    assert "#define INT_OPS(X) X(ADD) X(MUL) X(AND) X(MAX)\n" in src
+    assert set(chip_smoke.ALU_MUST_CATCH[name]) <= {
+        "one_kernel", "launch_cost", "folded", "serial"}
+    for op, dt, _ in chip_smoke.ALU_FAULT_CELLS[name]:
+        assert f"X({op.upper()})" in src.split(
+            "#define INT_OPS" if dt == "int32" else "#define FLOAT_OPS")[1] \
+            .splitlines()[0]
+    assert set(chip_smoke.ALU_MUST_CATCH) == set(chip_smoke.ALU_FAULTS) | {
+        "host_side_cbuf"}
+
+
+def test_alu_gates_flag_folded_and_serial_readings():
+    """The folded gate flags readings under one cycle per op in either
+    mode; the serial gate an independent reading past ALU_SERIAL_FACTOR x
+    its body's SASS instructions per op."""
+    readings = {("max", "float32", True): 0.02, ("add", "float32", False):
+                3.1, ("mul", "float32", False): 4.2, ("add", "int32", False):
+                0.4}
+    body = {k: {"per_op": 3.0} for k in readings}
+    assert chip_smoke.alu_folded(readings) == ["add.int32.ind",
+                                               "max.float32.dep"]
+    assert chip_smoke.alu_serial(readings, body) == ["mul.float32"]
+
+
+def test_dispatch_overhead_detail_names_the_launch_intercept():
+    """The ``dispatch_overhead_us`` term says what it reads: the intercept
+    of one call's time, which on the card is its one kernel launch."""
+    from repro_torch.core.campaign import registry
+    r = registry.run_roofline_cal_cell({"term": "dispatch_overhead_us"},
+                                       quick=True, device="cpu")
+    assert r["unit"] == "us" and r["value"] >= 0
+    assert r["detail"] == registry.DISPATCH_DETAIL
+    assert "launch intercept" in r["detail"] and "alu_chain" in r["detail"]
