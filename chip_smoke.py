@@ -116,7 +116,23 @@ exits non-zero):
    tensor-core reading no card can give (``mxu_rate_faults``: an
    ``mxu_shapes`` cell or ``mxu_peak_tflops`` not above 0 or above its
    type's dense peak, or a per-op time at the harness's floor).
-11. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
+11. costmodel: the cost model (``repro_torch.core.costmodel``) built
+   from the table the calibration phase wrote and from the committed one:
+   each table's round trip within ``COST_MAX_ERR_PCT`` (10%) and its
+   hardware the H100 spec; the predicted terms of full-width gemma2-2b's
+   decode step (B=8, 1,024 positions), a 64-token chunk and a 900-token
+   prefill; then phase serve's trace through the paged and the slot engine
+   priced by the fresh table, under sync debugging, with a budget of 1e9 s
+   (nothing deferred) and a tight one (``cost_budget``: deferrals, every
+   request completes), each with one predicted and one measured time a
+   step, at most one sync a step beyond the first and the attention kernel
+   in every layer; the medians of the predicted and measured (host) step
+   times and their ratio (a reading); reduced f32 gemma2 under tight
+   budgets on the card and on the CPU with identical tokens, admission
+   order and deferrals; and the faults of ``COST_MUST_CATCH``, which the
+   gates must catch (an engine that ignores its budget, every prefill
+   priced at 0, a table whose hardware resolves to the A100).
+12. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
    f32; block_h 1, which changes no value on the card) in three cases
@@ -130,7 +146,7 @@ exits non-zero):
    step late, w rounded to bf16, u's term dropped, head 0's u for every
    head; the state zeroed every 256 steps, one thread's rows left out of
    y), which they must catch; then "long" and "fast" in f32 at B=1.
-12. ssm_kernel: the selective-scan kernel against its plain version on the
+13. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
    f32; block_d 256 -> 64) in two cases (``SSM_CASES``): "eval", init_mamba's
@@ -144,7 +160,7 @@ exits non-zero):
    every 256 steps, the last state's term left out of y), and the
    kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
    biased exponential shows against the f32 tolerance.
-13. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+14. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
    ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
@@ -155,11 +171,11 @@ exits non-zero):
    holds controls, the plain version with a fault injected (an input one
    step late; in bf16 also the decay rounded to bf16 and ``u`` left in
    f32); the gates must catch those ``MUST_CATCH`` names.
-14. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+15. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
    its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
    with a CUDA event pair around each call of the recurrence kernel.
-15. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+16. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
 A ``timing`` line gives each phase's seconds; the line before the last
@@ -780,18 +796,26 @@ def launch_counts():
     return counts
 
 
-def phase_serve(torch, np, dev, seed):
+def serve_setup(np, dev, seed):
+    """Full-width gemma2-2b with seeded random weights (matrices stored once
+    in bf16) and the serving trace: 8 prompts of 16-900 tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models.zoo import build_model
-    from repro_torch.serve.engine import PagedServingEngine
 
     cfg = get_config("gemma2-2b")
     model = build_model(cfg, device=dev)
-    params = model.init(seed)           # matrices stored once in bf16
-    kw = dict(max_batch=8, max_len=1024, block_size=16, chunk_size=64)
+    params = model.init(seed)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.integers(16, 901, size=8)]
+    return cfg, model, params, prompts
+
+
+def phase_serve(torch, np, dev, seed):
+    from repro_torch.serve.engine import PagedServingEngine
+
+    cfg, model, params, prompts = serve_setup(np, dev, seed)
+    kw = dict(max_batch=8, max_len=1024, block_size=16, chunk_size=64)
 
     warm = PagedServingEngine(model, params, **kw)
     warm.submit(prompts[0][:40], max_new_tokens=4)
@@ -1247,19 +1271,27 @@ def alu_serial(readings, body):
 
 
 def alu_device_work(torch, call):
-    """The device kernels and copies of one ``call()``, by torch.profiler."""
+    """The device kernels and copies of one ``call()``, by torch.profiler.
+    A session that records no device event at all is taken again, up to
+    three times: the first session of a process once came back empty on
+    the card, and a call that truly launches nothing reads empty every
+    time."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     kernels, copies = [], []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            (copies if e.name.startswith(("Memcpy", "Memset"))
-             else kernels).append(e.name)
+    for name in events:
+        (copies if name.startswith(("Memcpy", "Memset"))
+         else kernels).append(name)
     return kernels, copies
 
 
@@ -1688,6 +1720,229 @@ def phase_calibration(torch, dev, card):
           "alu_cycles": cycles, "chase": hops, "mxu": mxu,
           "roofline": {k: v["value"] for k, v in table["roofline"].items()}})
     return counts
+
+
+# the cost model phase: each table's round trip within COST_MAX_ERR_PCT, and
+# admission gated on both engines; the faults the gates must catch: an
+# engine that ignores its budget, every prefill and chunk priced at 0 (both
+# caught by the deferral gate of a tight budget) and a model whose hardware
+# resolves to another spec than the H100's (caught by the table gate)
+COST_MAX_ERR_PCT = 10.0
+COST_MUST_CATCH = ("budget_ignored", "prefill_free", "hw_wrong")
+
+
+def cost_table_gate(model):
+    """One table's model: its round trip (each recorded row priced back
+    through the layers) within ``COST_MAX_ERR_PCT``, and its hardware the
+    H100 spec.  Returns (summary, failures)."""
+    from repro_torch.core.costmodel import (prediction_error_rows,
+                                            prediction_error_summary)
+    from repro_torch.core.perfmodel.hardware import H100_SXM
+
+    s = prediction_error_summary(prediction_error_rows(model))
+    bad = []
+    if not s["rows"] or s["max_err_pct"] > COST_MAX_ERR_PCT:
+        bad.append(f"round trip: {s['rows']} rows, max error "
+                   f"{s['max_err_pct']}%")
+    if model.hw != H100_SXM:
+        bad.append(f"hardware resolves to {model.hw.name}")
+    return {**s, "hw": model.hw.name}, bad
+
+
+def cost_predictions(model, cfg):
+    """The priced steps of ``cfg``: the decode step at B=8 over 1,024
+    positions (donated, sampled on the card), a 64-token chunk and a
+    900-token prefill."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.costmodel.analytic import analytic_census
+
+    cells = {"decode_b8_1024": (ShapeCell("decode", "decode", 1024, 8),
+                                dict(donated=True, device_sampling=True)),
+             "chunk_64": (ShapeCell("chunk", "prefill", 64, 1), {}),
+             "prefill_900": (ShapeCell("prefill", "prefill", 900, 1), {})}
+    return {name: model.predict(analytic_census(cfg, cell, n_devices=1,
+                                                n_model=1, **kw)).table_row()
+            for name, (cell, kw) in cells.items()}
+
+
+def cost_budget(eng, prompts):
+    """A budget the gate must bind at: the decode step and 1.5 chunks
+    (paged), or 1.5 prefills of the median prompt (slot)."""
+    decode_s = eng._predict_decode().step_s
+    if hasattr(eng, "_predict_chunk"):
+        return decode_s + 1.5 * eng._predict_chunk().step_s
+    median = sorted(len(p) for p in prompts)[len(prompts) // 2]
+    return decode_s + 1.5 * eng._predict_prefill(median).step_s
+
+
+def cost_fault(name, eng):
+    """Inject a fault of ``COST_MUST_CATCH`` into an engine: its budget
+    ignored (admission ungated), or every prefill and chunk priced at 0."""
+    import dataclasses
+
+    if name == "budget_ignored":
+        eng._step_budget = lambda: None
+    elif name == "prefill_free":
+        free = dataclasses.replace(eng._predict_decode(), step_s=0.0)
+        eng._predict_chunk = lambda: free
+        eng._predict_prefill = lambda n: free
+    else:
+        raise ValueError(name)
+
+
+def cost_hw_wrong(cm):
+    """The ``hw_wrong`` fault: ``cm``'s table naming the paper's A100, so
+    its model resolves to the A100 spec."""
+    import dataclasses
+
+    from repro_torch.core.costmodel import CostModel
+    return CostModel(dataclasses.replace(cm.cal, hardware="nvidia-a100-40g"))
+
+
+def cost_serve(make, prompts, max_new, run, budget, fault=None):
+    """Serve ``prompts`` through ``make(budget)`` with ``fault`` injected;
+    ``run`` steps the engine to the end and returns what it counts.
+    Returns the engine, its tokens and ``run``'s result."""
+    eng = make(budget)
+    if fault is not None:
+        cost_fault(fault, eng)
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    counted = run(eng)
+    return eng, [eng.done[r].tokens for r in rids], counted
+
+
+def cost_run_gates(eng, n_req, tight):
+    """A gated run's gates: every request completes, one predicted and one
+    measured time a counted step, at most one sync a step beyond the
+    first, deferrals under a tight budget and none under 1e9 s."""
+    st = eng.stats
+    bad = []
+    if st.completed != n_req:
+        bad.append(f"completed {st.completed} of {n_req}")
+    if not len(st.predicted_step_s) == len(st.measured_step_s) == st.steps:
+        bad.append(f"{len(st.predicted_step_s)} predicted, "
+                   f"{len(st.measured_step_s)} measured for {st.steps} steps")
+    if st.host_syncs > st.steps + 1:
+        bad.append(f"{st.host_syncs} syncs over {st.steps} steps")
+    if tight and st.deferred_prefills == 0:
+        bad.append("a tight budget deferred nothing")
+    if not tight and st.deferred_prefills:
+        bad.append(f"a 1e9 s budget deferred {st.deferred_prefills}")
+    return bad
+
+
+def cost_reference(torch, np, seed, cm):
+    """Reduced f32 gemma2 under tight budgets on the card and on the CPU,
+    through both engines: tokens, admission order and deferrals must be
+    identical (pricing is host arithmetic over the same table), and the
+    budget must defer."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+
+    cfg = reduced(get_config("gemma2-2b"), n_layers=2, vocab_size=128,
+                  compute_dtype="float32")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(1, 40, size=8)]
+    engines = {"paged": (PagedServingEngine, dict(
+        max_batch=4, max_len=64, block_size=8, n_blocks=12, chunk_size=8)),
+        "slot": (ServingEngine, dict(max_batch=4, max_len=64))}
+    cpu_params = build_model(cfg, device="cpu").init(seed)
+    out = {}
+    for kind, (cls, kw) in engines.items():
+        seen = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, device=dev)
+            params = params_to(cpu_params, dev)
+
+            def make(b):
+                return cls(model, params, cost_model=cm, step_budget_s=b,
+                           **kw)
+            eng, toks, _ = cost_serve(make, prompts, 8,
+                                      lambda e: e.run_until_done(),
+                                      cost_budget(make(None), prompts))
+            seen[dev] = (toks, eng.stats.admission_order,
+                         eng.stats.deferred_prefills)
+        out[kind] = {"identical": seen["cuda"] == seen["cpu"],
+                     "deferred_prefills": seen["cuda"][2]}
+    return out
+
+
+def _cost_reading(eng, budget, launches):
+    st = eng.stats
+    pred = statistics.median(st.predicted_step_s)
+    meas = statistics.median(st.measured_step_s)
+    return {"budget_s": budget, "steps": st.steps,
+            "deferred_prefills": st.deferred_prefills,
+            "host_syncs": st.host_syncs, "completed": st.completed,
+            "decoded_tokens": st.decoded_tokens, "launches": launches,
+            "median_predicted_step_ms": 1e3 * pred,
+            "median_measured_step_ms": 1e3 * meas,
+            "measured_over_predicted": meas / pred}
+
+
+def phase_costmodel(torch, np, dev, seed, card):
+    """The cost model priced from the H100 tables, and admission gated by
+    it in both engines at full width, on the card and against the CPU."""
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+
+    models = {"fresh": CostModel.from_named(OUT / "hopper_h100.json"),
+              "committed": CostModel.from_named("hopper_h100")}
+    tables, failures = {}, []
+    for name, m in models.items():
+        tables[name], bad = cost_table_gate(m)
+        failures += [f"{name} table: {b}" for b in bad]
+    cm = models["fresh"]
+    controls = {"hw_wrong": {"table": bool(cost_table_gate(
+        cost_hw_wrong(cm))[1])}}
+
+    cfg, model, params, prompts = serve_setup(np, dev, seed)
+    predictions = {name: cost_predictions(m, cfg)
+                   for name, m in models.items()}
+    engines = {
+        "paged": (PagedServingEngine, dict(max_batch=8, max_len=1024,
+                                           block_size=16, chunk_size=64),
+                  "paged_attention", "decode_dispatches"),
+        "slot": (ServingEngine, dict(max_batch=8, max_len=1024),
+                 "flash_attention_mma", "prefills")}
+    runs = {}
+    for kind, (cls, kw, kernel, per) in engines.items():
+        def make(b):
+            return cls(model, params, cost_model=cm, step_budget_s=b, **kw)
+
+        def run(eng):
+            return drive(torch, eng)[2][kernel]
+        tight = cost_budget(make(None), prompts)
+        for label, budget in (("loose", 1e9), ("tight", tight)):
+            eng, _, n = cost_serve(make, prompts, 32, run, budget)
+            bad = cost_run_gates(eng, len(prompts), label == "tight")
+            want = cfg.n_layers * getattr(eng.stats, per)
+            if n != want:
+                bad.append(f"{n} {kernel} launches != {want}")
+            failures += [f"{kind} {label}: {x}" for x in bad]
+            runs[f"{kind}_{label}"] = _cost_reading(eng, budget, n)
+            del eng
+        for fault in ("budget_ignored", "prefill_free"):
+            eng, _, _ = cost_serve(make, prompts, 32, run, tight, fault)
+            controls.setdefault(fault, {})[kind] = bool(
+                cost_run_gates(eng, len(prompts), True))
+            del eng
+    del model, params
+    torch.cuda.empty_cache()
+    reference = cost_reference(torch, np, seed, cm)
+    failures += [f"reference {k}: {r}" for k, r in reference.items()
+                 if not (r["identical"] and r["deferred_prefills"])]
+    missed = [f"{name} ({where})" for name in COST_MUST_CATCH
+              for where, caught in controls[name].items() if not caught]
+    emit({"phase": "costmodel", "nvidia_smi": card, "tables": tables,
+          "predictions": predictions, "runs": runs, "controls": controls,
+          "reference": reference})
+    if failures or missed:
+        raise AssertionError(f"cost model gates failed: {failures}; "
+                             f"controls missed: {missed}")
 
 
 def timed_once(torch, fn):
@@ -2302,6 +2557,8 @@ def main(argv=None) -> int:
     lap("probes")
     cal_counts = phase_calibration(torch, dev, card)
     lap("calibration")
+    phase_costmodel(torch, np, dev, args.seed, card)
+    lap("costmodel")
     wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
     lap("wkv6_kernel")
     ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)

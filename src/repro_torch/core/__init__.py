@@ -1,2 +1,2 @@
-"""The measurement layer of the port: microbenchmarks, campaigns and the
-calibration tables they produce."""
+"""The measurement layer of the port: microbenchmarks, campaigns, the
+calibration tables they produce and the cost model that reads them."""

@@ -19,13 +19,18 @@ family does not run yet (``transformer.supported_modes``) raises
 
 ``device=None`` means the card; without CUDA it raises (pass
 ``device="cpu"`` for the plain versions on the host).
+
+``count_params(cfg)`` counts a config's parameters from their shapes (built
+on the ``meta`` device), for the cost model's analytic censuses.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelCfg
@@ -73,11 +78,15 @@ def cross_entropy(logits, labels, mask=None):
 
 def _init_attention(gen, cfg, device, dtype):
     d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {k: basic.uniform(gen, shape, lim, device, dtype)
-            for k, shape, lim in (("wq", (d, H, hd), d ** -0.5),
-                                  ("wk", (d, KH, hd), d ** -0.5),
-                                  ("wv", (d, KH, hd), d ** -0.5),
-                                  ("wo", (H, hd, d), (H * hd) ** -0.5))}
+    p = {k: basic.uniform(gen, shape, lim, device, dtype)
+         for k, shape, lim in (("wq", (d, H, hd), d ** -0.5),
+                               ("wk", (d, KH, hd), d ** -0.5),
+                               ("wv", (d, KH, hd), d ** -0.5),
+                               ("wo", (H, hd, d), (H * hd) ** -0.5))}
+    if cfg.qk_norm:
+        p["q_norm"] = basic.init_rmsnorm(hd, device)
+        p["k_norm"] = basic.init_rmsnorm(hd, device)
+    return p
 
 
 def _init_mlp(gen, d, f, device, dtype):
@@ -119,7 +128,11 @@ def init_params(cfg, seed, device):
     ``u_bonus``) stay f32."""
     lm_mod.check_supported(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    # on ``meta`` (shapes only, see ``count_params``) nothing is drawn and
+    # a meta generator does not exist: a CPU one stands in
+    device = torch.device(device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(int(seed))
     d, vpad = cfg.d_model, cfg.padded_vocab
     ssm = cfg.family == "ssm"
     embed = {"table": basic.normal(gen, (vpad, d), 0.02, device, dtype)}
@@ -176,3 +189,19 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
 
     return Model(cfg, dev, init, prefill, decode, fused_decode_step(decode),
                  init_cache, init_paged_cache, loss)
+
+
+@functools.lru_cache(maxsize=None)
+def count_params(cfg: ModelCfg) -> int:
+    """Total parameter count, from shapes only: the parameters are built on
+    the ``meta`` device, which allocates nothing.  Cached by config (the
+    admission gate prices every new prompt length)."""
+    params = init_params(cfg, 0, torch.device("meta"))
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def count_active_params(cfg: ModelCfg) -> int:
+    """Active-per-token parameter count: all of them, since every family
+    the port builds is dense (``count_params`` refuses MoE configs, whose
+    routed experts the JAX package scales by k/E)."""
+    return count_params(cfg)

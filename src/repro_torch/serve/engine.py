@@ -37,18 +37,29 @@ as the JAX engine's does; rows are independent, so a free slot's writes
   always makes progress.  Retiring a request may compact the pool
   (copy-on-retire) so the allocated blocks stay dense.
 
+Admission is priced by a ``repro_torch.core.costmodel.CostModel`` when
+one is passed (``cost_model=``): with a ``step_budget_s`` as well, an
+iteration admits prefills (slot) or prefill chunks (paged) only while the
+predicted iteration time - the decode step plus what it admits - stays
+within the budget, and always at least one.  Pricing is cached host
+arithmetic over analytic censuses: it launches nothing on the card and
+reads nothing back.  Each counted step appends its predicted time and the
+host's measured time (``stats.predicted_step_s``/``measured_step_s``);
+steps are asynchronous with one drain, so the measured time is the host's
+time per iteration, not the device's.
+
 Profiler spans: ``prefill`` (slot admission), ``prefill_chunk``,
 ``decode_step`` and ``sync`` mark the engines' kinds of work for
 ``torch.profiler`` (``launch/serve.py --profile`` reads them).
 
 Not ported yet (each raises ``NotImplementedError`` when passed):
-``cost_model=``, ``step_budget_s=`` (slot), ``autotuner=``,
-``telemetry=``, ``mesh=`` (paged), ``fused=False``.
+``autotuner=``, ``telemetry=``, ``mesh=`` (paged), ``fused=False``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -56,6 +67,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.configs.base import ShapeCell
+from repro_torch.core.costmodel.analytic import analytic_census
+from repro_torch.core.costmodel.model import CostModel, Prediction
 from repro_torch.models.zoo import Model
 from repro_torch.serve.paging import (BlockAllocator, blocks_for_tokens,
                                       remap_table)
@@ -75,14 +89,19 @@ class Request:
 @dataclasses.dataclass
 class EngineStats:
     """Cumulative counters, as the JAX engine's (less those of the
-    cost-model, telemetry and cluster layers, which are not ported yet)."""
+    telemetry and cluster layers, which are not ported yet)."""
     steps: int = 0
     prefills: int = 0               # completed prefills (net of evictions)
     decoded_tokens: int = 0         # delivered tokens (replays rolled back)
     completed: int = 0
+    deferred_prefills: int = 0      # admissions the budget pushed later
     host_syncs: int = 0             # device->host reads (via _sync)
     table_uploads: int = 0          # block-table host->device uploads
     decode_dispatches: int = 0      # batched decode steps launched
+    # with a cost model, one entry per counted step: the predicted time of
+    # the iteration and the host's time for it (seconds)
+    predicted_step_s: List[float] = dataclasses.field(default_factory=list)
+    measured_step_s: List[float] = dataclasses.field(default_factory=list)
     prefill_chunks: int = 0
     preemptions: int = 0
     compactions: int = 0
@@ -106,14 +125,27 @@ def _refuse_unported(fused: bool, **options) -> None:
         raise NotImplementedError("fused=False is not ported yet")
 
 
+def _analytic_prefill_prediction(cost_model, cfg, n_tokens: int
+                                 ) -> Prediction:
+    """Price a prefill of ``n_tokens`` from its analytic census.  The one
+    pricer both engines' cached ``_predict_*`` methods wrap, so slot and
+    paged admission never price the same prompt differently."""
+    cell = ShapeCell("admission", "prefill", n_tokens, 1)
+    return cost_model.predict(analytic_census(cfg, cell, n_devices=1,
+                                              n_model=1))
+
+
 class _DeviceLoop:
-    """What both engines share: the run loop, the KV store's size, and
-    the host<->device boundary (uploads through ``_dev``, staged
-    read-backs through ``_stage`` / ``_sync``)."""
+    """What both engines share: the run loop, the KV store's size, the
+    host<->device boundary (uploads through ``_dev``, staged read-backs
+    through ``_stage`` / ``_sync``) and the cost-model pricing of a step."""
 
     device: torch.device
     stats: EngineStats
     cache: Dict[str, torch.Tensor]
+    cost_model: Optional[CostModel]
+    step_budget_s: Optional[float]
+    _pred_cache: Dict
 
     def run_until_done(self, max_steps: int = 10_000) -> EngineStats:
         """Step until every request is done (or ``max_steps``), then
@@ -172,6 +204,44 @@ class _DeviceLoop:
                 torch.cuda.set_sync_debug_mode(mode)
         return buf.numpy().copy()
 
+    # -- cost-model pricing ---------------------------------------------------
+    def _step_budget(self) -> Optional[float]:
+        """The admission budget of this iteration: the static
+        ``step_budget_s`` (an adaptive budget needs the telemetry layer,
+        which is not ported)."""
+        return self.step_budget_s
+
+    def set_cost_model(self, cost_model) -> None:
+        """Swap the pricing model; every later admission re-prices against
+        the new tables."""
+        self.cost_model = cost_model
+        self._pred_cache.clear()
+
+    def _predict_decode(self) -> Prediction:
+        """Price one decode step at ``(max_len, max_batch)`` from the
+        analytic census, with ``donated=True`` (the step writes the cache
+        in place) and ``device_sampling=True`` (only the ``[2, B]`` echo
+        crosses to the host).  The JAX engines price the HLO of their
+        compiled step instead; the port compiles none.
+
+        APPROXIMATION: a census at ``seq_len = max_len`` prices the whole
+        cache stripe of every row, as the slot engine's step reads it; the
+        paged kernel reads only the filled pages, so on the paged engine
+        this is an upper bound on the step's cache traffic."""
+        key = ("decode", self.max_batch)
+        if key not in self._pred_cache:
+            cell = ShapeCell("decode", "decode", self.max_len, self.max_batch)
+            self._pred_cache[key] = self.cost_model.predict(analytic_census(
+                self.model.cfg, cell, n_devices=1, n_model=1, donated=True,
+                device_sampling=True))
+        return self._pred_cache[key]
+
+    def _record_step(self, planned: float, t0: float) -> None:
+        """Book a counted step's predicted and measured (host) seconds."""
+        if self.cost_model is not None:
+            self.stats.predicted_step_s.append(planned)
+            self.stats.measured_step_s.append(time.perf_counter() - t0)
+
 
 @dataclasses.dataclass
 class _Row:
@@ -194,18 +264,18 @@ class PagedServingEngine(_DeviceLoop):
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_len: int = 512, block_size: int = 16,
                  n_blocks: Optional[int] = None, chunk_size: int = 32,
-                 cost_model=None, autotuner=None, telemetry=None, mesh=None,
+                 cost_model: Optional[CostModel] = None,
+                 step_budget_s: Optional[float] = None,
+                 autotuner=None, telemetry=None, mesh=None,
                  fused: bool = True):
-        unported = {"cost_model": cost_model, "autotuner": autotuner,
-                    "telemetry": telemetry, "mesh": mesh}
-        for name, val in unported.items():
-            if val is not None:
-                raise NotImplementedError(f"{name}= is not ported yet")
-        if not fused:
-            raise NotImplementedError("fused=False is not ported yet")
+        _refuse_unported(fused, autotuner=autotuner, telemetry=telemetry,
+                         mesh=mesh)
         self.model = model
         self.params = params
         self.device = model.device
+        self.cost_model = cost_model
+        self.step_budget_s = step_budget_s
+        self._pred_cache: Dict = {}
         self.max_batch = max_batch
         self.max_len = max_len
         self.block_size = block_size
@@ -220,7 +290,8 @@ class PagedServingEngine(_DeviceLoop):
                 f"({self.max_blocks_per_seq})")
         self.n_blocks = n_blocks
         self.allocator = BlockAllocator(n_blocks, block_size)
-        self.scheduler = ChunkedPrefillScheduler(chunk_size)
+        self.scheduler = ChunkedPrefillScheduler(
+            chunk_size, step_budget_s=step_budget_s)
         self.chunk_size = chunk_size
         self.cache = model.init_paged_cache(n_blocks, block_size)
         self.block_tables = np.full(
@@ -250,6 +321,21 @@ class PagedServingEngine(_DeviceLoop):
     @property
     def queue(self):
         return self.scheduler.queue
+
+    def _predict_chunk(self) -> Prediction:
+        """Price one prefill chunk as a ``chunk_size``-token prefill (chunks
+        never shrink: final partial chunks overlap).
+
+        APPROXIMATION: the analytic census is parameter-streaming dominated
+        and linear in tokens; it does not price attention over the row's
+        already filled context, so late chunks of a long prompt cost
+        somewhat more than the gate charges them.  The budget bounds the
+        count of chunks a step, not long-context attention."""
+        key = ("chunk", self.chunk_size)
+        if key not in self._pred_cache:
+            self._pred_cache[key] = _analytic_prefill_prediction(
+                self.cost_model, self.model.cfg, self.chunk_size)
+        return self._pred_cache[key]
 
     def _bt_device(self):
         """The device block tables, uploaded only after a row mutated."""
@@ -350,6 +436,7 @@ class PagedServingEngine(_DeviceLoop):
         idx = free[0]
         self.rows[idx] = _Row(req)
         self.scheduler.take(req)
+        self.stats.admission_order.append(req.rid)
         return idx
 
     def _run_chunk(self, idx: int) -> None:
@@ -393,6 +480,7 @@ class PagedServingEngine(_DeviceLoop):
         then drain the PREVIOUS step, so step N's tokens are read only
         after step N+1 is queued on the device.  Returns the number of
         placed rows (>= 1 while a step is still in flight)."""
+        t0 = time.perf_counter()
         prev, self._pending = self._pending, None
         unfinished = sorted(
             ((i, self.rows[i].req.rid, self.rows[i].req)
@@ -403,9 +491,14 @@ class PagedServingEngine(_DeviceLoop):
         if not unfinished and not any_ready and not self.scheduler.queue:
             self._drain(prev)        # flush the tail step, if any
             return 0
+        budget = self._step_budget()
+        priced = self.cost_model is not None
         plan = self.scheduler.plan(
             unfinished=unfinished, n_free_rows=n_free, any_ready=any_ready,
-            decode_s=0.0, chunk_s=0.0, gated=False)
+            decode_s=self._predict_decode().step_s if priced else 0.0,
+            chunk_s=self._predict_chunk().step_s if priced else 0.0,
+            gated=priced and budget is not None, budget_s=budget)
+        self.stats.deferred_prefills += plan.deferred
 
         for item in plan.items:
             if item.row is None:
@@ -425,6 +518,7 @@ class PagedServingEngine(_DeviceLoop):
         self._drain(prev)
         if did_work:
             self.stats.steps += 1
+            self._record_step(plan.predicted_s, t0)
         n = len(self._placed())
         return n if self._pending is None else max(n, 1)
 
@@ -512,14 +606,16 @@ class ServingEngine(_DeviceLoop):
     """Slot-granular continuous batching (see the module docstring)."""
 
     def __init__(self, model: Model, params, *, max_batch: int = 8,
-                 max_len: int = 512, cost_model=None, step_budget_s=None,
-                 autotuner=None, telemetry=None, fused: bool = True):
-        _refuse_unported(fused, cost_model=cost_model,
-                         step_budget_s=step_budget_s, autotuner=autotuner,
-                         telemetry=telemetry)
+                 max_len: int = 512, cost_model: Optional[CostModel] = None,
+                 step_budget_s: Optional[float] = None, autotuner=None,
+                 telemetry=None, fused: bool = True):
+        _refuse_unported(fused, autotuner=autotuner, telemetry=telemetry)
         self.model = model
         self.params = params
         self.device = model.device
+        self.cost_model = cost_model
+        self.step_budget_s = step_budget_s
+        self._pred_cache: Dict = {}
         self.max_batch = max_batch
         self.max_len = max_len
         self.queue: deque[Request] = deque()
@@ -546,12 +642,47 @@ class ServingEngine(_DeviceLoop):
         self.queue.append(Request(rid, prompt, max_new_tokens, eos_id))
         return rid
 
-    def _admit(self) -> None:
-        """Prefill queued requests into the free slots, oldest first."""
-        for slot in [i for i, r in enumerate(self.slot_req) if r is None]:
+    def _predict_prefill(self, prompt_len: int) -> Prediction:
+        """Price one prefill at this prompt length (cached per length)."""
+        key = ("prefill", prompt_len)
+        if key not in self._pred_cache:
+            self._pred_cache[key] = _analytic_prefill_prediction(
+                self.cost_model, self.model.cfg, prompt_len)
+        return self._pred_cache[key]
+
+    def _admit(self) -> float:
+        """Prefill queued requests into the free slots, oldest first, and
+        return the iteration's predicted seconds (0.0 without a cost model).
+
+        With a cost model and a budget, admission stops once the decode
+        step plus the admitted prefills would exceed the budget, but it
+        always admits one prefill when a slot is free, so an over-tight
+        budget cannot starve the engine.  A deferral is counted only for a
+        queued request that a free slot could have taken and whose own
+        prefill would not fit in what is left; a request that would fit
+        but waits behind the head in FIFO order is not counted."""
+        budget = self._step_budget()
+        priced = self.cost_model is not None
+        gated = priced and budget is not None
+        planned = self._predict_decode().step_s if priced else 0.0
+        admitted = 0
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        for idx, slot in enumerate(free):
             if not self.queue:
                 break
+            if priced:
+                head = self.queue[0]
+                pre_s = self._predict_prefill(len(head.prompt)).step_s
+                if gated and admitted > 0 and planned + pre_s > budget:
+                    for q in itertools.islice(self.queue, len(free) - idx):
+                        q_s = self._predict_prefill(len(q.prompt)).step_s
+                        if planned + q_s > budget:
+                            self.stats.deferred_prefills += 1
+                    break
+                planned += pre_s
             self._prefill_into_slot(slot, self.queue.popleft())
+            admitted += 1
+        return planned
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
         """One uncached prefill, spliced into ``slot`` in place, with the
@@ -613,8 +744,9 @@ class ServingEngine(_DeviceLoop):
         step), dispatch step N over every slot, then drain step N-1, so a
         step's tokens are read only after the next step is queued on the
         device.  Returns the number of occupied slots at dispatch."""
+        t0 = time.perf_counter()
         prev, self._pending = self._pending, None
-        self._admit()
+        planned = self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if active:
             with record_function("decode_step"):
@@ -628,4 +760,6 @@ class ServingEngine(_DeviceLoop):
             self.stats.steps += 1
             self.stats.decode_dispatches += 1
         self._drain(prev)
+        if active:
+            self._record_step(planned, t0)
         return len(active)

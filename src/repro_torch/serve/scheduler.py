@@ -1,6 +1,6 @@
 """Admission policy for the paged engine: chunked prefill as a policy
 object.  The port's own copy of ``repro.serve.scheduler`` (pure Python);
-the port's engine runs it ungated until its cost-model slice lands.
+the port's paged engine gates it with its cost model.
 
 The slot engine admits a request by prefilling its whole prompt in one
 call; a long prompt therefore stalls every in-flight decode behind a wall

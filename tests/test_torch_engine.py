@@ -5,8 +5,13 @@ The 32-request acceptance trace of ``tests/test_paged_serving.py`` (rng 11,
 ``chunk_size=8``, 4 new tokens) and the minimal-pool trace (``n_blocks=6``,
 eviction churn) run through both engines on the same converted weights in
 f32 compute.  Greedy tokens must be identical, the pool must be returned
-whole, and the fused path must read the device once per step.
+whole, and the fused path must read the device once per step.  With a
+cost model priced from the port's ``hopper_h100`` table (the JAX engine
+from the same table on the same spec, its decode step priced from the
+same analytic census), admission, deferrals and predicted step times must
+be identical too.
 """
+import dataclasses
 import functools
 
 import jax
@@ -14,9 +19,16 @@ import numpy as np
 import pytest
 
 from repro.configs import ARCHS as JARCHS, reduced as jreduced
+from repro.configs.base import ShapeCell as JCell
+from repro.core.costmodel import CostModel as JCostModel
+from repro.core.costmodel.analytic import analytic_census as janalytic
+from repro.core.perfmodel.hardware import HardwareSpec as JHardwareSpec
 from repro.models.zoo import build_model as jbuild
 from repro.serve import PagedServingEngine as _JaxEngine
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.core.costmodel import CostModel
+from repro_torch.core.costmodel.calibration import CALIB_DIR
+from repro_torch.core.perfmodel.hardware import H100_SXM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import PagedServingEngine
@@ -33,6 +45,26 @@ class JEngine(_JaxEngine):
 
     def _dev(self, x, kind="repl"):
         return super()._dev(np.array(x, copy=True), kind)
+
+    def _predict_decode(self):
+        """The port's decode pricing: the analytic census of a decode at
+        (max_len, max_batch), donated and sampled on the device (the JAX
+        engine prices the HLO of its compiled step instead)."""
+        key = ("decode", self.max_batch)
+        if key not in self._pred_cache:
+            cell = JCell("decode", "decode", self.max_len, self.max_batch)
+            self._pred_cache[key] = self.cost_model.predict(janalytic(
+                self.model.cfg, cell, n_devices=1, n_model=1, donated=True,
+                device_sampling=True))
+        return self._pred_cache[key]
+
+
+def _cost_models():
+    """The port's and the JAX package's model of the port's table, on the
+    H100 spec's values."""
+    spec = JHardwareSpec(**dataclasses.asdict(H100_SXM))
+    return (CostModel.from_named("hopper_h100"),
+            JCostModel.from_named(CALIB_DIR / "hopper_h100.json", hw=spec))
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,11 +135,59 @@ def test_eos_retires_like_jax():
     assert teng.allocator.n_free == teng.n_blocks
 
 
+@pytest.mark.parametrize("budget", ["zero", "between", "tight", "loose"])
+def test_gated_admission_identical_to_jax_engine(budget):
+    """The acceptance trace under a budget of 0, one between the chunk and
+    decode prices, the decode step plus 1.5 chunks, and 1e9 s: tokens,
+    admission order, deferrals, steps and predicted step times equal the
+    JAX engine's; 1e9 defers nothing, a binding budget defers and still
+    completes every request, at one sync a step."""
+    cfg, jm, jparams, tm, tparams = _models()
+    cm, jcm = _cost_models()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            size=int(rng.integers(1, 31))).astype(np.int32)
+               for _ in range(32)]
+    kw = dict(block_size=8, n_blocks=10, chunk_size=8)
+    probe = PagedServingEngine(tm, tparams, max_batch=4, max_len=48,
+                               cost_model=cm, **kw)
+    decode_s, chunk_s = (probe._predict_decode().step_s,
+                         probe._predict_chunk().step_s)
+    assert 0 < chunk_s < decode_s
+    b = {"zero": 0.0, "between": (chunk_s + decode_s) / 2,
+         "tight": decode_s + 1.5 * chunk_s, "loose": 1e9}[budget]
+    jeng, jtoks = _serve(JEngine, jm, jparams, prompts, 4, cost_model=jcm,
+                         step_budget_s=b, **kw)
+    teng, ttoks = _serve(PagedServingEngine, tm, tparams, prompts, 4,
+                         cost_model=cm, step_budget_s=b, **kw)
+    s, js = teng.stats, jeng.stats
+    assert ttoks == jtoks
+    assert (s.admission_order, s.deferred_prefills, s.steps) == (
+        js.admission_order, js.deferred_prefills, js.steps)
+    np.testing.assert_allclose(s.predicted_step_s, js.predicted_step_s,
+                               rtol=1e-12, atol=0)
+    assert s.completed == 32
+    assert len(s.predicted_step_s) == len(s.measured_step_s) == s.steps
+    assert s.host_syncs <= s.steps + 1
+    assert (s.deferred_prefills == 0) == (budget == "loose")
+
+
+def test_set_cost_model_reprices():
+    """Swapping the model clears the cached prices."""
+    _, _, _, tm, tparams = _models()
+    cm = CostModel.from_named("hopper_h100")
+    eng = PagedServingEngine(tm, tparams, max_batch=2, max_len=16,
+                             block_size=8, cost_model=cm)
+    before = eng._predict_chunk().step_s
+    eng.set_cost_model(CostModel.from_named("ampere_a100"))
+    assert eng._predict_chunk().step_s != before
+    assert eng._predict_chunk().hw == "a100-40g"
+
+
 def test_engine_refuses_unported_options():
     _, _, _, tm, tparams = _models()
-    for kw in (dict(cost_model=object()), dict(autotuner=object()),
-               dict(telemetry=object()), dict(mesh=object()),
-               dict(fused=False)):
+    for kw in (dict(autotuner=object()), dict(telemetry=object()),
+               dict(mesh=object()), dict(fused=False)):
         with pytest.raises(NotImplementedError):
             PagedServingEngine(tm, tparams, max_batch=2, max_len=16,
                                block_size=8, **kw)

@@ -48,7 +48,11 @@ def test_port_imports_without_jax_or_repro():
                 "core.campaign.report", "core.campaign.cli",
                 "core.campaign.__main__", "kernels.wkv6", "kernels.ssm_scan",
                 "models.layers.rwkv", "models.layers.mamba",
-                "data.synthetic", "train.step"):
+                "data.synthetic", "train.step", "core.perfmodel.hardware",
+                "core.costmodel.calibration", "core.costmodel.instruction",
+                "core.costmodel.memory", "core.costmodel.mxu",
+                "core.costmodel.model", "core.costmodel.analytic",
+                "core.costmodel.cli", "core.costmodel.__main__"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 

@@ -8,10 +8,13 @@ run the uncached prefill (``Model.prefill``; in the port its attention is
 cache, and the fused ``ServingEngine``.  Tolerances: logits atol 1e-4 (f32,
 other summation order over 2 layers); caches atol 2e-2 (bf16 storage: one
 bf16 ulp where the f32 values round differently).  Greedy tokens must be
-identical.
+identical; with a cost model priced from the port's ``hopper_h100`` table,
+so must be admission, deferrals and predicted step times.
 """
+import dataclasses
 import functools
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +23,16 @@ import pytest
 import torch
 
 from repro.configs import ARCHS as JARCHS, reduced as jreduced
+from repro.configs.base import ShapeCell as JCell
+from repro.core.costmodel import CostModel as JCostModel
+from repro.core.costmodel.analytic import analytic_census as janalytic
+from repro.core.perfmodel.hardware import HardwareSpec as JHardwareSpec
 from repro.models.zoo import build_model as jbuild
 from repro.serve.engine import ServingEngine as JServingEngine
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.core.costmodel import CostModel
+from repro_torch.core.costmodel.calibration import CALIB_DIR
+from repro_torch.core.perfmodel.hardware import H100_SXM
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve as tserve
 from repro_torch.models.convert import params_from_jax
@@ -159,10 +169,95 @@ def test_engine_eos_retires_like_jax():
     assert teng.stats.completed == len(prompts)
 
 
+class JGated(JServingEngine):
+    """The JAX slot engine with the port's decode pricing: the analytic
+    census of a decode at (max_len, max_batch), donated and sampled on the
+    device (the JAX engine prices the HLO of its compiled step instead)."""
+
+    def _predict_decode(self):
+        key = ("decode", self.max_batch)
+        if key not in self._pred_cache:
+            cell = JCell("decode", "decode", self.max_len, self.max_batch)
+            self._pred_cache[key] = self.cost_model.predict(janalytic(
+                self.model.cfg, cell, n_devices=1, n_model=1, donated=True,
+                device_sampling=True))
+        return self._pred_cache[key]
+
+
+@pytest.mark.parametrize("budget", ["zero", "between", "tight", "loose"])
+def test_gated_admission_identical_to_jax(budget):
+    """Twelve requests over four slots under a budget of 0, one between
+    the median prompt's prefill and the decode step, the decode step plus
+    1.5 median prefills, and 1e9 s: tokens, admission order, deferrals,
+    steps and predicted step times equal the JAX engine's."""
+    cfg, jm, jparams, tm, tparams = _models()
+    cm = CostModel.from_named("hopper_h100")
+    jcm = JCostModel.from_named(
+        CALIB_DIR / "hopper_h100.json",
+        hw=JHardwareSpec(**dataclasses.asdict(H100_SXM)))
+    prompts = _prompts(11, 12, 1, 20)
+    kw = dict(max_batch=4, max_len=48)
+    probe = ServingEngine(tm, tparams, cost_model=cm, **kw)
+    median = sorted(len(p) for p in prompts)[len(prompts) // 2]
+    decode_s = probe._predict_decode().step_s
+    prefill_s = probe._predict_prefill(median).step_s
+    assert 0 < prefill_s < decode_s
+    b = {"zero": 0.0, "between": (prefill_s + decode_s) / 2,
+         "tight": decode_s + 1.5 * prefill_s, "loose": 1e9}[budget]
+    jeng, jtoks = _serve(JGated, jm, jparams, prompts, 5, cost_model=jcm,
+                         step_budget_s=b, **kw)
+    teng, ttoks = _serve(ServingEngine, tm, tparams, prompts, 5,
+                         cost_model=cm, step_budget_s=b, **kw)
+    s, js = teng.stats, jeng.stats
+    assert ttoks == jtoks
+    assert (s.admission_order, s.deferred_prefills, s.steps) == (
+        js.admission_order, js.deferred_prefills, js.steps)
+    np.testing.assert_allclose(s.predicted_step_s, js.predicted_step_s,
+                               rtol=1e-12, atol=0)
+    assert s.completed == len(prompts)
+    assert len(s.predicted_step_s) == len(s.measured_step_s) == s.steps
+    assert s.host_syncs <= s.steps + 1
+    assert (s.deferred_prefills == 0) == (budget == "loose")
+
+
+class _StubCostModel:
+    """Prices a prefill at its flops (seconds), the decode step (the one
+    census with ``boundary_bytes``) at 0."""
+
+    def predict(self, census, **kw):
+        decode = "boundary_bytes" in census
+        return types.SimpleNamespace(step_s=0.0 if decode
+                                     else census["flops"])
+
+
+def test_deferred_count_excludes_requests_that_would_fit():
+    """A huge prompt at the queue head and a small one behind it: only the
+    huge one is deferred by the budget; the small one (which would fit)
+    waits on FIFO order and is not counted.  As the reference's
+    ``test_slot_deferred_count_excludes_requests_that_would_fit``."""
+    _, _, _, tm, tparams = _models()
+    cm = _StubCostModel()
+    kw = dict(max_batch=4, max_len=96, cost_model=cm)
+    probe = ServingEngine(tm, tparams, **kw)
+
+    def cost(n):
+        return probe._predict_prefill(n).step_s
+    budget = cost(4) + cost(6) + 1.0          # fits small + tiny, not huge
+    assert cost(64) > budget
+    eng = ServingEngine(tm, tparams, step_budget_s=budget, **kw)
+    eng.submit(np.arange(4, dtype=np.int32), max_new_tokens=2)    # admitted
+    eng.submit(np.arange(64, dtype=np.int32), max_new_tokens=2)   # too big
+    eng.submit(np.arange(6, dtype=np.int32), max_new_tokens=2)    # would fit
+    eng.step()
+    assert eng.stats.prefills == 1
+    assert eng.stats.deferred_prefills == 1
+    assert len(eng.queue) == 2                # FIFO: no admission around
+    assert eng.run_until_done().completed == 3
+
+
 def test_engine_refuses_unported_options_and_long_prompts():
     _, _, _, tm, tparams = _models()
-    for kw in (dict(cost_model=object()), dict(step_budget_s=0.1),
-               dict(autotuner=object()), dict(telemetry=object()),
+    for kw in (dict(autotuner=object()), dict(telemetry=object()),
                dict(fused=False)):
         with pytest.raises(NotImplementedError):
             ServingEngine(tm, tparams, max_batch=2, max_len=16, **kw)
