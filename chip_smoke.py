@@ -132,7 +132,36 @@ exits non-zero):
    order and deferrals; and the faults of ``COST_MUST_CATCH``, which the
    gates must catch (an engine that ignores its budget, every prefill
    priced at 0, a table whose hardware resolves to the A100).
-12. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
+12. hotpath: phase serve's model and trace through both engines with
+   ``fused=False`` (the legacy blocking path) beside a fused run of each,
+   under sync debugging: greedy tokens identical to phases serve and
+   serve_slot, the legacy paths reading the device more than once a step
+   and the fused ones at most once a step beyond the first, the legacy
+   decode step holding one more KV store than the fused one
+   (``hotpath_probe``: device memory allocated when ``Model.decode``
+   returns, within ``HOTPATH_PEAK_SLACK``), the attention kernel in every
+   layer; tok/s, the median step, syncs a step and both memory readings
+   printed.  Then reduced f32 gemma2 on the card and the CPU
+   (``hotpath_reduced``): legacy tokens equal fused and CPU tokens.  The
+   controls of ``HOTPATH_MUST_CATCH`` (the legacy step writing the store
+   in place; each step's tokens one step stale) must be caught; the stale
+   control at full width is a reading, since the random full-width model
+   gives one token for every step of a request.
+13. campaign: the port's runner runs ``paged_serve``, ``decode_hotpath``
+   and ``isa_mapping`` at their full grids into ``chiprun_out/campaign/``;
+   the ``report`` command's code renders them (Table V's rows printed);
+   gates: no failed cell, paged_serve leak-free, under the slot cache's
+   bytes and complete, decode_hotpath's tokens identical and its legacy
+   syncs a step above the fused, Table V's (``isa_gates``: counts, the
+   one-instruction counterparts ``ISA_EXPECT``, scan8's 8 FMUL, gather's
+   LDG, no directive or label counted); each case kernel launched on a
+   seeded 64 x 64 input against its plain version (``isa_values``: 1e-5 of
+   max|want|, exp and tanh within 2 ulp of the float64 value); the
+   controls of ``ISA_MUST_CATCH`` (a dead store, rsqrt built as sqrt, a
+   PTX parser that counts directives and labels); the PTX and SASS texts
+   go to ``chiprun_out/isa/`` (``tools/isa_fixtures.py`` cuts the test
+   fixtures from them).
+14. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
    f32; block_h 1, which changes no value on the card) in three cases
@@ -146,7 +175,7 @@ exits non-zero):
    step late, w rounded to bf16, u's term dropped, head 0's u for every
    head; the state zeroed every 256 steps, one thread's rows left out of
    y), which they must catch; then "long" and "fast" in f32 at B=1.
-13. ssm_kernel: the selective-scan kernel against its plain version on the
+15. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
    f32; block_d 256 -> 64) in two cases (``SSM_CASES``): "eval", init_mamba's
@@ -160,7 +189,7 @@ exits non-zero):
    every 256 steps, the last state's term left out of y), and the
    kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
    biased exponential shows against the f32 tolerance.
-14. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+16. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
    ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
@@ -171,11 +200,11 @@ exits non-zero):
    holds controls, the plain version with a fault injected (an input one
    step late; in bf16 also the decay rounded to bf16 and ``u`` left in
    f32); the gates must catch those ``MUST_CATCH`` names.
-15. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+17. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
    its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
    with a CUDA event pair around each call of the recurrence kernel.
-16. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+18. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
 A ``timing`` line gives each phase's seconds; the line before the last
@@ -857,7 +886,7 @@ def phase_serve(torch, np, dev, seed):
           "kv_pool_gib": eng.kv_cache_bytes() / 2 ** 30})
     del eng
     torch.cuda.empty_cache()
-    return model, params, prompts, launches
+    return model, params, prompts, launches, toks
 
 
 def drive(torch, eng):
@@ -926,7 +955,7 @@ def phase_serve_slot(torch, model, params, prompts):
           "slot_cache_gib": eng.kv_cache_bytes() / 2 ** 30})
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, toks
 
 
 def phase_parity(torch, np, model, params, seed):
@@ -1945,6 +1974,510 @@ def phase_costmodel(torch, np, dev, seed, card):
                              f"controls missed: {missed}")
 
 
+# -- phase hotpath: the legacy blocking decode path at full width -----------
+# Fault controls the hotpath gates must catch: the legacy step writing the
+# store in place (the peak gate: no second store) and uploading the tokens
+# of the step before (the token gate).
+HOTPATH_MUST_CATCH = ("legacy_in_place", "stale_token")
+HOTPATH_PEAK_SLACK = 0.05     # the second store may read 5% short of a store
+
+
+def hotpath_probe(torch, model):
+    """A copy of ``model`` whose ``decode`` records, for each decode step
+    (one token a row), the device memory allocated when it returns: the
+    weights, the store (and on the legacy path its copy, which replaces it
+    only after the call) and the step's outputs.  The run's peak
+    (``max_memory_allocated``) is set elsewhere (a prefill's logits, a
+    compaction's copy), so this is the reading that shows the second
+    store.  Returns the model and the list the readings go to."""
+    import dataclasses
+
+    from repro_torch.models.zoo import fused_decode_step
+
+    marks = []
+
+    def decode(params, cache, tokens, pos, block_tables=None, **kw):
+        out = model.decode(params, cache, tokens, pos, block_tables, **kw)
+        if tokens.shape[1] == 1:
+            marks.append(torch.cuda.memory_allocated())
+        return out
+    return dataclasses.replace(model, decode=decode,
+                               decode_step=fused_decode_step(decode)), marks
+
+
+def hotpath_fault(name, eng):
+    """Inject a fault of ``HOTPATH_MUST_CATCH`` into a legacy engine: its
+    step decoding into the live store (no copy), or each step's ``[B, 1]``
+    token upload replaced by the one of the step before."""
+    import numpy as np
+
+    if name == "legacy_in_place":
+        eng._copy_store = lambda cache: cache
+    elif name == "stale_token":
+        upload, sent, batch = eng._dev, [], eng.max_batch
+
+        def stale(x):
+            x = np.asarray(x)
+            if x.shape == (batch, 1):
+                sent.append(np.array(x, copy=True))
+                x = sent[-2] if len(sent) > 1 else x
+            return upload(x)
+        eng._dev = stale
+    else:
+        raise ValueError(name)
+
+
+def hotpath_serve(make, prompts, max_new, run, fault=None):
+    """Serve ``prompts`` through ``make()`` with ``fault`` injected; ``run``
+    steps the engine to the end and returns what it reads.  Returns the
+    engine, its tokens and ``run``'s result."""
+    eng = make()
+    if fault is not None:
+        hotpath_fault(fault, eng)
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    got = run(eng)
+    return eng, [eng.done[r].tokens for r in rids], got
+
+
+def hotpath_gates(legacy, fused, store_bytes=None):
+    """The legacy run's gates against the fused run of the same trace, each
+    a dict of ``tokens``, ``steps``, ``host_syncs`` and, on the card,
+    ``step_bytes`` (``hotpath_probe``'s most): identical tokens; the legacy
+    path reads the device more than once a step, the fused one at most
+    once a step beyond the first; the legacy step's memory at least the
+    fused step's plus one store (``store_bytes``) less
+    ``HOTPATH_PEAK_SLACK``."""
+    bad = []
+    if legacy["tokens"] != fused["tokens"]:
+        first = next(i for i, (a, b) in enumerate(zip(legacy["tokens"],
+                                                        fused["tokens"]))
+                     if a != b)
+        bad.append(f"tokens differ from request {first}: "
+                   f"{legacy['tokens'][first]} != {fused['tokens'][first]}")
+    if not legacy["host_syncs"] > legacy["steps"]:
+        bad.append(f"legacy: {legacy['host_syncs']} syncs over "
+                   f"{legacy['steps']} steps")
+    if fused["host_syncs"] > fused["steps"] + 1:
+        bad.append(f"fused: {fused['host_syncs']} syncs over "
+                   f"{fused['steps']} steps")
+    if store_bytes is not None:
+        want = fused["step_bytes"] + (1 - HOTPATH_PEAK_SLACK) * store_bytes
+        if legacy["step_bytes"] < want:
+            bad.append(f"legacy step {legacy['step_bytes']} B < fused step "
+                       f"{fused['step_bytes']} B + one store {store_bytes} "
+                       f"B less {HOTPATH_PEAK_SLACK:.0%}")
+    return bad
+
+
+def _hotpath_reading(torch, eng, toks, got):
+    step_ms, run_s, counts, peak, marks = got
+    st = eng.stats
+    return {"tokens": toks, "distinct_tokens": len({t for r in toks for t in r}),
+            "steps": st.steps, "host_syncs": st.host_syncs,
+            "prefills": st.prefills, "prefill_chunks": st.prefill_chunks,
+            "decode_dispatches": st.decode_dispatches,
+            "decoded_tokens": st.decoded_tokens, "completed": st.completed,
+            "launches": counts, "run_s": run_s,
+            "decode_tok_per_s": st.decoded_tokens / run_s,
+            "median_step_ms": statistics.median(step_ms),
+            "syncs_per_step": st.host_syncs / st.steps,
+            "step_bytes": max(marks), "step_gib": max(marks) / 2 ** 30,
+            "peak_bytes": peak, "peak_mem_gib": peak / 2 ** 30}
+
+
+def hotpath_reduced(torch, np, seed, card_dev="cuda"):
+    """Reduced f32 gemma2 (2 layers, vocab 128) on the card and on the CPU
+    through both engines on the CPU tests' acceptance trace shape (32
+    prompts of 1-30 tokens, 4 new tokens): the card's legacy tokens must
+    equal its fused tokens and the CPU's legacy tokens, and the
+    ``stale_token`` control must break that parity.  Full-width gemma2's
+    random weights give nearly one greedy token for every request, where
+    a stale token changes nothing; this model's tokens vary."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+
+    cfg = reduced(get_config("gemma2-2b"), n_layers=2, vocab_size=128,
+                  compute_dtype="float32")
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(1, 31, size=32)]
+    cpu_params = build_model(cfg, device="cpu").init(seed)
+    models = {"card": build_model(cfg, device=card_dev),
+              "cpu": build_model(cfg, device="cpu")}
+    params = {"card": params_to(cpu_params, card_dev),
+              "cpu": cpu_params}
+    engines = {"paged": (PagedServingEngine, dict(
+        max_batch=4, max_len=48, block_size=8, n_blocks=10, chunk_size=8)),
+        "slot": (ServingEngine, dict(max_batch=4, max_len=48))}
+
+    def serve(kind, d, fused, fault=None):
+        cls, kw = engines[kind]
+        eng, toks, _ = hotpath_serve(
+            lambda: cls(models[d], params[d], fused=fused, **kw), prompts, 4,
+            lambda e: e.run_until_done(), fault)
+        return {"tokens": toks, "steps": eng.stats.steps,
+                "host_syncs": eng.stats.host_syncs}
+    out, failures, caught = {}, [], {}
+    for kind in engines:
+        legacy, fused = serve(kind, "card", False), serve(kind, "card", True)
+        cpu = serve(kind, "cpu", False)
+        bad = hotpath_gates(legacy, fused) + [
+            f"card {b}" for b in hotpath_gates(legacy, cpu)
+            if b.startswith("tokens")]
+        failures += [f"reduced {kind}: {b}" for b in bad]
+        stale = serve(kind, "card", False, "stale_token")
+        caught[kind] = [b for b in hotpath_gates(stale, cpu)
+                        if b.startswith("tokens")][:1]
+        out[kind] = {"steps": legacy["steps"],
+                     "host_syncs": legacy["host_syncs"],
+                     "distinct_tokens": len({t for r in legacy["tokens"]
+                                             for t in r}),
+                     "identical_to_fused": legacy["tokens"] == fused["tokens"],
+                     "identical_to_cpu": legacy["tokens"] == cpu["tokens"]}
+    return out, failures, caught
+
+
+def phase_hotpath(torch, np, dev, seed, card, fused_tokens):
+    """Phase serve's model and trace through both engines with
+    ``fused=False``, beside a fused run of each in this phase; tokens
+    against phases serve and serve_slot (``fused_tokens``); then the
+    reduced f32 parity of ``hotpath_reduced``.  ``legacy_in_place`` is
+    judged at full width, ``stale_token`` on the reduced model (at full
+    width it is a reading)."""
+    from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+
+    import gc
+
+    cfg, model, params, prompts = serve_setup(np, dev, seed)
+    model, marks = hotpath_probe(torch, model)
+    engines = {
+        "paged": (PagedServingEngine, dict(max_batch=8, max_len=1024,
+                                           block_size=16, chunk_size=64),
+                  "paged_attention", "decode_dispatches"),
+        "slot": (ServingEngine, dict(max_batch=8, max_len=1024),
+                 "flash_attention_mma", "prefills")}
+
+    def run(eng):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks.clear()
+        step_ms, run_s, counts = drive(torch, eng)
+        return (step_ms, run_s, counts, torch.cuda.max_memory_allocated(),
+                list(marks))
+
+    runs, controls, failures = {}, {}, []
+    for kind, (cls, kw, kernel, per) in engines.items():
+        readings = {}
+        for label, fused in (("fused", True), ("legacy", False)):
+            def make():
+                return cls(model, params, fused=fused, **kw)
+            eng, toks, got = hotpath_serve(make, prompts, 32, run)
+            r = readings[label] = _hotpath_reading(torch, eng, toks, got)
+            store = eng.kv_cache_bytes()
+            want = cfg.n_layers * r[per]
+            if r["launches"][kernel] != want:
+                failures.append(f"{kind} {label}: {r['launches'][kernel]} "
+                                f"{kernel} launches != {want}")
+            if r["completed"] != len(prompts):
+                failures.append(f"{kind} {label}: completed "
+                                f"{r['completed']} of {len(prompts)}")
+            del eng
+            torch.cuda.empty_cache()
+        if readings["fused"]["tokens"] != fused_tokens[kind]:
+            failures.append(f"{kind}: the fused rerun's tokens differ from "
+                            "its serving phase's")
+        failures += [f"{kind}: {b}" for b in hotpath_gates(
+            readings["legacy"], {**readings["fused"],
+                                 "tokens": fused_tokens[kind]}, store)]
+        for fault in HOTPATH_MUST_CATCH:
+            def make():
+                return cls(model, params, fused=False, **kw)
+            eng, toks, got = hotpath_serve(make, prompts, 32, run, fault)
+            r = _hotpath_reading(torch, eng, toks, got)
+            del eng
+            torch.cuda.empty_cache()
+            bad = hotpath_gates(r, {**readings["fused"],
+                                    "tokens": fused_tokens[kind]}, store)
+            where = kind if fault == "legacy_in_place" else f"{kind}_full"
+            controls.setdefault(fault, {})[where] = {
+                "caught": bool(bad), "by": [b[:300] for b in bad[:2]]}
+        runs[kind] = {label: {k: v for k, v in r.items() if k != "tokens"}
+                      for label, r in readings.items()}
+        runs[kind]["store_gib"] = store / 2 ** 30
+        runs[kind]["legacy_over_fused_tok_per_s"] = (
+            readings["legacy"]["decode_tok_per_s"]
+            / readings["fused"]["decode_tok_per_s"])
+    del model, params
+    gc.collect()                 # a stale_token engine is in a ref cycle
+    torch.cuda.empty_cache()
+    reduced_runs, bad, stale = hotpath_reduced(torch, np, seed)
+    failures += bad
+    for kind, by in stale.items():
+        controls["stale_token"][kind] = {"caught": bool(by), "by": by}
+    missed = [f"{name} ({kind})" for name in HOTPATH_MUST_CATCH
+              for kind, c in controls[name].items()
+              if not c["caught"] and not kind.endswith("_full")]
+    emit({"phase": "hotpath", "nvidia_smi": card, "arch": cfg.name,
+          "runs": runs, "reduced": reduced_runs, "controls": controls})
+    if failures or missed:
+        raise AssertionError(f"hotpath gates failed: {failures}; "
+                             f"controls missed: {missed}")
+
+
+# -- phase campaign: paged_serve, decode_hotpath and isa_mapping ------------
+CAMPAIGN_EXPERIMENTS = ("paged_serve", "decode_hotpath", "isa_mapping")
+# the ISA cases of one op an element, each of which must leave SASS beyond
+# the copy baseline; those whose PTX op has a one-instruction counterpart,
+# which that SASS must hold
+ISA_SINGLE_OP = ("add.f32", "mul.f32", "fma.f32", "div.f32", "rsqrt.f32",
+                 "exp.f32", "tanh.f32")
+ISA_EXPECT = {"add.f32": "FADD", "mul.f32": "FMUL", "fma.f32": "FFMA",
+              "rsqrt.f32": "MUFU.RSQ", "exp.f32": "MUFU.EX2",
+              "matmul.f32": "FFMA"}
+ISA_TOL = 1e-5                # of max|want|
+ISA_ULP = {"exp.f32": 2, "tanh.f32": 2}     # expf, tanhf: 2 ulp (CUDA docs)
+# Fault controls: a case whose result is never stored (the expansion gate),
+# rsqrt.f32 computing sqrt (the value check; the MUFU.RSQ gate does not see
+# it where sqrtf compiles around MUFU.RSQ) and a PTX parser that counts
+# directives and labels as instructions (the scaffold gate).
+ISA_MUST_CATCH = ("dead_store", "wrong_op", "scaffold_counted")
+ISA_VARIANTS = {
+    "dead_store": ("y[i] = x[i] + 1.0f;  // case add.f32",
+                   "(void)(x[i] + 1.0f);  // case add.f32"),
+    "wrong_op": ("rsqrtf(fabsf(x[i]) + 1e-3f)", "sqrtf(fabsf(x[i]) + 1e-3f)")}
+ISA_FAULT_CASE = {"dead_store": "add.f32", "wrong_op": "rsqrt.f32"}
+
+
+def isa_variant(name):
+    """The case source with ``ISA_VARIANTS[name]`` substituted."""
+    from repro_torch.core.isa import sass_census
+
+    old, new = ISA_VARIANTS[name]
+    text = sass_census.SOURCE.read_text()
+    if text.count(old) != 1:
+        raise AssertionError(f"{name}: {old!r} not found once in the source")
+    return text.replace(old, new)
+
+
+def isa_gates(cells):
+    """Table V's gates over ``isa_mapping`` metrics (case -> metrics): both
+    counts above 0; no counted opcode a directive or a label; each
+    single-op case with SASS beyond the baseline, the one-instruction
+    counterparts of ``ISA_EXPECT`` in it, ``scan8`` at least 8 FMUL there,
+    ``gather`` an LDG."""
+    bad = []
+    for case, m in cells.items():
+        if m["n_source_ops"] <= 0 or m["n_optimized_ops"] <= 0:
+            bad.append(f"{case}: {m['n_source_ops']} PTX, "
+                       f"{m['n_optimized_ops']} SASS instructions")
+        scaffold = [op for hist in (m["ptx_ops"], m["sass_ops"])
+                    for op in hist if op.startswith(".") or op.endswith(":")]
+        if scaffold:
+            bad.append(f"{case}: directives or labels counted {scaffold[:3]}")
+        if case in ISA_SINGLE_OP and not m["sass_expansion"]:
+            bad.append(f"{case}: no SASS beyond the copy baseline")
+        if case in ISA_EXPECT and ISA_EXPECT[case] not in m["sass_expansion"]:
+            bad.append(f"{case}: no {ISA_EXPECT[case]} beyond the baseline")
+        if case == "scan8" and m["sass_expansion"].get("FMUL", 0) < 8:
+            bad.append(f"scan8: {m['sass_expansion'].get('FMUL', 0)} FMUL")
+        if case == "gather" and not any(op.startswith("LDG")
+                                        for op in m["sass_ops"]):
+            bad.append("gather: no LDG")
+    return bad
+
+
+def isa_plain(torch, case, x):
+    """The plain PyTorch function of each case (the reference's jnp one)."""
+    if case == "scan8":
+        c = x
+        for _ in range(8):
+            c = c * 1.01
+        return c
+    return {"add.f32": lambda: x + 1.0, "mul.f32": lambda: x * 1.5,
+            "fma.f32": lambda: x * 1.5 + 2.0, "div.f32": lambda: x / 1.5,
+            "rsqrt.f32": lambda: torch.rsqrt(x.abs() + 1e-3),
+            "exp.f32": lambda: torch.exp(x * 1e-3),
+            "tanh.f32": lambda: torch.tanh(x),
+            "softmax.f32": lambda: torch.softmax(x, dim=-1),
+            "matmul.f32": lambda: x @ x.T,
+            "reduce.f32": lambda: x.sum(-1),
+            "gather": lambda: x[torch.arange(8, device=x.device) % 64]}[case]()
+
+
+def isa_values(torch, lib_path, dev, seed, cases=None):
+    """Launch each case kernel (through its ``launch_isa_*``) on a seeded
+    64 x 64 input and hold it against its plain version: within ``ISA_TOL``
+    of max|want|, or for ``ISA_ULP``'s cases within their ulp bound of the
+    exact value (float64 of the f32 argument)."""
+    import ctypes
+
+    from repro_torch.core.isa import sass_census
+
+    lib = ctypes.CDLL(str(lib_path))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(64, 64, generator=g, device=dev)
+    out = {}
+    for case in cases or sass_census.CASES:
+        want = isa_plain(torch, case, x)
+        y = torch.zeros_like(want)
+        fn = getattr(lib, f"launch_{sass_census.CASES[case]}")
+        fn.argtypes = [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        rc = fn(x.data_ptr(), y.data_ptr(),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        torch.cuda.synchronize()
+        if rc != 0:
+            out[case] = {"ok": False, "launch_error": rc}
+            continue
+        if case in ISA_ULP:
+            arg = x * 1e-3 if case == "exp.f32" else x
+            exact = (torch.exp if case == "exp.f32" else torch.tanh)(
+                arg.double())
+            w = exact.float().abs()
+            ulp = (torch.nextafter(w, torch.full_like(w, math.inf)) - w)
+            err = ((y.double() - exact).abs() / ulp.double()).max().item()
+            out[case] = {"max_ulp": err, "ulp_bound": ISA_ULP[case],
+                         "ok": err <= ISA_ULP[case]}
+        else:
+            err = (y - want).abs().max().item()
+            tol = ISA_TOL * want.abs().max().item()
+            out[case] = {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+    return out
+
+
+def isa_scaffold_counted(ptx_text, sass_text, case):
+    """The ``scaffold_counted`` fault: ``case``'s metrics through a PTX
+    parser that takes every statement's first word, directives and labels
+    included."""
+    from repro_torch.core.isa import sass_census as sc
+
+    sound = sc.ptx_statement_opcode
+
+    def faulty(stmt):
+        words = stmt.split()
+        return words[0] if words else None
+    sc.ptx_statement_opcode = faulty
+    sc._table.cache_clear()
+    try:
+        return sc.case_metrics(case, ptx_text, sass_text)
+    finally:
+        sc.ptx_statement_opcode = sound
+        sc._table.cache_clear()
+
+
+def isa_controls(torch, dev, seed, texts):
+    """Each ``ISA_MUST_CATCH`` fault, built and checked as the cases are:
+    returns {name: {"caught", "by"}} and the variants' texts."""
+    from repro_torch.core.isa import sass_census
+    from repro_torch.kernels import _build
+
+    controls, variant_texts = {}, {}
+    for name in ("dead_store", "wrong_op"):
+        src = isa_variant(name)
+        ptx_text, sass_text = sass_census.build_texts(src, f"isa_{name}")
+        variant_texts[name] = (ptx_text, sass_text)
+        case = ISA_FAULT_CASE[name]
+        bad = isa_gates({case: sass_census.case_metrics(case, ptx_text,
+                                                        sass_text)})
+        vals = isa_values(torch, _build.build(f"isa_{name}", src), dev,
+                          seed, [case])
+        bad += [f"value {case}: {v}" for v in vals.values() if not v["ok"]]
+        controls[name] = {"caught": bool(bad), "by": bad[:3]}
+    bad = isa_gates({"add.f32": isa_scaffold_counted(*texts, "add.f32")})
+    controls["scaffold_counted"] = {"caught": bool(bad), "by": bad[:3]}
+    return controls, variant_texts
+
+
+def campaign_gates(docs, quick=False):
+    """The campaign phase's gates over the three result documents: no
+    failed cell; paged_serve leak-free, under the slot cache's bytes and
+    every request completed on both engines; decode_hotpath with identical
+    tokens and more syncs a step on the legacy path; Table V's gates."""
+    bad = []
+    for name, doc in docs.items():
+        for key, rec in sorted(doc["cells"].items()):
+            if rec.get("status", "ok") != "ok":
+                bad.append(f"{name} {key}: {rec.get('error', '')[:300]}")
+
+    def cells(name):
+        return [(k, r["metrics"]) for k, r in sorted(docs[name]["cells"]
+                                                      .items())
+                if r.get("status", "ok") == "ok"]
+    n_req = 6 if quick else 16
+    for key, m in cells("paged_serve"):
+        if m["blocks_leaked"] != 0 or not m["kv_bytes_ratio"] < 1:
+            bad.append(f"paged_serve {key}: leaked {m['blocks_leaked']}, "
+                       f"kv ratio {m['kv_bytes_ratio']}")
+        if not m["completed_slot"] == m["completed_paged"] == n_req:
+            bad.append(f"paged_serve {key}: completed {m['completed_slot']}"
+                       f" / {m['completed_paged']} of {n_req}")
+    for key, m in cells("decode_hotpath"):
+        if not m["identical_tokens"]:
+            bad.append(f"decode_hotpath {key}: tokens differ")
+        if not m["baseline_syncs_per_step"] > m["fused_syncs_per_step"]:
+            bad.append(f"decode_hotpath {key}: syncs a step "
+                       f"{m['baseline_syncs_per_step']} (legacy) <= "
+                       f"{m['fused_syncs_per_step']} (fused)")
+    isa = {m_key: m for m_key, m in (
+        (docs["isa_mapping"]["cells"][k]["params"]["case"], m)
+        for k, m in cells("isa_mapping"))}
+    bad += isa_gates(isa)
+    return bad
+
+
+def phase_campaign(torch, dev, seed, card):
+    """The three experiments at their full grids through the port's runner
+    into ``chiprun_out/campaign/``, rendered by the ``report`` command's
+    code; their gates, the case kernels' values and ``ISA_MUST_CATCH``."""
+    import io
+
+    from repro_torch.core.campaign import report, runner
+    from repro_torch.core.campaign.results import load_results
+    from repro_torch.core.isa import sass_census
+    from repro_torch.kernels import _build
+
+    out_dir = OUT / "campaign"
+    docs, paths, summary = {}, [], {}
+    for name in CAMPAIGN_EXPERIMENTS:
+        rep = runner.run(name, out_dir=out_dir, force=True, device=dev)
+        docs[name] = load_results(rep.path)
+        paths.append(rep.path)
+        summary[name] = {"cells": rep.total_cells, "failed": rep.failed,
+                         "seconds": rep.elapsed_s}
+    buf = io.StringIO()
+    report.render_result_files(paths, file=buf)
+    rows = buf.getvalue().splitlines()[1:]
+    failures = campaign_gates(docs)
+
+    source = sass_census.SOURCE.read_text()
+    texts = sass_census.build_texts()
+    values = isa_values(torch, _build.build("isa_cases", source), dev, seed)
+    failures += [f"isa value {c}: {v}" for c, v in values.items()
+                 if not v["ok"]]
+    controls, variant_texts = isa_controls(torch, dev, seed, texts)
+    isa_dir = OUT / "isa"
+    isa_dir.mkdir(parents=True, exist_ok=True)
+    for name, (ptx_text, sass_text) in {"cases": texts,
+                                        **variant_texts}.items():
+        (isa_dir / f"{name}.ptx").write_text(ptx_text)
+        (isa_dir / f"{name}.sass").write_text(sass_text)
+    missed = [n for n in ISA_MUST_CATCH if not controls[n]["caught"]]
+    emit({"phase": "campaign", "nvidia_smi": card, "experiments": summary,
+          "rows": {name: sum(r.startswith(prefix) for r in rows)
+                   for name, prefix in (("paged_serve", "paged_serve/"),
+                                        ("decode_hotpath", "decode_hotpath/"),
+                                        ("isa_mapping", "table5/"))},
+          "table5": [r for r in rows if r.startswith("table5/")],
+          "serving_rows": [r for r in rows if not r.startswith("table5/")],
+          "isa_values": values, "controls": controls})
+    if failures or missed:
+        raise AssertionError(f"campaign gates failed: {failures}; "
+                             f"controls missed: {missed}")
+
+
 def timed_once(torch, fn):
     """One call of ``fn`` between a CUDA event pair: (result, ms)."""
     torch.cuda.synchronize()
@@ -2542,9 +3075,10 @@ def main(argv=None) -> int:
     lap("kernel")
     fa_cases, fa_err = phase_flash_kernel(torch, dev, args.seed)
     lap("flash_kernel")
-    model, params, prompts, launches = phase_serve(torch, np, dev, args.seed)
+    model, params, prompts, launches, paged_toks = phase_serve(
+        torch, np, dev, args.seed)
     lap("serve")
-    fa_launches = phase_serve_slot(torch, model, params, prompts)
+    fa_launches, slot_toks = phase_serve_slot(torch, model, params, prompts)
     lap("serve_slot")
     phase_parity(torch, np, model, params, args.seed)
     phase_parity_slot(torch, np, model, params, args.seed)
@@ -2559,6 +3093,11 @@ def main(argv=None) -> int:
     lap("calibration")
     phase_costmodel(torch, np, dev, args.seed, card)
     lap("costmodel")
+    phase_hotpath(torch, np, dev, args.seed, card,
+                  {"paged": paged_toks, "slot": slot_toks})
+    lap("hotpath")
+    phase_campaign(torch, dev, args.seed, card)
+    lap("campaign")
     wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
     lap("wkv6_kernel")
     ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)

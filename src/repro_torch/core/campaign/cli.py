@@ -2,6 +2,8 @@
 
   list                         show registered experiments + cost estimates
   run <experiment> [...]       run/resume one campaign (or ``all``)
+  report <result.json> ...     regenerate the paper's tables from result
+                               files (CSV ``name,us_per_call,derived``)
   calibrate [...]              run the calibration campaigns and emit a
                                calibration table
 
@@ -14,8 +16,10 @@ import argparse
 import json
 import signal
 import sys
+from pathlib import Path
 
 from repro_torch.core.campaign import registry as reg
+from repro_torch.core.campaign import report as report_mod
 from repro_torch.core.campaign import runner as runner_mod
 
 
@@ -57,6 +61,11 @@ def cmd_run(args) -> int:
     return rc
 
 
+def cmd_report(args) -> int:
+    report_mod.render_result_files(args.results)
+    return 0
+
+
 def cmd_calibrate(args) -> int:
     from repro_torch.core.microbench import tables
     table = tables.calibrate(out_path=args.out, quick=args.quick,
@@ -95,6 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (the probe kernels, default) or cpu")
     rp.add_argument("--verbose", "-v", action="store_true")
     rp.set_defaults(fn=cmd_run)
+
+    pp = sub.add_parser("report",
+                        help="regenerate paper tables from result files")
+    pp.add_argument("results", nargs="+", type=Path)
+    pp.set_defaults(fn=cmd_report)
 
     cp = sub.add_parser("calibrate",
                         help="run calibration campaigns, emit a latency table")

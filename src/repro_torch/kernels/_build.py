@@ -6,6 +6,9 @@ takes seconds, not minutes).  Builds happen on first use, never at import:
 the CPU tests import every module on machines with no ``nvcc``.  Outputs go
 to ``kernels/build/`` (git-ignored), keyed by a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
+``ptx`` compiles a source to PTX with the same flags, cached the same way,
+and ``sass`` disassembles a built library, so the two texts of one source
+can be set side by side (``repro_torch.core.isa``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+CUDA_BIN = Path("/usr/local/cuda/bin")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -30,12 +34,24 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, dict] = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _tool(name: str) -> str:
+    """The CUDA toolkit's ``name`` (on PATH, else under ``CUDA_BIN``);
+    raises, naming it, where the toolkit has none."""
+    path = shutil.which(name) or str(CUDA_BIN / name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                           "machine with the CUDA toolkit")
+        raise RuntimeError(f"{name} not found: the CUDA kernels build only "
+                           "on a machine with the CUDA toolkit")
     return path
+
+
+def _digest(text: bytes) -> str:
+    """The build key of a source: its text, the headers beside the kernels
+    and the flags."""
+    h = hashlib.sha256(text)
+    for dep in sorted(CSRC.glob("*.cuh")):
+        h.update(dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
 
 
 def build(name: str, source: Optional[str] = None) -> Path:
@@ -44,11 +60,7 @@ def build(name: str, source: Optional[str] = None) -> Path:
     its path.  Raises with nvcc's output when the build fails."""
     text = ((CSRC / f"{name}.cu").read_text() if source is None
             else source).encode()
-    h = hashlib.sha256(text)
-    for dep in sorted(CSRC.glob("*.cuh")):
-        h.update(dep.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{name}-{_digest(text)}.so"
     if out.exists():
         BUILD_LOG[name] = {"cached": True, "seconds": 0.0, "log": ""}
         return out
@@ -58,7 +70,7 @@ def build(name: str, source: Optional[str] = None) -> Path:
     if source is not None:      # beside csrc, so its includes resolve
         src = out.with_suffix(".cu")
         src.write_bytes(text)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -94,38 +106,49 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def ptx(name: str, source: str) -> str:
+    """The PTX of ``source`` (``nvcc -ptx``, sm_90a, the flags ``build``
+    uses less the link step's ``-shared``), cached in the build directory
+    under the key ``build`` gives the same text; returns the PTX text.
+    Raises, naming the tool, where the toolkit is missing, and with nvcc's
+    output where the compile fails."""
+    text = source.encode()
+    out = BUILD_DIR / f"{name}-{_digest(text)}.ptx"
+    if out.exists():
+        return out.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = out.with_suffix(".ptx.cu")
+    src.write_bytes(text)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    proc = subprocess.run([_tool("nvcc"), *flags, "-ptx", "-I", str(CSRC), "-o",
+                           str(tmp), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc -ptx failed for {name} "
+                           f"(rc={proc.returncode}):\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out.read_text()
+
+
 def sass(lib: Path) -> str:
     """``cuobjdump -sass`` of a built library.  Raises where the toolkit
     has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        raise RuntimeError("cuobjdump not found")
-    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def sass_mix(name: str, top: int = 16) -> Dict[str, dict]:
     """The SASS of ``csrc/<name>.cu``'s built library by ``cuobjdump
     -sass``: for each kernel function (mangled name), its instruction
     count and its ``top`` most frequent opcodes (with their modifiers, as
-    ``HMMA.16816.F32.BF16``).  Raises where the toolkit has no cuobjdump."""
-    import re
-    from collections import Counter
+    ``HMMA.16816.F32.BF16``), counted by ``core.isa.sass_census``'s rule
+    (no ``NOP`` padding, no self-loop ``BRA``).  Raises where the toolkit
+    has no cuobjdump."""
+    from repro_torch.core.isa.sass_census import census
 
-    text = sass(build(name))
-    func = re.compile(r"Function : (\S+)")
-    inst = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                      r"([A-Z][A-Z0-9_.]*)")
-    mixes: Dict[str, Counter] = {}
-    cur = None
-    for line in text.splitlines():
-        m = func.search(line)
-        if m:
-            cur = mixes.setdefault(m.group(1), Counter())
-            continue
-        m = inst.search(line)
-        if m and cur is not None:
-            cur[m.group(1)] += 1
-    return {fn: {"instructions": sum(c.values()),
-                 "top": dict(c.most_common(top))}
-            for fn, c in mixes.items()}
+    return {fn: {"instructions": c["n_ops"],
+                 "top": dict(list(c["op_histogram"].items())[:top])}
+            for fn, c in census(sass(build(name))).items()}

@@ -1,8 +1,9 @@
-"""Serving engines, ported from ``repro.serve.engine`` (their fused
-paths): ``ServingEngine`` with slot-granular KV stripes, and
+"""Serving engines, ported from ``repro.serve.engine``:
+``ServingEngine`` with slot-granular KV stripes, and
 ``PagedServingEngine`` with a block-paged pool and chunked prefill.
 
-Both keep the fused hot path of the JAX engines:
+Both keep the fused hot path of the JAX engines (``fused=True``, the
+default):
 
 * The KV store is preallocated on the device and updated in place by every
   step and every admission (this stands in for JAX's buffer donation).
@@ -48,12 +49,24 @@ host's measured time (``stats.predicted_step_s``/``measured_step_s``);
 steps are asynchronous with one drain, so the measured time is the host's
 time per iteration, not the device's.
 
+``fused=False`` keeps the JAX engines' legacy blocking path, the baseline
+of the ``decode_hotpath`` experiment: every step uploads its tokens (and
+positions) fresh from host arrays, ``Model.decode`` returns the ``[B,
+vocab]`` logits, an eager argmax runs over them and one blocking ``_sync``
+reads the tokens back; tokens are booked and rows retired at once, with no
+pipelining.  A prefill's (slot) or a prompt's final chunk's (paged) first
+token is read back through its own ``_sync``.  The JAX legacy step is
+undonated, so XLA writes a new cache every step; here the step writes into
+a fresh copy of the KV store (``_copy_store``) and swaps it in before
+anything else touches the store, so its peak device memory holds two
+stores, as the reference's does.
+
 Profiler spans: ``prefill`` (slot admission), ``prefill_chunk``,
 ``decode_step`` and ``sync`` mark the engines' kinds of work for
 ``torch.profiler`` (``launch/serve.py --profile`` reads them).
 
 Not ported yet (each raises ``NotImplementedError`` when passed):
-``autotuner=``, ``telemetry=``, ``mesh=`` (paged), ``fused=False``.
+``autotuner=``, ``telemetry=``, ``mesh=`` (paged).
 """
 from __future__ import annotations
 
@@ -117,12 +130,10 @@ def _echo_ok(arr: np.ndarray) -> bool:
     return bool((arr >= 0).all())
 
 
-def _refuse_unported(fused: bool, **options) -> None:
+def _refuse_unported(**options) -> None:
     for name, val in options.items():
         if val is not None:
             raise NotImplementedError(f"{name}= is not ported yet")
-    if not fused:
-        raise NotImplementedError("fused=False is not ported yet")
 
 
 def _analytic_prefill_prediction(cost_model, cfg, n_tokens: int
@@ -161,10 +172,28 @@ class _DeviceLoop:
 
     def kv_cache_bytes(self) -> int:
         """Resident bytes of the preallocated KV store: the slot stripes,
-        or the paged pool with its trash page.  Steps update it in place,
-        so this is also its peak."""
+        or the paged pool with its trash page.  Fused steps update it in
+        place, so this is also its peak; a legacy step holds two."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.cache.values()))
+
+    @staticmethod
+    def _copy_store(cache: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The legacy step's fresh store: a copy of every KV tensor."""
+        return {k: t.clone() for k, t in cache.items()}
+
+    def _decode_legacy(self, tokens: np.ndarray, pos: np.ndarray,
+                       block_tables=None) -> torch.Tensor:
+        """One legacy ``Model.decode`` call: tokens and positions uploaded
+        fresh from host arrays, the step written into a copy of the store,
+        which is swapped in before it returns (so compaction, eviction and
+        admission only ever write the live store); returns the logits."""
+        store = self._copy_store(self.cache)
+        logits, _ = self.model.decode(self.params, store, self._dev(tokens),
+                                      self._dev(pos), block_tables)
+        self.cache = store
+        return logits
 
     def _dev(self, x) -> torch.Tensor:
         """THE host->device boundary for per-step operands.  On the card
@@ -219,10 +248,12 @@ class _DeviceLoop:
 
     def _predict_decode(self) -> Prediction:
         """Price one decode step at ``(max_len, max_batch)`` from the
-        analytic census, with ``donated=True`` (the step writes the cache
-        in place) and ``device_sampling=True`` (only the ``[2, B]`` echo
-        crosses to the host).  The JAX engines price the HLO of their
-        compiled step instead; the port compiles none.
+        analytic census: on the fused path ``donated`` (the step writes the
+        cache in place) and ``device_sampling`` (only the ``[2, B]`` echo
+        crosses to the host), on the legacy path neither (a full second
+        store written, the ``[B, vocab]`` logits at the boundary).  The JAX
+        engines price the HLO of their compiled step instead; the port
+        compiles none.
 
         APPROXIMATION: a census at ``seq_len = max_len`` prices the whole
         cache stripe of every row, as the slot engine's step reads it; the
@@ -232,8 +263,8 @@ class _DeviceLoop:
         if key not in self._pred_cache:
             cell = ShapeCell("decode", "decode", self.max_len, self.max_batch)
             self._pred_cache[key] = self.cost_model.predict(analytic_census(
-                self.model.cfg, cell, n_devices=1, n_model=1, donated=True,
-                device_sampling=True))
+                self.model.cfg, cell, n_devices=1, n_model=1,
+                donated=self.fused, device_sampling=self.fused))
         return self._pred_cache[key]
 
     def _record_step(self, planned: float, t0: float) -> None:
@@ -251,7 +282,8 @@ class _Row:
     filled: int = 0                 # prompt tokens whose K/V are written
     ready: bool = False             # prefill complete; decodes each step
     pos: int = 0                    # context length == next write position
-    dispatched: int = 0             # decode dispatches incl. in-flight
+    last_tok: int = 0               # legacy path only; fused keeps it on device
+    dispatched: int = 0             # fused: decode dispatches incl. in-flight
 
 
 class PagedServingEngine(_DeviceLoop):
@@ -268,8 +300,12 @@ class PagedServingEngine(_DeviceLoop):
                  step_budget_s: Optional[float] = None,
                  autotuner=None, telemetry=None, mesh=None,
                  fused: bool = True):
-        _refuse_unported(fused, autotuner=autotuner, telemetry=telemetry,
-                         mesh=mesh)
+        if mesh is not None and not fused:
+            raise ValueError("a sharded replica (mesh=...) requires the "
+                             "fused decode path (fused=True); the legacy "
+                             "blocking path is single-device by design")
+        _refuse_unported(autotuner=autotuner, telemetry=telemetry, mesh=mesh)
+        self.fused = fused
         self.model = model
         self.params = params
         self.device = model.device
@@ -302,8 +338,9 @@ class PagedServingEngine(_DeviceLoop):
         self.stats = EngineStats()
         self._rid = itertools.count()
         self._pending = None
-        self._step_fn = model.decode_step
-        self._toks = self._dev(np.zeros(max_batch, np.int32))
+        if fused:
+            self._step_fn = model.decode_step
+            self._toks = self._dev(np.zeros(max_batch, np.int32))
 
     # -- public ---------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -443,9 +480,11 @@ class PagedServingEngine(_DeviceLoop):
         """Advance row ``idx``'s prefill by one ``chunk_size`` chunk.  The
         final chunk overlaps written positions (rewriting identical K/V);
         prompts shorter than a chunk are left-padded at negative positions,
-        whose writes the pool drops.  The final chunk's greedy token lands
-        in the device token array; it reaches ``req.tokens`` through the
-        first decode step's echo."""
+        whose writes the pool drops.  Fused: the final chunk's greedy token
+        lands in the device token array and reaches ``req.tokens`` through
+        the first decode step's echo.  Legacy: the chunk decodes into a
+        copy of the pool, and the final chunk's token is synced into
+        ``row.last_tok`` and ``req.tokens``."""
         row = self.rows[idx]
         req, C = row.req, self.chunk_size
         S = len(req.prompt)
@@ -461,18 +500,27 @@ class PagedServingEngine(_DeviceLoop):
         toks[C - (end - lo):] = req.prompt[lo:end]
         with record_function("prefill_chunk"):
             bt = self._bt_device()[idx:idx + 1]
-            nxt, _ = self._step_fn(self.params, self.cache,
-                                   self._dev(toks[None]),
-                                   self._dev(np.asarray([start], np.int32)),
-                                   bt)
-            if end == S:
-                self._toks[idx:idx + 1].copy_(nxt[:1])
+            start_arr = np.asarray([start], np.int32)
+            if self.fused:
+                nxt, _ = self._step_fn(self.params, self.cache,
+                                       self._dev(toks[None]),
+                                       self._dev(start_arr), bt)
+                if end == S:
+                    self._toks[idx:idx + 1].copy_(nxt[:1])
+            else:
+                logits = self._decode_legacy(toks[None], start_arr, bt)
+                if end == S:
+                    staged = self._stage(
+                        torch.argmax(logits[0]).to(torch.int32))
         row.filled = end
         self.stats.prefill_chunks += 1
         if end == S:
             row.ready = True
             row.pos = S
             self.stats.prefills += 1
+            if not self.fused:
+                row.last_tok = int(self._sync(staged))
+                req.tokens.append(row.last_tok)
 
     # -- the engine iteration -------------------------------------------------
     def step(self) -> int:
@@ -524,7 +572,8 @@ class PagedServingEngine(_DeviceLoop):
 
     def _decode_phase(self) -> int:
         """Batched decode over the ready rows; rows mid-prefill (or whose
-        block growth must wait) ride along masked out at write_pos = -1."""
+        block growth must wait) ride along masked out at write_pos = -1.
+        The legacy path books and retires its rows at once."""
         ready = [i for i in self._placed() if self.rows[i].ready]
         if not ready:
             return 0
@@ -533,7 +582,7 @@ class PagedServingEngine(_DeviceLoop):
             row = self.rows[i]
             if row is None or not row.ready:
                 continue             # evicted by an earlier row's growth
-            if self._retirement_bound(row):
+            if self.fused and self._retirement_bound(row):
                 continue             # its retirement is in the pending drain
             need = blocks_for_tokens(row.pos + 1, self.block_size)
             if self._ensure_blocks(i, need) and self.rows[i] is row:
@@ -545,6 +594,8 @@ class PagedServingEngine(_DeviceLoop):
         pos = np.full(self.max_batch, -1, np.int32)
         for i, row in stepping:
             pos[i] = row.pos
+        if not self.fused:
+            return self._decode_blocking(stepping, pos)
         with record_function("decode_step"):
             pos_dev = self._dev(pos)
             nxt, _ = self._step_fn(self.params, self.cache,
@@ -561,6 +612,31 @@ class PagedServingEngine(_DeviceLoop):
         for i, row in stepping:
             row.pos += 1
             row.dispatched += 1
+        return len(stepping)
+
+    def _decode_blocking(self, stepping, pos: np.ndarray) -> int:
+        """The legacy decode: ``[B, 1]`` tokens uploaded from the rows'
+        ``last_tok``, the argmax synced, rows booked and retired at once."""
+        toks = np.zeros((self.max_batch, 1), np.int32)
+        for i, row in stepping:
+            toks[i, 0] = row.last_tok
+        with record_function("decode_step"):
+            logits = self._decode_legacy(toks, pos, self._bt_device())
+            staged = self._stage(torch.argmax(logits, dim=-1)
+                                 .to(torch.int32))
+        self.stats.decode_dispatches += 1
+        nxt = self._sync(staged)
+        for i, row in stepping:
+            req = row.req
+            req.tokens.append(int(nxt[i]))
+            self.stats.decoded_tokens += 1
+            row.last_tok = int(nxt[i])
+            row.pos += 1
+            hit_eos = req.eos_id is not None and nxt[i] == req.eos_id
+            out_of_budget = len(req.tokens) >= req.max_new_tokens
+            out_of_cache = row.pos >= self.max_len - 1
+            if hit_eos or out_of_budget or out_of_cache:
+                self._retire(i)
         return len(stepping)
 
     def _drain(self, pending) -> None:
@@ -609,7 +685,8 @@ class ServingEngine(_DeviceLoop):
                  max_len: int = 512, cost_model: Optional[CostModel] = None,
                  step_budget_s: Optional[float] = None, autotuner=None,
                  telemetry=None, fused: bool = True):
-        _refuse_unported(fused, autotuner=autotuner, telemetry=telemetry)
+        _refuse_unported(autotuner=autotuner, telemetry=telemetry)
+        self.fused = fused
         self.model = model
         self.params = params
         self.device = model.device
@@ -625,11 +702,13 @@ class ServingEngine(_DeviceLoop):
         self.cache = model.init_cache(max_batch, max_len)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int32)     # host mirror
+        self.slot_tok = np.zeros(max_batch, np.int32)     # legacy path only
         self._pending = None
-        # device-resident loop state: the step consumes and advances it,
-        # so nothing but the [2, B] token echo crosses to the host
-        self._toks = self._dev(np.zeros(max_batch, np.int32))
-        self._pos = self._dev(np.zeros(max_batch, np.int32))
+        if fused:
+            # device-resident loop state: the step consumes and advances
+            # it, so nothing but the [2, B] token echo crosses to the host
+            self._toks = self._dev(np.zeros(max_batch, np.int32))
+            self._pos = self._dev(np.zeros(max_batch, np.int32))
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
                eos_id: Optional[int] = None) -> int:
@@ -685,10 +764,11 @@ class ServingEngine(_DeviceLoop):
         return planned
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
-        """One uncached prefill, spliced into ``slot`` in place, with the
-        slot's device token set to the prefill's argmax and its device
-        position to the prompt length.  Nothing crosses to the host: the
-        first token reaches ``req.tokens`` through the next step's echo."""
+        """One uncached prefill, spliced into ``slot`` in place.  Fused: the
+        slot's device token is set to the prefill's argmax and its device
+        position to the prompt length, and nothing crosses to the host (the
+        first token reaches ``req.tokens`` through the next step's echo).
+        Legacy: the argmax is synced into ``slot_tok`` and ``req.tokens``."""
         S = len(req.prompt)
         with record_function("prefill"):
             logits, cache1 = self.model.prefill(
@@ -698,8 +778,14 @@ class ServingEngine(_DeviceLoop):
                 big[:, slot:slot + 1].copy_(cache1[key])
             # flattened, as jnp.argmax over logits[0] is
             tok0 = torch.argmax(logits[0].reshape(-1)).to(torch.int32)
-            self._toks[slot:slot + 1].copy_(tok0.reshape(1))
-            self._pos[slot:slot + 1].fill_(S)
+            if self.fused:
+                self._toks[slot:slot + 1].copy_(tok0.reshape(1))
+                self._pos[slot:slot + 1].fill_(S)
+            else:
+                staged = self._stage(tok0)
+        if not self.fused:
+            self.slot_tok[slot] = int(self._sync(staged))
+            req.tokens.append(int(self.slot_tok[slot]))
         self.slot_req[slot] = req
         self.slot_pos[slot] = S
         self.stats.prefills += 1
@@ -744,6 +830,8 @@ class ServingEngine(_DeviceLoop):
         step), dispatch step N over every slot, then drain step N-1, so a
         step's tokens are read only after the next step is queued on the
         device.  Returns the number of occupied slots at dispatch."""
+        if not self.fused:
+            return self._step_blocking()
         t0 = time.perf_counter()
         prev, self._pending = self._pending, None
         planned = self._admit()
@@ -762,4 +850,35 @@ class ServingEngine(_DeviceLoop):
         self._drain(prev)
         if active:
             self._record_step(planned, t0)
+        return len(active)
+
+    def _step_blocking(self) -> int:
+        """The legacy iteration: admit, decode every slot from host-uploaded
+        tokens and positions into a copy of the store, sync the argmax,
+        book and retire at once."""
+        t0 = time.perf_counter()
+        planned = self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        with record_function("decode_step"):
+            logits = self._decode_legacy(self.slot_tok[:, None],
+                                         self.slot_pos)
+            staged = self._stage(torch.argmax(logits, dim=-1)
+                                 .to(torch.int32))
+        self.stats.decode_dispatches += 1
+        nxt = self._sync(staged)
+        self.stats.steps += 1
+        self._record_step(planned, t0)
+        for i in active:
+            req = self.slot_req[i]
+            req.tokens.append(int(nxt[i]))
+            self.stats.decoded_tokens += 1
+            self.slot_tok[i] = nxt[i]
+            self.slot_pos[i] += 1
+            hit_eos = req.eos_id is not None and nxt[i] == req.eos_id
+            out_of_budget = len(req.tokens) >= req.max_new_tokens
+            out_of_cache = self.slot_pos[i] >= self.max_len - 1
+            if hit_eos or out_of_budget or out_of_cache:
+                self._retire(i)
         return len(active)

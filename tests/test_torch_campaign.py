@@ -30,6 +30,8 @@ from repro_torch.core.microbench import harness as tharness
 from repro_torch.core.microbench import tables
 
 EXPERIMENTS = tables.CALIBRATION_EXPERIMENTS
+# the experiments beyond calibration (tests/test_torch_isa.py)
+PORTED = ("paged_serve", "decode_hotpath", "isa_mapping")
 
 
 @pytest.mark.parametrize("quick", [True, False])
@@ -40,7 +42,7 @@ def test_cell_keys_match_jax_registry(name, quick):
     assert ours == theirs and len(ours) > 0
     if name == "alu_chain" and not quick:
         assert len(ours) == 92
-    assert treg.names() == sorted(EXPERIMENTS)
+    assert treg.names() == sorted(EXPERIMENTS + PORTED)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -187,7 +187,7 @@ def test_set_cost_model_reprices():
 def test_engine_refuses_unported_options():
     _, _, _, tm, tparams = _models()
     for kw in (dict(autotuner=object()), dict(telemetry=object()),
-               dict(mesh=object()), dict(fused=False)):
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             PagedServingEngine(tm, tparams, max_batch=2, max_len=16,
                                block_size=8, **kw)

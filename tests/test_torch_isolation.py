@@ -52,7 +52,8 @@ def test_port_imports_without_jax_or_repro():
                 "core.costmodel.calibration", "core.costmodel.instruction",
                 "core.costmodel.memory", "core.costmodel.mxu",
                 "core.costmodel.model", "core.costmodel.analytic",
-                "core.costmodel.cli", "core.costmodel.__main__"):
+                "core.costmodel.cli", "core.costmodel.__main__",
+                "core.isa", "core.isa.sass_census"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 

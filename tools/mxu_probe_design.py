@@ -176,7 +176,7 @@ def _compile(name: str, source: str, flags=()) -> ctypes.CDLL:
     src = _build.BUILD_DIR / f"{name}.cu"
     lib = _build.BUILD_DIR / f"lib{name}.so"
     src.write_text(source)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
+    proc = subprocess.run([_build._tool("nvcc"), *_build.NVCC_FLAGS, *flags, "-o",
                            str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")

@@ -195,7 +195,7 @@ def _compile_lib(name: str, src: str) -> ctypes.CDLL:
     path = _build.BUILD_DIR / f"{name}.cu"
     lib = _build.BUILD_DIR / f"lib{name}.so"
     path.write_text(src)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+    proc = subprocess.run([_build._tool("nvcc"), *_build.NVCC_FLAGS, "-o",
                            str(lib), str(path)], capture_output=True,
                           text=True)
     if proc.returncode != 0:
