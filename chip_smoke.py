@@ -161,7 +161,33 @@ exits non-zero):
    PTX parser that counts directives and labels); the PTX and SASS texts
    go to ``chiprun_out/isa/`` (``tools/isa_fixtures.py`` cuts the test
    fixtures from them).
-14. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
+14. autotune: the autotuner (``repro_torch.core.autotune``) against the
+   calibration phase's fresh table at the main path's shapes
+   (``AUTOTUNE_SHAPES``: paged B=8, H=8, KH=4, D=256, ctx 1024; flash
+   B=1, 900 x 900 bf16 with the bf16 accumulator opened; mxu_probe bf16
+   512^3; ssm_scan 4 x 4224 x 1600, N 16; wkv6 4 x 4096 x 32 x 64): an
+   analytic tune of the five tunables, then a measured one (top 3 and the
+   default, each timed ``AUTOTUNE_ITERS`` times in a CUDA graph cycling
+   over input copies larger than the L2; ``ssm_scan`` and ``wkv6`` have
+   one candidate and are not timed), every timed candidate first held
+   against its plain version (``autotune_checker``: the paged kernel at
+   ``PAGED_REL_TOL`` of max|want|, the others at their kernel phase's
+   tolerance) and every timed kernel launched, one line a kernel
+   (candidates, best and default, their predicted and measured seconds,
+   the measured speedup); the cache persisted under a temporary
+   directory and reloaded by a fresh ``TuningCache(path)``, then phase
+   hotpath's reduced f32 gemma2 and trace through the paged engine with
+   an autotuner whose cache holds ``AUTOTUNE_CACHED`` (page 32, chunk
+   128) on the card and on the CPU (``autotune_round_trip``: the engine
+   reads them, every decode launches chunk 128, tokens identical to each
+   other and to the untuned engine's); ``decode_longctx``'s full grid (9
+   cells) into ``chiprun_out/campaign/`` with each cell's output within
+   ``PAGED_REL_TOL`` of the oracle's max; and the controls of
+   ``AUTOTUNE_MUST_CATCH`` (an entry of another calibration served, a
+   timed candidate with its context one token short at ctx 1,024, an
+   unlaunchable cached chunk replaced by the default, decode_longctx's
+   kernel one token short at ctx 4,096).
+15. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
    f32; block_h 1, which changes no value on the card) in three cases
@@ -175,7 +201,7 @@ exits non-zero):
    step late, w rounded to bf16, u's term dropped, head 0's u for every
    head; the state zeroed every 256 steps, one thread's rows left out of
    y), which they must catch; then "long" and "fast" in f32 at B=1.
-15. ssm_kernel: the selective-scan kernel against its plain version on the
+16. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
    f32; block_d 256 -> 64) in two cases (``SSM_CASES``): "eval", init_mamba's
@@ -189,7 +215,7 @@ exits non-zero):
    every 256 steps, the last state's term left out of y), and the
    kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
    biased exponential shows against the f32 tolerance.
-16. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+17. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
    ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
@@ -200,11 +226,11 @@ exits non-zero):
    holds controls, the plain version with a fault injected (an input one
    step late; in bf16 also the decay rounded to bf16 and ``u`` left in
    f32); the gates must catch those ``MUST_CATCH`` names.
-17. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+18. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
    its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
    with a CUDA event pair around each call of the recurrence kernel.
-18. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+19. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
 A ``timing`` line gives each phase's seconds; the line before the last
@@ -367,36 +393,15 @@ def _bound_ms(bt, ctxs, window, H, KH, D, bs):
                                        else "operations")
 
 
-def graph_ms(torch, calls, n=20, reps=5):
-    """Device time of one call: ``n`` calls captured in one CUDA graph,
-    call i running ``calls[i % len(calls)]`` (each on its own copy of the
-    inputs), the graph replayed between one CUDA event pair, over ``n``;
-    the median of ``reps`` replays.  No host cost is in it, and a call
-    that read a device value on the host could not be captured."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in calls:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(n):
-            calls[i % len(calls)]()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
-    del graph
-    return statistics.median(times)
+def graph_ms(calls, n=20):
+    """Device time in ms of one call, by the measurement harness's
+    ``device_time``: ``n`` calls captured in one CUDA graph, call i running
+    ``calls[i % len(calls)]`` (each on its own copy of the inputs), the
+    graph replayed between one CUDA event pair, over ``n``; the median of
+    5 replays.  No host cost is in it, and a call that read a device value
+    on the host could not be captured."""
+    from repro_torch.core.microbench.harness import device_time
+    return 1e3 * device_time(calls, iters=n)
 
 
 def _paged_fault(torch, ref, name, q, kp, vp, bt, ctx, kw, chunk):
@@ -463,7 +468,7 @@ def phase_kernel(torch, np, dev, seed):
                 max_err = max(max_err, err)
                 ms = gpu_ms(torch, lambda: paged_attention(
                     q, kp, vp, bt, ctx, **kw), 30, flush)
-                g_ms = graph_ms(torch, [
+                g_ms = graph_ms([
                     (lambda k=k, v=v: paged_attention(q, k, v, bt, ctx, **kw))
                     for k, v in pools])
                 plain_ms = gpu_ms(torch, lambda: ref.paged_attention_plain(
@@ -478,7 +483,7 @@ def phase_kernel(torch, np, dev, seed):
                     q4 = q[:, :, None, :]
                     lib_ms = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
                         q4, k_all, v_all, attn_mask=mask, scale=scale), 30, flush)
-                    lib_g_ms = graph_ms(torch, [
+                    lib_g_ms = graph_ms([
                         (lambda k=k, v=v: F.scaled_dot_product_attention(
                             q4, k, v, attn_mask=mask, scale=scale))
                         for k, v in gathered])
@@ -503,7 +508,7 @@ def phase_kernel(torch, np, dev, seed):
         sweep[chunk] = {
             "ms": gpu_ms(torch, lambda: paged_attention(q, kp, vp, bt, ctx,
                                                         **kc), 30, flush),
-            "graph_ms": graph_ms(torch, [
+            "graph_ms": graph_ms([
                 (lambda k=k, v=v: paged_attention(q, k, v, bt, ctx, **kc))
                 for k, v in pools])}
     emit({"phase": "kernel", "name": "paged_attention",
@@ -2478,6 +2483,439 @@ def phase_campaign(torch, dev, seed, card):
                              f"controls missed: {missed}")
 
 
+# -- phase autotune: the autotuner on the card ---------------------------
+# the main path's problems, where phases kernel, flash_kernel, probes,
+# wkv6_kernel and ssm_kernel hold each kernel: paged at the serve shapes,
+# flash at the longest prompt (bf16, the bf16 accumulator opened),
+# mxu_probe bf16 512^3, and the two eval shapes
+AUTOTUNE_SHAPES = {
+    "paged_attention": {"batch": 8, "heads": 8, "kv_heads": 4,
+                        "head_dim": 256, "ctx": 1024},
+    "flash_attention": {"batch": 1, "seq_q": 900, "seq_kv": 900, "heads": 8,
+                        "kv_heads": 4, "head_dim": 256},
+    "mxu_probe": {"m": 512, "k": 512, "n": 512},
+    "ssm_scan": {"batch": 4, "seq": 4224, "d_inner": 1600, "state_dim": 16},
+    "wkv6": {"batch": 4, "seq": 4096, "heads": 32, "head_dim": 64},
+}
+AUTOTUNE_TOP_K = 3
+AUTOTUNE_ITERS = 20               # timed calls a candidate (median)
+# the round trip's cached paged config, other than the default (16, 64)
+AUTOTUNE_CACHED = {"block_size": 32, "chunk_tokens": 128, "num_splits": 1}
+# faults the autotune gates must catch: an entry written under another
+# calibration served (the key gate), a timed candidate whose output is
+# wrong (its context one token short, at the main path's ctx 1,024; the
+# check before timing), a cached chunk the kernel cannot launch replaced
+# by the default (the dispatch must raise), and decode_longctx's kernel
+# one token short at ctx 4,096 (its cell gate)
+AUTOTUNE_MUST_CATCH = ("other_calibration", "corrupt_candidate",
+                       "unlaunchable_replaced", "longctx_token_dropped")
+AUTOTUNE_UNLAUNCHABLE_CHUNK = 48
+# decode_longctx's longest context, where its control drops a token
+AUTOTUNE_LONGCTX_CTX = 4096
+# the paged kernel at the autotune and decode_longctx shapes against its
+# plain version on the same pages: both accumulate in f32 and differ in
+# summation order only, measured at 1e-6 of max|want| in f32; in bf16 the
+# outputs may also round apart by one bf16 step (at most 2^-7 |want|).
+# The inputs (normal x 0.3) give outputs of about 0.3 / sqrt(ctx), so a
+# token dropped from 1,024 (4,096) moves them by about 3% (1.5%) of a
+# typical output, far past both terms
+PAGED_REL_TOL = 1e-4
+
+
+def paged_close(torch, out, want):
+    """The paged kernel's output against its plain version: |out - want|
+    <= PAGED_REL_TOL max|want|, plus 2^-7 |want| in bf16.  Returns (ok,
+    max |out - want|)."""
+    d = (out.float() - want.float()).abs()
+    lim = PAGED_REL_TOL * want.float().abs().max()
+    if out.dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * want.float().abs()
+    return bool((d <= lim).all()), d.max().item()
+
+
+def autotune_plain(torch, kernel, config, args):
+    """The plain version of a tuned candidate's call on its inputs."""
+    from repro_torch.kernels import ref
+    if kernel == "flash_attention":
+        return ref.flash_attention_plain(
+            *args, causal=True, block_q=int(config["block_q"]),
+            block_k=int(config["block_k"]), acc_dtype=config["acc_dtype"])
+    if kernel == "paged_attention":
+        return ref.paged_attention_plain(*args)
+    if kernel == "mxu_probe":
+        return ref.mxu_probe_plain(*args, chain=1)
+    return {"ssm_scan": ref.ssm_scan_plain, "wkv6": ref.wkv6_plain}[
+        kernel](*args)
+
+
+def autotune_close(torch, kernel, out, want):
+    """A candidate's output against its plain version: the paged kernel
+    ``paged_close``, and the others at the tolerance their kernel's phase
+    holds them to: flash ``_tol_ratio``, mxu_probe ``REL_TOL`` of
+    max|want|, the recurrences ``_check_close``.  Returns (ok, max |out -
+    want|)."""
+    from repro_torch.kernels.mxu_probe import REL_TOL
+    err = (out.float() - want.float()).abs().max().item()
+    if kernel == "paged_attention":
+        ok = paged_close(torch, out, want)[0]
+    elif kernel == "flash_attention":
+        ok = _tol_ratio(out, want) <= 1
+    elif kernel == "mxu_probe":
+        ok = _rel_err(out, want) <= REL_TOL
+    else:
+        try:
+            _check_close(torch, out, want)
+            ok = True
+        except AssertionError:
+            ok = False
+    return ok, err
+
+
+def autotune_checker(torch, records):
+    """The tuner's check before timing: each shortlisted candidate's first
+    output against its plain version; a wrong one raises."""
+    def check(kernel, config, out, fn, args):
+        want = autotune_plain(torch, kernel, config, args)
+        ok, err = autotune_close(torch, kernel, out, want)
+        records.append({"kernel": kernel, "config": dict(config),
+                        "max_abs_err": err, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{kernel} candidate {config} disagrees "
+                                 f"with its plain version: {err}")
+    return check
+
+
+def autotune_key_gate(tuner, kernel, shapes):
+    """What the dispatch gets from ``tuner`` for this problem, and a
+    failure for every entry it served that another calibration or device
+    wrote."""
+    from repro_torch.core.autotune import split_key
+    got = tuner.lookup(kernel, shapes)
+    own = (tuner.device_kind, tuner.cost_model.cal.name)
+    bad = [f"served {k}" for k in tuner.stats.hit_keys
+           if tuple(split_key(k)[3:]) != own]
+    return got, bad
+
+
+def autotune_leaky(tuner):
+    """Fault ``other_calibration``: a lookup that matches every part of
+    the key but the calibration."""
+    from repro_torch.core.autotune import split_key
+
+    def lookup(kernel, shapes, dtype=None):
+        want = split_key(tuner.key_for(kernel, shapes, dtype))[:4]
+        for key, entry in tuner.cache.items(kernel):
+            if split_key(key)[:4] == want:
+                tuner.stats.record_hit(key)
+                return dict(entry["config"])
+        return None
+    tuner.lookup = lookup
+    return tuner
+
+
+def autotune_corrupt(tuner):
+    """Fault ``corrupt_candidate``: the timed paged call reads a context
+    one token short of the inputs it is checked on."""
+    make = tuner.example_call
+
+    def example_call(kernel, shapes, dtype, config):
+        fn, args = make(kernel, shapes, dtype, config)
+        if kernel == "paged_attention":
+            return (lambda q, kp, vp, bt, ctx:
+                    fn(q, kp, vp, bt, ctx - 1)), args
+        return fn, args
+    tuner.example_call = example_call
+    return tuner
+
+
+def autotune_unlaunchable_gate(call):
+    """A dispatch under a cached chunk the kernel cannot launch must raise;
+    a failure when ``call`` returns instead."""
+    try:
+        call()
+    except ValueError:
+        return []
+    return ["an unlaunchable cached chunk was launched as another"]
+
+
+def autotune_controls(torch, dev, cm, paged_shapes):
+    """Each ``AUTOTUNE_MUST_CATCH`` fault against its gate, beside the
+    sound path through the same gate (which must pass)."""
+    from repro_torch.core import autotune
+    from repro_torch.core.autotune import Autotuner, TuningCache
+    from repro_torch.core.autotune.search import example_call
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import CHUNK_TOKENS, CHUNKS
+
+    out, failures = {}, []
+    # an entry written under another calibration, in a shared cache
+    cache = TuningCache(None)
+    own = Autotuner(cm, cache)
+    other = Autotuner(CostModel.from_named("ampere_a100"), cache,
+                      device_kind=own.device_kind)
+    other.tune("paged_attention", paged_shapes)
+    got, bad = autotune_key_gate(own, "paged_attention", paged_shapes)
+    failures += bad + ([f"served {got}"] if got is not None else [])
+    _, caught = autotune_key_gate(autotune_leaky(Autotuner(cm, cache)),
+                                  "paged_attention", paged_shapes)
+    out["other_calibration"] = {"caught": bool(caught), "gate": caught}
+    # a timed candidate whose output is wrong, beside the sound tune, at
+    # the shapes the measured tune times (two candidates at least, so the
+    # shortlist is timed)
+    records = []
+    for fault in (False, True):
+        tuner = Autotuner(cm, measure=True, top_k=2, device=dev,
+                          measure_iters=2, measure_warmup=1,
+                          check=autotune_checker(torch, records))
+        try:
+            (autotune_corrupt(tuner) if fault else tuner).tune(
+                "paged_attention", paged_shapes)
+            caught = False
+        except AssertionError:
+            caught = True
+        if not fault and caught:
+            failures.append(f"the sound tune at ctx {paged_shapes['ctx']} "
+                            f"failed its check: {records}")
+    out["corrupt_candidate"] = {"caught": caught, "checked": records}
+    # a cached chunk the kernel cannot launch
+    tuner = Autotuner(cm, dtype="bf16")
+    cfg = dict(tuner.config_for("paged_attention", paged_shapes),
+               chunk_tokens=AUTOTUNE_UNLAUNCHABLE_CHUNK)
+    tuner.cache.put(tuner.key_for("paged_attention", paged_shapes),
+                    {"config": cfg})
+    fn, args = example_call("paged_attention", paged_shapes, "bf16", cfg,
+                            dev)
+
+    def replaced(q, kp, vp, bt, ctx):
+        c = ops.resolve_kernel_config(
+            "paged_attention", {"batch": q.shape[0], "heads": q.shape[1],
+                                "kv_heads": kp.shape[2],
+                                "head_dim": q.shape[2],
+                                "ctx": bt.shape[1] * kp.shape[1]},
+            q.dtype, tuned=True)
+        ct = c["chunk_tokens"] if c["chunk_tokens"] in CHUNKS \
+            else CHUNK_TOKENS
+        return ops.paged_attention(q, kp, vp, bt, ctx, chunk_tokens=ct)
+    with autotune.using(tuner):
+        failures += autotune_unlaunchable_gate(
+            lambda: ops.paged_attention(*args, tuned=True))
+        caught = autotune_unlaunchable_gate(lambda: replaced(*args))
+    out["unlaunchable_replaced"] = {"caught": bool(caught), "gate": caught}
+    # decode_longctx's kernel one token short at its longest context,
+    # beside the sound call, through the cell gate
+    from repro_torch.core.campaign.registry import longctx_inputs
+    from repro_torch.kernels.ref import paged_attention_ref
+    pool = torch.bfloat16 if torch.device(dev).type == "cuda" \
+        else torch.float32
+    q, kp, vp, bt, lens, _ = longctx_inputs(AUTOTUNE_LONGCTX_CTX, dev, pool)
+    want = paged_attention_ref(q, kp, vp, bt, lens)
+    gates = {}
+    for fault, n in (("sound", lens), ("longctx_token_dropped", lens - 1)):
+        got = ops.paged_attention(q, kp, vp, bt, n)
+        gates[fault] = longctx_gates({"cells": {f"ctx{AUTOTUNE_LONGCTX_CTX}":
+                                                {"metrics": {
+            "max_abs_err_vs_ref": float((got.float() - want.float())
+                                        .abs().max()),
+            "max_abs_ref": float(want.float().abs().max())}}}})
+    failures += gates["sound"]
+    out["longctx_token_dropped"] = {
+        "caught": bool(gates["longctx_token_dropped"]),
+        "gate": gates["longctx_token_dropped"]}
+    return out, failures
+
+
+def autotune_round_trip(torch, np, seed, cm, path, card_dev="cuda"):
+    """The cache persisted at ``path`` holding ``AUTOTUNE_CACHED`` for the
+    reduced f32 gemma2 of phase hotpath, reloaded by a fresh
+    ``TuningCache(path)``, then that model's trace (32 prompts of 1-30
+    tokens, 4 new tokens) through the paged engine with an autotuner over
+    it, on the card and on the CPU, beside an untuned engine: the engine
+    must read the cached page size and chunk from the cache, every paged
+    decode must launch with that chunk (the untuned one with the default),
+    and the tokens must be identical everywhere."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.autotune import Autotuner, TuningCache
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import PagedServingEngine
+
+    cfg = reduced(get_config("gemma2-2b"), n_layers=2, vocab_size=128,
+                  compute_dtype="float32")
+    kw = dict(max_batch=4, max_len=48, chunk_size=8)
+    shapes = {"batch": kw["max_batch"], "heads": cfg.n_heads,
+              "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+              "ctx": kw["max_len"]}
+    writer = Autotuner(cm, TuningCache(path), dtype="f32")
+    writer.cache.put(writer.key_for("paged_attention", shapes),
+                     {"config": dict(AUTOTUNE_CACHED)})
+    reloaded = TuningCache(path)
+    failures = []
+    if reloaded.entries != writer.cache.entries:
+        failures.append("the reloaded cache differs from the written one")
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(1, 31, size=32)]
+    cpu_params = build_model(cfg, device="cpu").init(seed)
+    out = {}
+    launch, chunks = pa.paged_attention, []
+
+    def spy(*a, **k):
+        chunks.append(k["chunk_tokens"])
+        return launch(*a, **k)
+    # the wrapper counts its launches under its module's name, which is
+    # the spy's while it stands in
+    pa.paged_attention = spy
+    try:
+        for label, d, tuned in (("card", card_dev, True),
+                                ("cpu", "cpu", True),
+                                ("untuned", card_dev, False)):
+            tuner = Autotuner(cm, reloaded, dtype="f32") if tuned else None
+            eng = PagedServingEngine(build_model(cfg, device=d),
+                                     params_to(cpu_params, d),
+                                     autotuner=tuner, **kw)
+            spy.launches = 0
+            chunks.clear()
+            rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+            eng.run_until_done()
+            out[label] = {
+                "block_size": eng.block_size,
+                "kernel_chunk": eng.kernel_chunk,
+                "tokens": [eng.done[r].tokens for r in rids],
+                "paged_launches": spy.launches,
+                "dispatched_chunks": sorted(set(chunks)),
+                "tuner_hits": tuner.stats.hits if tuned else 0}
+    finally:
+        pa.paged_attention = launch
+    for label in ("card", "cpu"):
+        r = out[label]
+        if (r["block_size"], r["kernel_chunk"]) != (
+                AUTOTUNE_CACHED["block_size"],
+                AUTOTUNE_CACHED["chunk_tokens"]):
+            failures.append(f"{label}: engine read ({r['block_size']}, "
+                            f"{r['kernel_chunk']})")
+        if not r["tuner_hits"]:
+            failures.append(f"{label}: the engine never hit the cache")
+        if r["dispatched_chunks"] != [AUTOTUNE_CACHED["chunk_tokens"]]:
+            failures.append(f"{label}: decodes launched with chunks "
+                            f"{r['dispatched_chunks']}")
+    if out["untuned"]["dispatched_chunks"] != [pa.CHUNK_TOKENS]:
+        failures.append(f"untuned decodes launched with chunks "
+                        f"{out['untuned']['dispatched_chunks']}")
+    if out["untuned"]["block_size"] != 16:
+        failures.append(f"untuned block size {out['untuned']['block_size']}")
+    if torch.device(card_dev).type == "cuda" and not all(
+            out[k]["paged_launches"] for k in ("card", "untuned")):
+        failures.append("a card engine never launched paged_attention")
+    if not out["card"]["tokens"] == out["cpu"]["tokens"] \
+            == out["untuned"]["tokens"]:
+        failures.append("tokens differ between the tuned card, tuned CPU "
+                        "and untuned engines")
+    summary = {k: {key: v for key, v in r.items() if key != "tokens"}
+               for k, r in out.items()}
+    summary["distinct_tokens"] = len({t for r in out["card"]["tokens"]
+                                      for t in r})
+    return summary, failures
+
+
+def longctx_gates(doc):
+    """decode_longctx: no failed cell, every cell's output (f32: q is
+    f32) within ``PAGED_REL_TOL`` of the oracle's max |output|."""
+    bad = []
+    for key, rec in sorted(doc["cells"].items()):
+        if rec.get("status", "ok") != "ok":
+            bad.append(f"{key}: {rec.get('error', '')[:300]}")
+            continue
+        m = rec["metrics"]
+        if not m["max_abs_err_vs_ref"] <= PAGED_REL_TOL * m["max_abs_ref"]:
+            bad.append(f"{key}: max_abs_err_vs_ref "
+                       f"{m['max_abs_err_vs_ref']} of max |ref| "
+                       f"{m['max_abs_ref']}")
+    return bad
+
+
+def phase_autotune(torch, np, dev, seed, card):
+    """The autotuner on the card: an analytic and a measured tune of the
+    five tunables at the main path's shapes against the calibration
+    phase's fresh table (each timed candidate held against its plain
+    version first), the cache's round trip into the paged engine on card
+    and CPU, ``decode_longctx``'s full grid, and ``AUTOTUNE_MUST_CATCH``."""
+    import io
+    import tempfile
+
+    from repro_torch.core.autotune import Autotuner, TuningCache
+    from repro_torch.core.campaign import report, runner
+    from repro_torch.core.campaign.results import load_results
+    from repro_torch.core.costmodel import CostModel
+
+    cm = CostModel.from_named(OUT / "hopper_h100.json")
+    failures = []
+    analytic = Autotuner(cm, allow_low_precision=True).tune_all(
+        shapes=AUTOTUNE_SHAPES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cache.json"
+        records = []
+        tuner = Autotuner(cm, TuningCache(path), measure=True,
+                          top_k=AUTOTUNE_TOP_K, device=dev,
+                          allow_low_precision=True,
+                          measure_iters=AUTOTUNE_ITERS, measure_warmup=3,
+                          check=autotune_checker(torch, records))
+        reset_launches()
+        measured = tuner.tune_all(shapes=AUTOTUNE_SHAPES)
+        counts = launch_counts()
+        for name, res in sorted(measured.items()):
+            timed = [{"config": r["config"], "predicted_s": r["predicted_s"],
+                      "measured_s": r["measured_s"]}
+                     for r in res.ranked if "measured_s" in r]
+            emit({"phase": "autotune", "kernel": name,
+                  "shapes": res.shapes, "candidates": len(res.ranked),
+                  "best": res.best, "default": res.default,
+                  "analytic_best": analytic[name].best,
+                  "predicted_best_s": res.predicted_best_s,
+                  "predicted_default_s": res.predicted_default_s,
+                  "measured_best_s": res.measured_best_s,
+                  "measured_default_s": res.measured_default_s,
+                  "measured_speedup": res.measured_speedup,
+                  "timed": timed, "launches": counts[name],
+                  **({} if timed else {
+                      "untimed": "one candidate, so the pick is fixed; "
+                                 "the kernel's time is its own phase's"})})
+            if len(res.ranked) > 1 and not (timed and counts[name]):
+                failures.append(f"the measured tune never timed {name}")
+        if TuningCache(path).entries != tuner.cache.entries:
+            failures.append("the measured cache did not round-trip")
+        trip, bad = autotune_round_trip(torch, np, seed, cm, path)
+        failures += bad
+    doc = load_results(runner.run("decode_longctx", out_dir=OUT / "campaign",
+                                  force=True, device=dev).path)
+    failures += [f"decode_longctx {b}" for b in longctx_gates(doc)]
+    buf = io.StringIO()
+    report.render_rows(report.table_for(doc), file=buf)
+    controls, bad = autotune_controls(torch, dev, cm,
+                                      AUTOTUNE_SHAPES["paged_attention"])
+    failures += [f"controls' sound path: {b}" for b in bad]
+    missed = [n for n in AUTOTUNE_MUST_CATCH if not controls[n]["caught"]]
+    emit({"phase": "autotune", "nvidia_smi": card,
+          "checked": records, "round_trip": trip,
+          "decode_longctx": [
+              {k: m[k] for k in ("ctx", "chunk_tokens", "kernel_us", "tok_s",
+                                 "default_tok_s", "speedup", "tuned_chunk",
+                                 "predicted_best_chunk", "identical_tokens",
+                                 "max_abs_err_vs_ref", "max_abs_ref")}
+              for m in (rec["metrics"] for _, rec in sorted(
+                  doc["cells"].items())
+                  if rec.get("status", "ok") == "ok")],
+          "decode_longctx_rows": buf.getvalue().splitlines()[1:],
+          "controls": {n: {"caught": c["caught"]}
+                       for n, c in controls.items()}})
+    if not all(r["ok"] for r in records):
+        failures.append("a timed candidate disagreed with its plain version")
+    if failures or missed:
+        raise AssertionError(f"autotune gates failed: {failures}; "
+                             f"controls missed: {missed}")
+
+
 def timed_once(torch, fn):
     """One call of ``fn`` between a CUDA event pair: (result, ms)."""
     torch.cuda.synchronize()
@@ -3098,6 +3536,8 @@ def main(argv=None) -> int:
     lap("hotpath")
     phase_campaign(torch, dev, args.seed, card)
     lap("campaign")
+    phase_autotune(torch, np, dev, args.seed, card)
+    lap("autotune")
     wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
     lap("wkv6_kernel")
     ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)

@@ -16,12 +16,19 @@ the same grids, quick grids, constraint, costs, tags and cell keys
                                counted by ``core.isa.sass_census`` over
                                ``nvcc -ptx`` and ``cuobjdump -sass`` of
                                one source (needs the CUDA toolkit)
+  * ``autotune``             - the tables applied: cost-model-guided launch
+                               configs per tunable kernel over the card's
+                               launch space (predicted best vs default,
+                               the measured mode timed on the device)
   * ``paged_serve``          - slot vs paged KV cache on one trace
   * ``decode_hotpath``       - the legacy blocking decode path
                                (``fused=False``) vs the fused one
+  * ``decode_longctx``       - long-context decode attention over the paged
+                               kernel's token chunk (the card's counterpart
+                               of the reference's split-KV sweep)
 
-Not ported yet: ``autotune``, ``decode_longctx``, ``telemetry_replay``,
-``traffic_scaling``, ``sharded_decode``, ``chaos_serving``.
+Not ported yet: ``telemetry_replay``, ``traffic_scaling``,
+``sharded_decode``, ``chaos_serving``.
 
 Cell runners take ``(params, quick=..., device=...)`` and return a flat-ish
 metrics dict: the reference's metrics, plus on the card the in-kernel
@@ -32,6 +39,7 @@ card (``resolve_device``), as at every entry point of the port.  The scheduler i
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
@@ -324,6 +332,192 @@ def run_decode_hotpath_cell(params: Dict[str, Any], quick: bool = False,
     return out
 
 
+# the autotune cells' problems in quick and measured mode (the
+# reference's): small enough for a CPU run of the plain versions
+AUTOTUNE_SMALL_SHAPES = {
+    "flash_attention": {"batch": 1, "seq_q": 128, "seq_kv": 128,
+                        "heads": 2, "kv_heads": 1, "head_dim": 64},
+    "paged_attention": {"batch": 2, "heads": 2, "kv_heads": 1,
+                        "head_dim": 32, "ctx": 128},
+    "ssm_scan": {"batch": 1, "seq": 64, "d_inner": 256, "state_dim": 8},
+    "wkv6": {"batch": 1, "seq": 64, "heads": 4, "head_dim": 32},
+    "mxu_probe": {"m": 256, "k": 256, "n": 256},
+}
+
+
+def run_autotune_cell(params: Dict[str, Any], quick: bool = False,
+                      device=None) -> Dict[str, Any]:
+    """Tune one kernel's launch space: analytic ranking always (the cost
+    model alone, no device), the measured top-K when mode='measured',
+    timed on ``device`` (the card by default; on the CPU the plain
+    versions)."""
+    from repro_torch.core.autotune import Autotuner
+    from repro_torch.core.costmodel import CostModel
+
+    measured = params.get("mode", "analytic") == "measured"
+    tuner = Autotuner(CostModel.from_named(params.get("calibration",
+                                                      "hopper_h100")),
+                      measure=measured, top_k=2 if quick else 3,
+                      device=device)
+    shapes = None
+    if quick or measured:
+        shapes = AUTOTUNE_SMALL_SHAPES[params["kernel"]]
+    res = tuner.tune(params["kernel"], shapes, dtype=params["dtype"])
+    out = {
+        "best_config": dict(res.best),
+        "default_config": dict(res.default),
+        "predicted_best_s": res.predicted_best_s,
+        "predicted_default_s": res.predicted_default_s,
+        "predicted_speedup": res.predicted_speedup,
+        "n_candidates": len(res.ranked),
+        "cache_key": res.key,
+    }
+    if res.measured_best_s is not None:
+        out["measured_best_s"] = res.measured_best_s
+        if res.measured_speedup is not None:
+            out["measured_speedup"] = res.measured_speedup
+    return out
+
+
+# the decode_longctx layout (the reference's): one long sequence, 4 query
+# heads over 2 KV heads of 128, 32-token pages in a permuted table
+LONGCTX_LAYOUT = dict(B=1, H=4, KH=2, D=128, bs=32)
+
+
+def longctx_inputs(ctx: int, device, pool_dtype):
+    """The decode_longctx cell's inputs from numpy's generator at seed 0,
+    drawn in the reference's order: q [B,H,D] f32, the K and V pools
+    [P,bs,KH,D] in ``pool_dtype``, a permuted table [B,NB], the context
+    lengths and a fixed random readout [H*D, 256] f32."""
+    import numpy as np
+
+    L = LONGCTX_LAYOUT
+    B, H, KH, D, bs = L["B"], L["H"], L["KH"], L["D"], L["bs"]
+    nb = -(-ctx // bs)
+    rng = np.random.default_rng(0)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device=device, dtype=dt)
+
+    q = t(rng.normal(size=(B, H, D)) * 0.3)
+    k_pages = t(rng.normal(size=(B * nb, bs, KH, D)) * 0.3, pool_dtype)
+    v_pages = t(rng.normal(size=(B * nb, bs, KH, D)) * 0.3, pool_dtype)
+    bt = torch.from_numpy(rng.permutation(B * nb).reshape(B, nb)
+                          .astype(np.int32)).to(device)
+    lens = torch.full((B,), ctx, dtype=torch.int32, device=device)
+    readout = t(rng.normal(size=(H * D, 256)))
+    return q, k_pages, v_pages, bt, lens, readout
+
+
+def run_decode_longctx_cell(params: Dict[str, Any], quick: bool = False,
+                            device=None) -> Dict[str, Any]:
+    """Long-context decode attention at one token chunk of the paged kernel
+    against the default chunk, the cost model's predicted best chunk and
+    the plain oracle.
+
+    The reference sweeps its split-KV factor, whose grid cells run in
+    sequence under interpret mode, and reports a lane-utilization proxy.
+    On the card ``num_splits`` changes no work; the kernel's own grid
+    axis is its chunk (``dim3(NC, KH, B)``, ``NC = ceil(NB*bs /
+    chunk_tokens)``), so the sweep is over ``chunk_tokens`` and the time is
+    the kernels' own: ``harness.device_time``, 20 calls in one CUDA graph
+    replayed between CUDA events, cycling over copies of the pools larger
+    than the L2 (``harness.cold_copies``), since the call's launch cost
+    (tens of microseconds) would bury kernels of a few (on the CPU the
+    plain version's ``perf_counter`` time, where the chunk changes
+    nothing).  The pools are bf16 on the card (the kernel takes only bf16
+    pools) and f32 on the CPU; q stays f32.  The cost model
+    (``hopper_h100``) ranks the chunks at this layout from the census's
+    grid alone (``predicted_best_chunk``); the analytic tuner ranks the
+    whole space (page size too) through the cache-key path, and its
+    chunk, timed at this layout's page size, is ``tuned_chunk``.  Greedy
+    tokens (argmax through a fixed random readout) at this chunk, at the
+    default and from the oracle (``kernels.ref.paged_attention_ref``) must
+    agree; ``max_abs_ref`` (max |oracle|) scales ``max_abs_err_vs_ref``."""
+    from repro_torch.core.autotune.search import Autotuner
+    from repro_torch.core.autotune.space import get_tunable
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.microbench.harness import cold_copies, device_time
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (CHUNK_TOKENS, CHUNKS,
+                                                     chunk_grid)
+    from repro_torch.kernels.ref import paged_attention_ref
+    device = resolve_device(device)
+
+    ctx, chunk = int(params["ctx"]), int(params["chunk_tokens"])
+    L = LONGCTX_LAYOUT
+    B, H, KH, D, bs = L["B"], L["H"], L["KH"], L["D"], L["bs"]
+    pool_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    dname = "bf16" if pool_dtype == torch.bfloat16 else "f32"
+    q, k_pages, v_pages, bt, lens, readout = longctx_inputs(
+        ctx, device, pool_dtype)
+
+    cm = CostModel.from_named("hopper_h100")
+    lanes = max(int(getattr(cm.hw, "n_cores", 1)), 1)
+    tn = get_tunable("paged_attention")
+    shapes = {"batch": B, "heads": H, "kv_heads": KH, "head_dim": D,
+              "ctx": ctx}
+
+    def predict_s(ct):
+        census = dict(tn.census(shapes, {"block_size": bs,
+                                         "chunk_tokens": ct}, dname))
+        census.pop("mxu_shape", None)
+        return cm.predict(census, dtype=dname).step_s
+
+    pred = {ct: predict_s(ct) for ct in CHUNKS}
+    predicted_best = min(CHUNKS, key=lambda ct: (pred[ct], ct))
+    tuned = Autotuner(cm, dtype=dname).tune("paged_attention", shapes)
+    tuned_chunk = int(tuned.best["chunk_tokens"])
+
+    def run(ct, q=q, k_pages=k_pages, v_pages=v_pages):
+        return ops.paged_attention(q, k_pages, v_pages, bt, lens,
+                                   chunk_tokens=ct)
+
+    def greedy(out):
+        logits = out.reshape(B, H * D).float() @ readout
+        return torch.argmax(logits, dim=-1).tolist()
+
+    iters = 5 if quick else 20
+    copies = cold_copies((q, k_pages, v_pages), device, limit=iters)
+    times = {}
+    for ct in dict.fromkeys((chunk, CHUNK_TOKENS, predicted_best,
+                             tuned_chunk)):
+        times[ct] = device_time(
+            [functools.partial(run, ct, *c) for c in copies], iters=iters,
+            warmup=2, device=device)
+    out_this, out_default = run(chunk), run(CHUNK_TOKENS)
+    oracle = paged_attention_ref(q, k_pages, v_pages, bt, lens)
+    toks = greedy(out_this)
+    identical = toks == greedy(out_default) == greedy(oracle)
+
+    def tok_s(ct):
+        return B / max(times[ct], 1e-12)
+
+    return {
+        "ctx": ctx, "chunk_tokens": chunk, "lanes": lanes,
+        "pool_dtype": dname, "n_chunks": chunk_grid(-(-ctx // bs), bs, chunk),
+        "kernel_us": times[chunk] * 1e6,
+        "tok_s": tok_s(chunk),
+        "default_tok_s": tok_s(CHUNK_TOKENS),
+        "speedup": tok_s(chunk) / tok_s(CHUNK_TOKENS),
+        "tuned_chunk": tuned_chunk,
+        "tuned_tok_s": tok_s(tuned_chunk),
+        "tuned_speedup": tok_s(tuned_chunk) / tok_s(CHUNK_TOKENS),
+        "predicted_s": pred[chunk],
+        "predicted_default_s": pred[CHUNK_TOKENS],
+        "predicted_speedup": pred[CHUNK_TOKENS] / max(pred[chunk], 1e-30),
+        "predicted_best_chunk": predicted_best,
+        "tuner_best_config": dict(tuned.best),
+        "tuner_cache_key": tuned.key,
+        "tokens": toks,
+        "identical_tokens": bool(identical),
+        "max_abs_err_vs_ref": float((out_this.float() - oracle.float())
+                                    .abs().max()),
+        "max_abs_ref": float(oracle.float().abs().max()),
+    }
+
+
 ISA_CASES = ("add.f32", "mul.f32", "fma.f32", "div.f32", "rsqrt.f32",
              "exp.f32", "tanh.f32", "softmax.f32", "matmul.f32",
              "reduce.f32", "gather", "scan8")
@@ -414,6 +608,24 @@ register(Experiment(
 ))
 
 register(Experiment(
+    name="autotune",
+    description="cost-model-guided kernel autotuning: ranked launch "
+                "configs per tunable kernel over the card's launch space "
+                "(analytic; 'measured' adds the top-K timed on the device)",
+    grid={"kernel": ("flash_attention", "paged_attention", "ssm_scan",
+                     "wkv6", "mxu_probe"),
+          "dtype": ("bf16",),
+          "mode": ("analytic", "measured")},
+    quick_grid={"kernel": ("flash_attention", "paged_attention", "ssm_scan",
+                           "wkv6", "mxu_probe"),
+                "dtype": ("bf16",),
+                "mode": ("analytic",)},
+    runner=run_autotune_cell,
+    cost_per_cell_s=6.0,
+    tags=("autotune", "costmodel"),
+))
+
+register(Experiment(
     name="paged_serve",
     description="slot vs paged KV-cache serving on one deterministic "
                 "mixed-length trace: tokens/s, resident KV bytes, greedy "
@@ -445,4 +657,19 @@ register(Experiment(
     runner=run_isa_cell,
     cost_per_cell_s=0.5,
     tags=("isa",),
+))
+
+register(Experiment(
+    name="decode_longctx",
+    description="long-context decode attention over the paged kernel's "
+                "token chunk: kernel time and tok/s vs the default chunk, "
+                "the cost model's predicted best chunk, greedy-token "
+                "equality vs the oracle (the reference sweeps num_splits, "
+                "which changes no work on the card; the chunk is the "
+                "kernel's own grid axis)",
+    grid={"ctx": (256, 1024, 4096), "chunk_tokens": (32, 64, 128)},
+    quick_grid={"ctx": (128, 512), "chunk_tokens": (32, 64)},
+    runner=run_decode_longctx_cell,
+    cost_per_cell_s=15.0,
+    tags=("serve", "kernels", "longctx"),
 ))

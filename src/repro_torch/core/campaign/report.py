@@ -5,17 +5,18 @@ Every function here consumes only validated result documents
 (``repro_torch.core.campaign.results``), no re-measurement, so a table can
 be rebuilt from the JSON artifacts alone, on any machine.  Rows keep the
 reference's CSV shape ``name,us_per_call,derived`` and its row names
-(``table1/...`` to ``table5/...``, ``roofline/...``, ``paged_serve/...``,
-``decode_hotpath/...``); over a document with the reference's keys a row
-is the reference's row.  The port's cells carry more: an ``isa_mapping``
-row adds ``expansion=`` (the SASS beyond the copy baseline) and a
-``decode_hotpath`` row on the card ``baseline_peak_bytes=`` and
-``fused_peak_bytes=``.
+(``table1/...`` to ``table5/...``, ``roofline/...``, ``autotune/...``,
+``paged_serve/...``, ``decode_hotpath/...``); over a document with the
+reference's keys a row is the reference's row.  ``decode_longctx/...``
+rows are the card's: the sweep is over the kernel's token chunk, not the
+reference's split factor, and the time is the kernel's own.  The port's
+cells carry more: an ``isa_mapping`` row adds ``expansion=`` (the SASS
+beyond the copy baseline) and a ``decode_hotpath`` row on the card
+``baseline_peak_bytes=`` and ``fused_peak_bytes=``.
 
 ``table_for`` renders the ported experiments' documents and refuses the
-others (``autotune``, ``decode_longctx``, ``telemetry_replay``,
-``traffic_scaling``, ``sharded_decode``, ``chaos_serving``), naming the
-experiment.
+others (``telemetry_replay``, ``traffic_scaling``, ``sharded_decode``,
+``chaos_serving``), naming the experiment.
 """
 from __future__ import annotations
 
@@ -105,6 +106,26 @@ def roofline_table(doc: Mapping[str, Any]) -> List[Row]:
     return rows
 
 
+def autotune_table(doc: Mapping[str, Any]) -> List[Row]:
+    """Tuning outcomes from an ``autotune`` result file: predicted (and,
+    for measured cells, measured) best config + speedup over default."""
+    import json as _json
+
+    rows: List[Row] = []
+    for _, p, m in _cells(doc):
+        derived = (f"best={_json.dumps(m['best_config'], sort_keys=True)};"
+                   f"default_s={m['predicted_default_s']:.3e};"
+                   f"speedup={m['predicted_speedup']:.2f};"
+                   f"candidates={m['n_candidates']}")
+        if "measured_best_s" in m:
+            derived += f";measured_s={m['measured_best_s']:.3e}"
+            if "measured_speedup" in m:
+                derived += f";measured_speedup={m['measured_speedup']:.2f}"
+        rows.append((f"autotune/{p['kernel']}.{p['dtype']}.{p['mode']}",
+                     m["predicted_best_s"] * 1e6, derived))
+    return rows
+
+
 def paged_serve_table(doc: Mapping[str, Any]) -> List[Row]:
     """Slot-vs-paged serving comparison from a ``paged_serve`` result
     file: throughput side by side with resident KV bytes, plus the
@@ -148,14 +169,38 @@ def decode_hotpath_table(doc: Mapping[str, Any]) -> List[Row]:
     return rows
 
 
+def decode_longctx_table(doc: Mapping[str, Any]) -> List[Row]:
+    """Long-context decode evidence from a ``decode_longctx`` result file:
+    tok/s at this chunk vs the default chunk, the speedup of the analytic
+    tuner's chunk at the same context, the cost model's predicted speedup
+    and best chunk, and the token-equality column; ``us_per_call`` is the
+    kernel's time."""
+    rows: List[Row] = []
+    for _, p, m in _cells(doc):
+        name = f"decode_longctx/ctx{p['ctx']}.c{p['chunk_tokens']}"
+        derived = (f"tok_s={m['tok_s']:.1f};"
+                   f"default_tok_s={m['default_tok_s']:.1f};"
+                   f"speedup={m['speedup']:.2f};"
+                   f"tuned_chunk={m['tuned_chunk']};"
+                   f"tuned_speedup={m['tuned_speedup']:.2f};"
+                   f"pred_speedup={m['predicted_speedup']:.2f};"
+                   f"pred_best_chunk={m['predicted_best_chunk']};"
+                   f"identical={m['identical_tokens']};"
+                   f"max_abs_err={m['max_abs_err_vs_ref']:.3e}")
+        rows.append((name, float(m["kernel_us"]), derived))
+    return rows
+
+
 _TABLE_FOR = {
     "alu_chain": cpi_table,
     "mxu_shapes": mxu_table,
     "memory_chase": memory_table,
     "isa_mapping": isa_table,
     "roofline_calibration": roofline_table,
+    "autotune": autotune_table,
     "paged_serve": paged_serve_table,
     "decode_hotpath": decode_hotpath_table,
+    "decode_longctx": decode_longctx_table,
 }
 def table_for(doc: Mapping[str, Any]) -> List[Row]:
     """Dispatch a result document to its paper-table renderer; raises on

@@ -79,6 +79,73 @@ def time_fn(fn, *args, iters: int = 30, warmup: int = 5,
     return float(np.median(ts))
 
 
+def cold_copies(args: Sequence, device="cuda", limit: int = 20
+                ) -> List[tuple]:
+    """``args`` and clones of its tensors, enough sets that together they
+    hold at least twice the card's L2 (read from the device), so that a
+    timer cycling over them (``device_time``) finds no call's inputs in
+    the L2, as a serving step finds each layer's KV pool; at most
+    ``limit`` sets (inputs of a few MB stay partly warm).  On the CPU
+    ``[args]``."""
+    dev = torch.device(device)
+    args = tuple(args)
+    if dev.type != "cuda":
+        return [args]
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    n = min(limit, max(1, math.ceil(2 * l2 / max(nbytes, 1))))
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args) for _ in range(n - 1)]
+
+
+def device_time(calls, iters: int = 20, warmup: int = 1,
+                device="cuda") -> float:
+    """Seconds of one call on the device, host cost left out.  ``calls``
+    is a callable or a list of them, each on its own copy of the inputs
+    (``cold_copies``): on a CUDA device ``iters`` calls, call i running
+    ``calls[i % len(calls)]``, captured in one CUDA graph (after
+    ``warmup`` rounds of every call on a side stream, as capture
+    requires), the graph replayed between one CUDA event pair, over
+    ``iters``; the median of 5 replays.  A call that reads a device
+    value on the host cannot be captured and raises.  On the CPU it is
+    ``time_fn`` of the first call.
+
+    The timer of the autotuner's measured stage, of ``decode_longctx`` and
+    of ``chip_smoke.py``'s kernel phase: their kernels run for
+    microseconds under tens of microseconds of launch cost, which
+    ``time_fn`` on the card counts."""
+    calls = list(calls) if isinstance(calls, (list, tuple)) else [calls]
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return time_fn(calls[0], iters=iters, warmup=warmup, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(max(warmup, 1)):
+            for fn in calls:
+                fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    ts = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) * 1e-3 / iters)
+    del graph
+    return float(np.median(ts))
+
+
 def time_kernels(launches: Sequence[Callable], iters: int, warmup: int = 3,
                  device="cuda", before: Optional[Callable] = None,
                  staged: bool = False

@@ -35,7 +35,10 @@ from repro_torch.kernels.ref import paged_attention_plain
 _GMAX = (1, 2, 4, 8)
 CHUNKS = (32, 64, 128)
 # tokens of a chunk: the measured best of CHUNKS at the serving shapes
-# (B=8, H=8, KH=4, D=256, 64-entry tables of 16-token pages; PERF.md)
+# (B=8, H=8, KH=4, D=256, 64-entry tables of 16-token pages; PERF.md), and
+# the autotuner's measured pick there (``chip_smoke.py`` phase autotune,
+# device time: page 16, chunk 64 over its shortlist; PERF.md).  The
+# default launch config; a tuned dispatch may pass another of CHUNKS.
 CHUNK_TOKENS = 64
 _fn = None
 

@@ -28,6 +28,8 @@ computes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -220,7 +222,10 @@ def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
                        cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
         new_kv = {"k": k_new, "v": v_new}
     elif cache is None:
-        fn = flash_fn or kops.flash_attention
+        # tuned=True: the default kernel resolves its launch config from
+        # the installed autotuner's cache (the engines install theirs
+        # around each step); without one the defaults launch
+        fn = flash_fn or functools.partial(kops.flash_attention, tuned=True)
         out_h = fn(q.contiguous(), k_new.contiguous(), v_new.contiguous(),
                    causal=True, window=window, softcap=cfg.attn_softcap,
                    scale=scale)
@@ -239,7 +244,10 @@ def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
         paged_write(pool_k, pool_v, k_new, v_new, block_tables, write_pos)
         n_blocks = pool_k.shape[0] - 1
         if Sq == 1:
-            fn = paged_fn or kops.paged_attention
+            # tuned=True: the chunk resolves from the installed tuning
+            # cache, as the flash path's launch config does
+            fn = paged_fn or functools.partial(kops.paged_attention,
+                                               tuned=True)
             out_h = fn(q[:, 0].contiguous(), pool_k[:n_blocks],
                        pool_v[:n_blocks], block_tables, write_pos + 1,
                        scale=scale, window=window,

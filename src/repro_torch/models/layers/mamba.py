@@ -15,6 +15,8 @@ path with a carried state waits for the serving slice.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -69,5 +71,6 @@ def mamba_mixer(p, x, cfg, ssm_fn=None):
     dt = F.softplus(torch.matmul(bcdt[..., 2 * N:], p["w_dt"].to(cdt)).float()
                     + p["dt_bias"])
     A = -torch.exp(p["a_log"])                                 # [di,N] f32
-    y = (ssm_fn or kops.ssm_scan)(xc, dt, Bm, Cm, A)
+    y = (ssm_fn or functools.partial(kops.ssm_scan, tuned=True))(
+        xc, dt, Bm, Cm, A)
     return (y.to(cdt) + xc * p["d_skip"].to(cdt)) * F.silu(z)

@@ -15,6 +15,8 @@ for the serving slice.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -101,7 +103,8 @@ def rwkv_time_mix(p, x, cfg, wkv_fn=None):
         torch.matmul(mixed["w"], p["w_lora_a"].to(cdt)),
         p["w_lora_b"].to(cdt))
     w = torch.exp(-torch.exp(w_log.float())).reshape(B, S, H, N)
-    y = (wkv_fn or kops.wkv6)(r, k, v, w, p["u_bonus"].to(r.dtype))
+    y = (wkv_fn or functools.partial(kops.wkv6, tuned=True))(
+        r, k, v, w, p["u_bonus"].to(r.dtype))
     y = groupnorm_heads(p["gn"], y.to(cdt).reshape(B, S, D), H) * g
     return torch.matmul(y, p["wo"].to(cdt))
 

@@ -65,12 +65,22 @@ Profiler spans: ``prefill`` (slot admission), ``prefill_chunk``,
 ``decode_step`` and ``sync`` mark the engines' kinds of work for
 ``torch.profiler`` (``launch/serve.py --profile`` reads them).
 
+Both engines take ``autotuner=`` (a ``repro_torch.core.autotune.
+Autotuner``): ``step()`` installs it as the process-global tuning handle
+for one iteration, so every kernel called with ``tuned=True`` resolves its
+launch config from that tuner's cache, and restores the previous handle
+after.  ``PagedServingEngine`` also reads the tuner's ``paged_attention``
+entry when it lays out its pool: ``block_size=None`` takes the tuned page
+size (16 without a tuner), and ``kernel_chunk``, the tuned chunk, is
+passed to every paged decode explicitly.
+
 Not ported yet (each raises ``NotImplementedError`` when passed):
-``autotuner=``, ``telemetry=``, ``mesh=`` (paged).
+``telemetry=``, ``mesh=`` (paged).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from collections import deque
@@ -81,8 +91,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ShapeCell
+from repro_torch.core import autotune
 from repro_torch.core.costmodel.analytic import analytic_census
 from repro_torch.core.costmodel.model import CostModel, Prediction
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.paged_attention import CHUNK_TOKENS
 from repro_torch.models.zoo import Model
 from repro_torch.serve.paging import (BlockAllocator, blocks_for_tokens,
                                       remap_table)
@@ -157,6 +170,20 @@ class _DeviceLoop:
     cost_model: Optional[CostModel]
     step_budget_s: Optional[float]
     _pred_cache: Dict
+    autotuner = None
+    # the paged decode attention with the engine's resolved launch config
+    # (None: the layers' default, tuned dispatch)
+    _paged_fn = None
+
+    def step(self) -> int:
+        """One iteration (``_step``), with the engine's autotuner installed
+        as the tuning handle for its duration only, so ``tuned=True``
+        kernel lookups hit this engine's cache without leaking a
+        process-global handle."""
+        if self.autotuner is not None:
+            with autotune.using(self.autotuner):
+                return self._step()
+        return self._step()
 
     def run_until_done(self, max_steps: int = 10_000) -> EngineStats:
         """Step until every request is done (or ``max_steps``), then
@@ -191,7 +218,8 @@ class _DeviceLoop:
         admission only ever write the live store); returns the logits."""
         store = self._copy_store(self.cache)
         logits, _ = self.model.decode(self.params, store, self._dev(tokens),
-                                      self._dev(pos), block_tables)
+                                      self._dev(pos), block_tables,
+                                      paged_fn=self._paged_fn)
         self.cache = store
         return logits
 
@@ -289,12 +317,14 @@ class _Row:
 class PagedServingEngine(_DeviceLoop):
     """Continuous batching over a paged KV cache with chunked prefill.
 
+    ``block_size`` defaults to the autotuner's cached ``paged_attention``
+    pick when a tuner is attached (the tunable page-size axis), else 16.
     ``n_blocks`` defaults to the slot-equivalent pool (``max_batch x
     ceil(max_len / block_size)``); a smaller pool serves the same traffic
     in less memory, with eviction keeping the engine correct."""
 
     def __init__(self, model: Model, params, *, max_batch: int = 8,
-                 max_len: int = 512, block_size: int = 16,
+                 max_len: int = 512, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None, chunk_size: int = 32,
                  cost_model: Optional[CostModel] = None,
                  step_budget_s: Optional[float] = None,
@@ -304,8 +334,9 @@ class PagedServingEngine(_DeviceLoop):
             raise ValueError("a sharded replica (mesh=...) requires the "
                              "fused decode path (fused=True); the legacy "
                              "blocking path is single-device by design")
-        _refuse_unported(autotuner=autotuner, telemetry=telemetry, mesh=mesh)
+        _refuse_unported(telemetry=telemetry, mesh=mesh)
         self.fused = fused
+        self.autotuner = autotuner
         self.model = model
         self.params = params
         self.device = model.device
@@ -314,8 +345,37 @@ class PagedServingEngine(_DeviceLoop):
         self._pred_cache: Dict = {}
         self.max_batch = max_batch
         self.max_len = max_len
+        # the tuning cache resolves both paged axes here: block_size is a
+        # cache-LAYOUT parameter (fixed at pool construction), the chunk a
+        # launch parameter every decode is given explicitly (_paged_fn);
+        # kernel_splits and kernel_chunk record the resolved values
+        cfg = model.cfg
+        self.kernel_splits, self.kernel_chunk = 1, CHUNK_TOKENS
+        tuned_cfg = None
+        if autotuner is not None:
+            shapes = {"batch": max_batch, "heads": cfg.n_heads,
+                      "kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.head_dim, "ctx": max_len}
+            tuned_cfg = autotuner.config_for("paged_attention", shapes)
+            self.kernel_splits = int(tuned_cfg.get("num_splits", 1))
+        if block_size is None:
+            block_size = (int(tuned_cfg["block_size"])
+                          if tuned_cfg is not None else 16)
         self.block_size = block_size
         self.max_blocks_per_seq = blocks_for_tokens(max_len, block_size)
+        if autotuner is not None:
+            # the decode's launch config, looked up once at the shapes
+            # ops.paged_attention sees (the table's width in tokens, the
+            # model's compute dtype) and passed to every decode, so no
+            # call looks it up again
+            run = autotuner.config_for(
+                "paged_attention",
+                dict(shapes, ctx=self.max_blocks_per_seq * block_size),
+                cfg.compute_dtype)
+            self.kernel_chunk = int(run["chunk_tokens"])
+            self._paged_fn = functools.partial(
+                kops.paged_attention, chunk_tokens=self.kernel_chunk,
+                num_splits=int(run.get("num_splits", 1)))
         if n_blocks is None:
             n_blocks = max_batch * self.max_blocks_per_seq
         if n_blocks < self.max_blocks_per_seq:
@@ -339,7 +399,8 @@ class PagedServingEngine(_DeviceLoop):
         self._rid = itertools.count()
         self._pending = None
         if fused:
-            self._step_fn = model.decode_step
+            self._step_fn = functools.partial(model.decode_step,
+                                              paged_fn=self._paged_fn)
             self._toks = self._dev(np.zeros(max_batch, np.int32))
 
     # -- public ---------------------------------------------------------------
@@ -523,7 +584,7 @@ class PagedServingEngine(_DeviceLoop):
                 req.tokens.append(row.last_tok)
 
     # -- the engine iteration -------------------------------------------------
-    def step(self) -> int:
+    def _step(self) -> int:
         """One iteration: plan, run prefill chunks, dispatch the decode,
         then drain the PREVIOUS step, so step N's tokens are read only
         after step N+1 is queued on the device.  Returns the number of
@@ -685,8 +746,9 @@ class ServingEngine(_DeviceLoop):
                  max_len: int = 512, cost_model: Optional[CostModel] = None,
                  step_budget_s: Optional[float] = None, autotuner=None,
                  telemetry=None, fused: bool = True):
-        _refuse_unported(autotuner=autotuner, telemetry=telemetry)
+        _refuse_unported(telemetry=telemetry)
         self.fused = fused
+        self.autotuner = autotuner
         self.model = model
         self.params = params
         self.device = model.device
@@ -825,7 +887,7 @@ class ServingEngine(_DeviceLoop):
             if hit_eos or out_of_budget or out_of_cache:
                 self._retire(i)
 
-    def step(self) -> int:
+    def _step(self) -> int:
         """One iteration: admit (host work in the shadow of the in-flight
         step), dispatch step N over every slot, then drain step N-1, so a
         step's tokens are read only after the next step is queued on the

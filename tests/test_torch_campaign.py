@@ -30,8 +30,10 @@ from repro_torch.core.microbench import harness as tharness
 from repro_torch.core.microbench import tables
 
 EXPERIMENTS = tables.CALIBRATION_EXPERIMENTS
-# the experiments beyond calibration (tests/test_torch_isa.py)
-PORTED = ("paged_serve", "decode_hotpath", "isa_mapping")
+# the experiments beyond calibration (tests/test_torch_isa.py,
+# tests/test_torch_autotune.py)
+PORTED = ("paged_serve", "decode_hotpath", "isa_mapping", "autotune",
+          "decode_longctx")
 
 
 @pytest.mark.parametrize("quick", [True, False])

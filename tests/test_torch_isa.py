@@ -235,8 +235,8 @@ def test_report_rows_carry_the_ports_keys():
         ";baseline_peak_bytes=10;fused_peak_bytes=9")
 
 
-UNPORTED = ("autotune", "decode_longctx", "telemetry_replay",
-            "traffic_scaling", "sharded_decode", "chaos_serving")
+UNPORTED = ("telemetry_replay", "traffic_scaling", "sharded_decode",
+            "chaos_serving")
 
 
 @pytest.mark.parametrize("name", UNPORTED)
@@ -244,6 +244,54 @@ def test_table_for_refuses_an_unported_experiment(name):
     assert name in jreport._TABLE_FOR
     with pytest.raises(ValueError, match=f"{name}.*not ported"):
         treport.table_for({"experiment": name, "cells": {}})
+
+
+# the port's decode_longctx metrics and row parts -> the reference's: the
+# sweep is over the card's token chunk, and the time is the kernel's own
+LONGCTX_FIELDS = {"chunk_tokens": "num_splits", "tok_s": "proxy_tok_s",
+                  "default_tok_s": "unsplit_proxy_tok_s",
+                  "tuned_chunk": "tuned_splits",
+                  "predicted_best_chunk": "predicted_best_splits",
+                  "kernel_us": "wall_us"}
+LONGCTX_ROW = ((".c", ".s"), ("tok_s=", "proxy_tok_s="),
+               ("default_proxy_tok_s=", "unsplit_tok_s="),
+               ("tuned_chunk=", "tuned_splits="),
+               ("pred_best_chunk=", "pred_best_splits="))
+
+
+def _longctx_as_reference(doc):
+    """The port's decode_longctx document with its fields under the
+    reference's names."""
+    out = json.loads(json.dumps(doc))
+    for rec in out["cells"].values():
+        for part in (rec["params"], rec["metrics"]):
+            for mine, theirs in LONGCTX_FIELDS.items():
+                if mine in part:
+                    part[theirs] = part.pop(mine)
+    return out
+
+
+@pytest.mark.parametrize("name", ["autotune", "decode_longctx"])
+def test_table_for_renders_like_the_reference(name, tmp_path):
+    """autotune: the port's rows are the reference's on the same document;
+    decode_longctx: they are the reference's on it with the port's fields
+    renamed to the reference's, less the port's own max_abs_err column."""
+    rep = trunner.run(name, out_dir=tmp_path, quick=True, device="cpu")
+    doc = load_results(rep.path)
+    rows = treport.table_for(doc)
+    assert rows and rep.failed == 0
+    if name == "autotune":
+        assert rows == jreport.table_for(doc)
+        return
+    want = jreport.table_for(_longctx_as_reference(doc))
+    got = []
+    for row_name, us, derived in rows:
+        derived = derived.rsplit(";max_abs_err=", 1)[0]
+        for mine, theirs in LONGCTX_ROW:
+            row_name = row_name.replace(mine, theirs)
+            derived = derived.replace(mine, theirs)
+        got.append((row_name, us, derived))
+    assert got == want
 
 
 def test_report_command_renders_result_files(tmp_path, capsys):
@@ -259,10 +307,10 @@ def test_report_command_renders_result_files(tmp_path, capsys):
     jreport.render_rows(jreport.table_for(DOCS["paged_serve"])
                         + jreport.table_for(DOCS["isa_mapping"]), file=buf)
     assert out == buf.getvalue().splitlines()
-    bad = tmp_path / "autotune.json"
+    bad = tmp_path / "telemetry_replay.json"
     bad.write_text(json.dumps(dict(DOCS["paged_serve"],
-                                   experiment="autotune")))
-    with pytest.raises(SystemExit, match="autotune"):
+                                   experiment="telemetry_replay")))
+    with pytest.raises(SystemExit, match="telemetry_replay"):
         cli_main(["report", str(bad)])
 
 

@@ -53,7 +53,10 @@ def test_port_imports_without_jax_or_repro():
                 "core.costmodel.memory", "core.costmodel.mxu",
                 "core.costmodel.model", "core.costmodel.analytic",
                 "core.costmodel.cli", "core.costmodel.__main__",
-                "core.isa", "core.isa.sass_census"):
+                "core.isa", "core.isa.sass_census", "core.autotune",
+                "core.autotune.cache", "core.autotune.space",
+                "core.autotune.search", "core.autotune.cli",
+                "core.autotune.__main__"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 

@@ -141,7 +141,7 @@ def test_gather_pages_matches_jax():
 def test_num_splits_resolution():
     """explicit > config= > default, clamped to the table width."""
     assert tops.resolve_kernel_config("paged_attention") == {
-        "block_size": 16, "num_splits": 1}
+        "block_size": 16, "num_splits": 1, "chunk_tokens": 64}
     got = tops.resolve_kernel_config("paged_attention",
                                      config={"num_splits": 4},
                                      explicit={"num_splits": 2})

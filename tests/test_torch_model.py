@@ -7,6 +7,9 @@ away from zero so ``1 + scale`` is exercised) are converted with
 ``params_from_jax``; both packages then run the same chunked prefill and
 decode steps over their paged pools, with contexts past the window.
 Tolerance: logits atol 1e-4 (f32; other summation order across 2 layers).
+The other dense decoders (gemma3-1b, internlm2-20b, yi-34b), reduced the
+same way, are held at the same tolerance through a prefill and decode
+steps over the slot cache.
 """
 import jax
 import jax.numpy as jnp
@@ -139,3 +142,37 @@ def test_seeded_init_is_deterministic_and_shaped():
     lim = cfg.d_model ** -0.5
     assert float(a["layers"][0]["attn"]["wk"].abs().max()) <= lim
     assert float(a["ln_f"]["scale"].abs().max()) == 0.0
+
+
+DENSE_ARCHS = ("gemma3-1b", "internlm2-20b", "yi-34b")
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_arch_logits_match_jax(arch):
+    """The other dense decoders, reduced (2 layers, vocab 128) in f32 from
+    the JAX package's seed-0 init through ``params_from_jax``: a prefill of
+    a 13-token prompt into a 24-position slot cache, then 4 decode steps
+    over it; logits within atol 1e-4 (other summation order over 2
+    layers)."""
+    kw = dict(n_layers=2, vocab_size=128, compute_dtype="float32")
+    jm = jbuild(jreduced(JARCHS[arch], **kw))
+    cfg = reduced(ARCHS[arch], **kw)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(cfg, device="cpu")
+    tparams = params_from_jax(jax.device_get(jparams), cfg, "cpu")
+    toks = np.random.default_rng(7).integers(0, 128, size=(2, 13)) \
+        .astype(np.int32)
+    lj, cj = jm.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=24)
+    lt, ct = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                        max_len=24)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
+    nxt = np.asarray(lj).argmax(-1).astype(np.int32)
+    pos = np.full(2, 13, np.int32)
+    for _ in range(4):
+        lj, cj = jm.decode(jparams, cj, jnp.asarray(nxt[:, None]),
+                           jnp.asarray(pos))
+        lt, ct = tm.decode(tparams, ct, torch.from_numpy(nxt[:, None]),
+                           torch.from_numpy(pos))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
+        nxt = np.asarray(lj).argmax(-1).astype(np.int32)
+        pos = pos + 1

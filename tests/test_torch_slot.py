@@ -257,7 +257,7 @@ def test_deferred_count_excludes_requests_that_would_fit():
 
 def test_engine_refuses_unported_options_and_long_prompts():
     _, _, _, tm, tparams = _models()
-    for kw in (dict(autotuner=object()), dict(telemetry=object())):
+    for kw in (dict(telemetry=object()),):
         with pytest.raises(NotImplementedError):
             ServingEngine(tm, tparams, max_batch=2, max_len=16, **kw)
     eng = ServingEngine(tm, tparams, max_batch=2, max_len=16)
