@@ -187,7 +187,35 @@ exits non-zero):
    timed candidate with its context one token short at ctx 1,024, an
    unlaunchable cached chunk replaced by the default, decode_longctx's
    kernel one token short at ctx 4,096).
-15. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
+15. telemetry: the telemetry layer (``repro_torch.serve.telemetry``) on
+   the card, after autotune: (a) the drift and overload scenarios of the
+   sim harness with the fake model's tensors on the card, their result
+   dicts equal to the CPU's (``scenario_gate``); (b) phase serve's model
+   and trace in the fused paged engine priced by the committed H100
+   table, ``TELEMETRY_RUNS`` runs each with a ``TelemetryController``
+   (drift gate 10%, recalibration on) and without, interleaved: gated on
+   equal steps, syncs, uploads and decode dispatches, no device read in
+   a step record (``record_sync_gate``), one step record a counted step
+   and one request record a completion, every drift sample attributable
+   (``attribution_gate``), paged attention in every layer of every decode,
+   and the snapshot's round trip (``chiprun_out/telemetry_snapshot.json``);
+   it prints the recalibration events, the decode prediction's error at
+   the first event and after it, the host step's p50 and p99 and tok/s on
+   and off (least and most); (c) the same engine, priced by the model (b)
+   recalibrated, the trace's requests arriving one every
+   ``SLO_ARRIVAL_GAP`` iterations, first without an SLO and then under
+   one at ``SLO_TARGET_FACTOR`` of that run's p99 (the sim overload
+   scenario's bucket: window ``SLO_WINDOW``, burst one step's rate, no
+   increase): every request completes and first placements stay FIFO,
+   with p99 held or not, deferrals and the requests shed (newest first,
+   the steps each lost) as readings; reduced f32 gemma2 (phase hotpath's
+   trace) for token parity with telemetry on and off, and under the SLO
+   against the ungated run of the same arrivals (``telemetry_reduced``);
+   and
+   ``TELEMETRY_MUST_CATCH`` (a record reading the device, mixed steps fed
+   to the detector as decode samples, a retirement stamped by the wall
+   clock in place of the injected one).
+16. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
    f32; block_h 1, which changes no value on the card) in three cases
@@ -201,7 +229,7 @@ exits non-zero):
    step late, w rounded to bf16, u's term dropped, head 0's u for every
    head; the state zeroed every 256 steps, one thread's rows left out of
    y), which they must catch; then "long" and "fast" in f32 at B=1.
-16. ssm_kernel: the selective-scan kernel against its plain version on the
+17. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
    f32; block_d 256 -> 64) in two cases (``SSM_CASES``): "eval", init_mamba's
@@ -215,7 +243,7 @@ exits non-zero):
    every 256 steps, the last state's term left out of y), and the
    kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
    biased exponential shows against the f32 tolerance.
-17. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+18. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
    ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
@@ -226,11 +254,11 @@ exits non-zero):
    holds controls, the plain version with a fault injected (an input one
    step late; in bf16 also the decay rounded to bf16 and ``u`` left in
    f32); the gates must catch those ``MUST_CATCH`` names.
-18. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+19. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
    its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
    with a CUDA event pair around each call of the recurrence kernel.
-19. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+20. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
 A ``timing`` line gives each phase's seconds; the line before the last
@@ -241,6 +269,8 @@ sources beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -894,24 +924,31 @@ def phase_serve(torch, np, dev, seed):
     return model, params, prompts, launches, toks
 
 
-def drive(torch, eng):
-    """Step ``eng`` to the end under sync debugging ("error"), with every
-    launch count zeroed just before; returns each step's host ms, the
-    run's wall seconds and the launch counts read just after."""
+def drive(torch, eng, arrive=None):
+    """Step ``eng`` to the end under sync debugging ("error") on the card,
+    with every launch count zeroed just before; returns each step's host
+    ms, the run's wall seconds and the launch counts read just after.
+    ``arrive(i)``, when given, submits what arrives before iteration ``i``
+    and returns whether more is still to come."""
     step_ms = []
+    cuda = eng.device.type == "cuda"
     reset_launches()
-    torch.cuda.set_sync_debug_mode("error")
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
     t_run = time.perf_counter()
     try:
-        while True:
+        for i in itertools.count():
+            more = arrive(i) if arrive is not None else False
             t0 = time.perf_counter()
             active = eng.step()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-            if active == 0 and not eng.queue:
+            if active == 0 and not eng.queue and not more:
                 break
     finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    if cuda:
+        torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     return step_ms, run_s, launch_counts()
 
@@ -2916,6 +2953,532 @@ def phase_autotune(torch, np, dev, seed, card):
                              f"controls missed: {missed}")
 
 
+# -- phase telemetry: the sim harness and the telemetry layer on the card ----
+# Fault controls the telemetry gates must catch: a step record that reads a
+# device value (the sync gate), a controller that feeds steps with a decode
+# and prefill chunks to the drift detector as decode samples (the
+# attribution check), and a retirement stamped by the wall clock in place
+# of the engine's injected clock (the sim scenarios' exact latencies).
+TELEMETRY_MUST_CATCH = ("record_reads_device", "mixed_fed",
+                        "wall_clock_retire")
+TELEMETRY_GATE = 0.10         # the drift detector's gate (the cost CLI's bar)
+TELEMETRY_RUNS = 3            # full-width runs with telemetry on, and off
+SLO_TARGET_FACTOR = 0.8       # the SLO's p99 target over the ungated p99
+SLO_ARRIVAL_GAP = 2           # (c): one request arrives every 2 iterations
+SLO_WINDOW = 8                # (c): the bucket of the sim overload scenario
+# the strings a refused device read raises with: sync debugging on the
+# card, ``_reads_raise``'s refusal on the CPU
+READ_REFUSALS = {"cuda": "synchronizing", "cpu": "read a tensor"}
+# tensor read-backs refused while a step record is built on the CPU
+_TENSOR_READS = ("item", "tolist", "numpy", "__int__", "__float__",
+                 "__index__", "__bool__")
+
+
+@contextlib.contextmanager
+def telemetry_fault(name):
+    """Inject a fault of ``TELEMETRY_MUST_CATCH`` into every engine (or
+    controller) for the duration of the block."""
+    from repro_torch.serve.engine import _DeviceLoop
+    from repro_torch.serve.telemetry import TelemetryController
+
+    if name == "record_reads_device":
+        cls, attr = _DeviceLoop, "_step_record"
+        build = cls._step_record
+
+        def fault(self, *args, **kw):
+            int(self._toks[0])                    # the newest token, read
+            return build(self, *args, **kw)
+    elif name == "mixed_fed":
+        cls, attr = TelemetryController, "_feed_drift"
+
+        def fault(self, record):
+            if record.decode_ran:                 # mixed steps included
+                event = self.detector.observe(
+                    "decode", self._decode_bucket, record.predicted_decode_s,
+                    record.measured_s)
+                if event is not None:
+                    self._apply(event, record)
+    elif name == "wall_clock_retire":
+        cls, attr = _DeviceLoop, "_stamp_retired"
+        stamp = cls._stamp_retired
+
+        def fault(self, req):
+            clock, self._clock = self._clock, time
+            try:
+                stamp(self, req)
+            finally:
+                self._clock = clock
+    else:
+        raise ValueError(name)
+    saved = cls.__dict__[attr]
+    setattr(cls, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, saved)
+
+
+@contextlib.contextmanager
+def _reads_raise(torch, device):
+    """Make a device read raise: sync debugging set to "error" on the card;
+    on the CPU, where a read does not sync, the tensor read-backs."""
+    if device.type == "cuda":
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        return
+    saved = {n: torch.Tensor.__dict__.get(n) for n in _TENSOR_READS}
+
+    def refuse(*args, **kw):
+        raise RuntimeError("a step record read a tensor")
+    for n in _TENSOR_READS:
+        setattr(torch.Tensor, n, refuse)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            if f is None:
+                delattr(torch.Tensor, n)
+            else:
+                setattr(torch.Tensor, n, f)
+
+
+@contextlib.contextmanager
+def record_sync_gate(torch):
+    """The sync gate of the step records: each record built in the block is
+    built with device reads raising (``_reads_raise``), so a record that
+    reads a device value fails the run."""
+    from repro_torch.serve.engine import _DeviceLoop
+
+    build = _DeviceLoop.__dict__["_step_record"]
+
+    def guarded(self, *args, **kw):
+        with _reads_raise(torch, self.device):
+            return build(self, *args, **kw)
+    _DeviceLoop._step_record = guarded
+    try:
+        yield
+    finally:
+        _DeviceLoop._step_record = build
+
+
+def attribution_spy(ctl):
+    """Record each sample ``ctl``'s drift detector is fed, as (kind, the
+    step record it came from)."""
+    fed, current = [], [None]
+    on_step, observe = ctl.on_step, ctl.detector.observe
+
+    def spy_step(record):
+        current[0] = record
+        on_step(record)
+
+    def spy_observe(kind, *args, **kw):
+        fed.append((kind, current[0]))
+        return observe(kind, *args, **kw)
+    ctl.on_step, ctl.detector.observe = spy_step, spy_observe
+    return fed
+
+
+def attribution_gate(fed, records):
+    """The attribution check: the detector is fed every pure-decode step as
+    a decode sample, in order, and nothing else (the engines bind the
+    controller before ``chunk_size`` is set, as the JAX engines do, so it
+    has no chunk bucket)."""
+    def kind(r):
+        return "decode" if r.decode_ran and not r.n_prefill_units else None
+    want = [(kind(r), r.step) for r in records if kind(r)]
+    got = [(k, r.step) for k, r in fed]
+    if got == want:
+        return []
+    wrong = [f"step {r.step} ({r.n_prefill_units} chunks, decode "
+             f"{r.decode_ran}) fed as {k}" for k, r in fed if kind(r) != k]
+    return [f"{len(got)} samples fed, {len(want)} attributable"] + wrong[:3]
+
+
+def placement_spy(eng):
+    """{rid: the step that placed it} of a paged engine (a replayed
+    request keeps its last placement)."""
+    placed, place = {}, eng._place
+
+    def spy(req):
+        idx = place(req)
+        if idx is not None:
+            placed[req.rid] = eng.stats.steps + 1
+        return idx
+    eng._place = spy
+    return placed
+
+
+def telemetry_controller(target_p99_s=None):
+    """The controller of the live runs: a drift detector at the 10% gate,
+    recalibration applied, and, given a p99 target, the token bucket of
+    the sim overload scenario (its rate pinned after each cut, its burst
+    one step's rate, adapted every ``SLO_WINDOW`` steps)."""
+    from repro_torch.serve.telemetry import (SLO, DriftDetector,
+                                             TelemetryController, TokenBucket)
+    bucket = None
+    if target_p99_s is not None:
+        bucket = TokenBucket(SLO(target_p99_s=target_p99_s,
+                                 window=SLO_WINDOW, increase=0.0),
+                             burst_factor=1.0)
+    return TelemetryController(drift=DriftDetector(TELEMETRY_GATE),
+                               slo=bucket, recalibrate=True)
+
+
+def telemetry_serve(torch, make, prompts, max_new, ctl=None, gap=0):
+    """Serve ``prompts`` through ``make(ctl)`` (``drive``) under the record
+    sync gate, the controller's detector and the engine's placements
+    spied: all before the first step (``gap`` 0), or one arriving every
+    ``gap`` iterations, so that a run with an SLO and one without see the
+    same arrivals, iteration for iteration."""
+    eng = make(ctl)
+    fed = attribution_spy(ctl) if ctl is not None else []
+    placed = placement_spy(eng)
+    rids, arrived = [], {}
+
+    def arrive(i):
+        while len(rids) < len(prompts) and len(rids) * gap <= i:
+            rid = eng.submit(prompts[len(rids)], max_new_tokens=max_new)
+            rids.append(rid)
+            arrived[rid] = eng.stats.steps + 1
+        return len(rids) < len(prompts)
+    with record_sync_gate(torch):
+        step_ms, run_s, counts = drive(torch, eng, arrive)
+    return {"eng": eng, "ctl": ctl, "fed": fed, "placed": placed,
+            "arrived": arrived,
+            "tokens": [eng.done[r].tokens for r in rids], "run_s": run_s,
+            "counts": counts}
+
+
+TELEMETRY_COUNTERS = ("steps", "host_syncs", "table_uploads",
+                      "decode_dispatches")
+
+
+def telemetry_run_gates(run, n_req):
+    """A run's gates: every request completed; with telemetry, one step
+    record for each counted (productive) step, one request record for each
+    completed request, every drift sample attributable."""
+    eng, ctl = run["eng"], run["ctl"]
+    st = eng.stats
+    bad = [] if st.completed == n_req else [
+        f"completed {st.completed} of {n_req}"]
+    if ctl is None:
+        return bad
+    steps = ctl.sink.steps()
+    if [r.step for r in steps] != list(range(1, st.steps + 1)):
+        bad.append(f"{len(steps)} step records for {st.steps} steps")
+    if sorted(r.rid for r in ctl.sink.requests()) != sorted(eng.done):
+        bad.append(f"{len(ctl.sink.requests())} request records for "
+                   f"{st.completed} completed")
+    return bad + attribution_gate(run["fed"], steps)
+
+
+def _counters(run):
+    return {k: getattr(run["eng"].stats, k) for k in TELEMETRY_COUNTERS}
+
+
+def telemetry_scenarios(dev):
+    """Both sim scenarios with the fake model's tensors on ``dev``."""
+    from repro_torch.serve.telemetry.scenarios import (run_drift_scenario,
+                                                       run_overload_scenario)
+    return {"drift": run_drift_scenario(device=dev),
+            "overload": run_overload_scenario(device=dev)}
+
+
+def scenario_gate(got, want):
+    """The sim scenarios' exact check: every field of each result dict
+    equal to the reference run's (the fake's arithmetic is integer and
+    the clock scripted, so latencies are exact); returns the fields that
+    differ."""
+    return [f"{name}.{k}" for name in want
+            for k in sorted(set(want[name]) | set(got[name]))
+            if got[name].get(k) != want[name].get(k)]
+
+
+def drift_readings(ctl):
+    """The controller's recalibrations and the decode prediction's error:
+    at the first event (its windowed error) and after it (the median over
+    the pure-decode steps priced by the corrected model), with the
+    detector's window at the end."""
+    from repro_torch.serve.telemetry.metrics import quantile
+
+    events = ctl.recalibrations
+    after = None
+    if events:
+        post = [abs(r.measured_s / r.predicted_decode_s - 1.0)
+                for r in ctl.sink.steps()
+                if r.decode_ran and r.n_prefill_units == 0
+                and r.step > events[0].step and r.predicted_decode_s > 0]
+        after = quantile(post, 0.5) if post else None
+    return {"events": [{k: e.as_dict()[k] for k in (
+                "kind", "bucket", "ratio", "error", "step", "bottleneck",
+                "applied", "calibration_before", "calibration_after")}
+                       for e in events],
+            "error_before": events[0].error if events else None,
+            "error_after": after,
+            "decode_window_error_at_end": ctl.detector.error(
+                "decode", ctl._decode_bucket)}
+
+
+def telemetry_run_line(run):
+    """One telemetry-on run in brief: its events (step, kind, ratio), the
+    decode prediction's error after the first, the host step's p50 and
+    p99."""
+    from repro_torch.serve.telemetry.metrics import quantile
+
+    ctl = run["ctl"]
+    measured = [r.measured_s for r in ctl.sink.steps()]
+    return {"events": [(e.step, e.kind, e.ratio)
+                       for e in ctl.recalibrations],
+            "error_after": drift_readings(ctl)["error_after"],
+            "step_p50_ms": 1e3 * quantile(measured, 0.5),
+            "step_p99_ms": 1e3 * quantile(measured, 0.99)}
+
+
+def _waits(run):
+    """{rid: steps from its arrival to its (last) placement}."""
+    return {rid: step - run["arrived"][rid]
+            for rid, step in run["placed"].items()}
+
+
+def slo_readings(run, ungated, target):
+    """The SLO run against the ungated run of the same arrivals: p99 over
+    every step and, as the sim overload scenario reads it, after the
+    bucket's first window, against the target; the deferrals, and what
+    was shed: each request that waited longer for its placement than
+    without the SLO, newest first, with the steps it lost; and the most
+    chunks and the largest planned seconds of a step, which the bucket's
+    rate must fall under before it defers anything."""
+    from repro_torch.serve.telemetry.metrics import quantile
+
+    ctl, st = run["ctl"], run["eng"].stats
+    measured = [r.measured_s for r in ctl.sink.steps()]
+    p99 = quantile(measured[SLO_WINDOW:], 0.99)
+    waits, base = _waits(run), _waits(ungated)
+    shed = sorted(((rid, w - base[rid]) for rid, w in waits.items()
+                   if w > base[rid]), reverse=True)
+    return {"target_p99_s": target, "p99_s": p99,
+            "p99_all_steps_s": quantile(measured, 0.99),
+            "ungated_p99_s": quantile(
+                [r.measured_s for r in ungated["ctl"].sink.steps()], 0.99),
+            "held": p99 <= target,
+            "deferred_prefills": st.deferred_prefills, "steps": st.steps,
+            "ungated_steps": ungated["eng"].stats.steps,
+            "admission_order": list(st.admission_order),
+            "most_chunks_a_step": max(r.n_prefill_units
+                                      for r in ctl.sink.steps()),
+            "largest_planned_s": max(r.predicted_s
+                                     for r in ctl.sink.steps()),
+            "waited_steps": waits, "ungated_waited_steps": base,
+            "shed_newest_first": shed,
+            "bucket_windows": ctl.bucket.windows,
+            "bucket_violations": ctl.bucket.violations,
+            "rate_trace_s": ctl.bucket.rate_trace,
+            "recalibrations": len(ctl.recalibrations)}
+
+
+def slo_gates(run, n_req):
+    """The SLO run's gates: every admitted request completes and admission
+    stays FIFO: first placements in request order (an evicted request is
+    placed again, from the queue's head; whether p99 holds is a
+    reading)."""
+    order = run["eng"].stats.admission_order
+    first = [rid for i, rid in enumerate(order) if rid not in order[:i]]
+    bad = telemetry_run_gates(run, n_req)
+    if first != sorted(first):
+        bad.append(f"admission not FIFO: {first}")
+    return bad
+
+
+def slo_runs(serve, cm, n_req):
+    """(c): the requests arriving one every ``SLO_ARRIVAL_GAP`` iterations,
+    priced by ``cm``, without an SLO and then under one at
+    ``SLO_TARGET_FACTOR`` of that run's p99.  Returns (ungated, gated,
+    target, failures)."""
+    from repro_torch.serve.telemetry.metrics import quantile
+
+    ungated = serve(telemetry_controller(), cm, SLO_ARRIVAL_GAP)
+    target = SLO_TARGET_FACTOR * quantile(
+        [r.measured_s for r in ungated["ctl"].sink.steps()], 0.99)
+    gated = serve(telemetry_controller(target), cm, SLO_ARRIVAL_GAP)
+    failures = [f"ungated: {b}" for b in telemetry_run_gates(ungated, n_req)]
+    failures += [f"slo: {b}" for b in slo_gates(gated, n_req)]
+    return ungated, gated, target, failures
+
+
+def record_read_caught(torch, dev, run):
+    """Control ``record_reads_device``: ``run()`` under the fault.  Caught
+    (the refusal's message) only when the record's device read was
+    refused, by sync debugging on the card or ``_reads_raise`` on the
+    CPU; any other error is raised, not counted."""
+    with telemetry_fault("record_reads_device"):
+        try:
+            run()
+        except RuntimeError as e:
+            if READ_REFUSALS[torch.device(dev).type] not in str(e):
+                raise
+            return [str(e)[:200]]
+    return []
+
+
+def telemetry_reduced(torch, np, seed, dev="cuda"):
+    """Reduced f32 gemma2 (phase hotpath's model and trace) through the
+    paged engine on ``dev``, priced by the committed H100 table: tokens
+    with telemetry on equal to those with it off, and, with the arrivals
+    of (c) priced by the model the telemetry run recalibrated, tokens
+    under the SLO equal to the ungated run's; then the controls
+    ``record_reads_device`` (caught only by the read refusal itself) and
+    ``mixed_fed``.  Returns (readings, failures, {control: what caught
+    it})."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import PagedServingEngine
+
+    cfg = reduced(get_config("gemma2-2b"), n_layers=2, vocab_size=128,
+                  compute_dtype="float32")
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(1, 31, size=32)]
+    model = build_model(cfg, device=dev)
+    params = params_to(build_model(cfg, device="cpu").init(seed), dev)
+
+    def serve(ctl, cm=None, gap=0):
+        return telemetry_serve(torch, lambda c: PagedServingEngine(
+            model, params, max_batch=4, max_len=48, block_size=8,
+            n_blocks=10, chunk_size=8, telemetry=c,
+            cost_model=cm or CostModel.from_named("hopper_h100")),
+            prompts, 4, ctl, gap)
+
+    off, on = serve(None), serve(telemetry_controller())
+    failures = [f"telemetry on: {b}" for b in telemetry_run_gates(
+        on, len(prompts))]
+    if on["tokens"] != off["tokens"]:
+        failures.append("tokens differ with telemetry on")
+    if _counters(on) != _counters(off):
+        failures.append(f"counters {_counters(on)} != {_counters(off)}")
+    ungated, slo, target, bad = slo_runs(serve, on["eng"].cost_model,
+                                         len(prompts))
+    failures += bad
+    if slo["tokens"] != ungated["tokens"]:
+        failures.append("tokens differ under the SLO")
+    caught = {"record_reads_device": record_read_caught(
+        torch, dev, lambda: serve(telemetry_controller()))}
+    with telemetry_fault("mixed_fed"):
+        run = serve(telemetry_controller())
+    caught["mixed_fed"] = attribution_gate(run["fed"],
+                                           run["ctl"].sink.steps())
+    readings = {"steps": on["eng"].stats.steps,
+                "distinct_tokens": len({t for r in on["tokens"] for t in r}),
+                "identical_on_off": on["tokens"] == off["tokens"],
+                "identical_slo": slo["tokens"] == ungated["tokens"],
+                "drift": drift_readings(on["ctl"]),
+                "slo": slo_readings(slo, ungated, target)}
+    return readings, failures, caught
+
+
+def phase_telemetry(torch, np, dev, seed, card):
+    """The telemetry layer on the card: (a) both sim scenarios with the fake
+    model's tensors on the card, equal to the CPU's dicts; (b) a live drift
+    loop over phase serve's model and trace in the fused paged engine
+    priced by the committed H100 table, ``TELEMETRY_RUNS`` runs each with
+    telemetry on and off; (c) the same engine, priced by the model (b)
+    recalibrated, with the trace's requests arriving one every
+    ``SLO_ARRIVAL_GAP`` iterations, without an SLO and then under one at
+    ``SLO_TARGET_FACTOR`` of that run's p99 (``slo_runs``); the reduced
+    f32 token parity of ``telemetry_reduced``, and
+    ``TELEMETRY_MUST_CATCH``."""
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.serve.engine import PagedServingEngine
+    from repro_torch.serve.telemetry import load_snapshot
+    from repro_torch.serve.telemetry.metrics import quantile
+
+    failures, controls = [], {}
+    want = telemetry_scenarios("cpu")
+    with record_sync_gate(torch):
+        got = telemetry_scenarios(dev)
+    failures += [f"sim on the card: {k} differs"
+                 for k in scenario_gate(got, want)]
+    with telemetry_fault("wall_clock_retire"):
+        controls["wall_clock_retire"] = scenario_gate(
+            telemetry_scenarios(dev), want)
+
+    cfg, model, params, prompts = serve_setup(np, dev, seed)
+    kw = dict(max_batch=8, max_len=1024, block_size=16, chunk_size=64)
+
+    def make(cm):
+        return lambda ctl: PagedServingEngine(model, params, cost_model=cm,
+                                              telemetry=ctl, **kw)
+    warm = PagedServingEngine(model, params, **kw)
+    warm.submit(prompts[0][:40], max_new_tokens=4)
+    warm.run_until_done()
+    del warm
+    live = {"on": [], "off": []}
+    for _ in range(TELEMETRY_RUNS):
+        for label in ("off", "on"):
+            ctl = telemetry_controller() if label == "on" else None
+            live[label].append(telemetry_serve(
+                torch, make(CostModel.from_named("hopper_h100")), prompts,
+                32, ctl))
+    first = live["on"][0]
+    for label, runs in live.items():
+        for i, run in enumerate(runs):
+            failures += [f"{label} run {i}: {b}"
+                         for b in telemetry_run_gates(run, len(prompts))]
+            if _counters(run) != _counters(first):
+                failures.append(f"{label} run {i}: counters {_counters(run)}"
+                                f" != {_counters(first)}")
+            launches = run["counts"]["paged_attention"]
+            want_l = cfg.n_layers * run["eng"].stats.decode_dispatches
+            if launches != want_l:
+                failures.append(f"{label} run {i}: {launches} paged "
+                                f"launches != {want_l}")
+    snap = first["ctl"].sink.save(OUT / "telemetry_snapshot.json")
+    if load_snapshot(snap) != json.loads(json.dumps(
+            first["ctl"].sink.snapshot())):
+        failures.append("the snapshot did not round-trip")
+    measured = [r.measured_s for r in first["ctl"].sink.steps()]
+    line = {"step_records": len(measured),
+            "request_records": len(first["ctl"].sink.requests()),
+            "counters": _counters(first),
+            "drift": drift_readings(first["ctl"]),
+            "on_runs": [telemetry_run_line(r) for r in live["on"]],
+            "measured_step_p50_ms": 1e3 * quantile(measured, 0.5),
+            "measured_step_p99_ms": 1e3 * quantile(measured, 0.99),
+            "tok_per_s": {}}
+    for label, runs in live.items():
+        v = [r["eng"].stats.decoded_tokens / r["run_s"] for r in runs]
+        line["tok_per_s"][label] = {"least": min(v), "most": max(v),
+                                    "runs": v}
+    ungated, slo, target, bad = slo_runs(
+        lambda ctl, cm, gap: telemetry_serve(
+            torch, make(cm), prompts, 32, ctl, gap),
+        first["eng"].cost_model, len(prompts))
+    failures += bad
+    line["slo"] = slo_readings(slo, ungated, target)
+    del live, slo, ungated, first, model, params
+    torch.cuda.empty_cache()
+
+    reduced_line, bad, caught = telemetry_reduced(torch, np, seed, dev)
+    failures += [f"reduced {b}" for b in bad]
+    controls.update(caught)
+    missed = [n for n in TELEMETRY_MUST_CATCH if not controls[n]]
+    emit({"phase": "telemetry", "nvidia_smi": card, "arch": cfg.name,
+          "sim": {name: {k: v for k, v in res.items()
+                         if k not in ("events", "summary")}
+                  for name, res in got.items()},
+          **line, "reduced": reduced_line,
+          "controls": {n: {"caught": bool(c), "by": c[:2]}
+                       for n, c in controls.items()}})
+    if failures or missed:
+        raise AssertionError(f"telemetry gates failed: {failures}; "
+                             f"controls missed: {missed}")
+
+
 def timed_once(torch, fn):
     """One call of ``fn`` between a CUDA event pair: (result, ms)."""
     torch.cuda.synchronize()
@@ -3538,6 +4101,8 @@ def main(argv=None) -> int:
     lap("campaign")
     phase_autotune(torch, np, dev, args.seed, card)
     lap("autotune")
+    phase_telemetry(torch, np, dev, args.seed, card)
+    lap("telemetry")
     wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
     lap("wkv6_kernel")
     ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)

@@ -26,9 +26,11 @@ the same grids, quick grids, constraint, costs, tags and cell keys
   * ``decode_longctx``       - long-context decode attention over the paged
                                kernel's token chunk (the card's counterpart
                                of the reference's split-KV sweep)
+  * ``telemetry_replay``     - the drift and overload scenarios of the
+                               telemetry layer on the sim harness
 
-Not ported yet: ``telemetry_replay``, ``traffic_scaling``,
-``sharded_decode``, ``chaos_serving``.
+Not ported yet: ``traffic_scaling``, ``sharded_decode``,
+``chaos_serving``.
 
 Cell runners take ``(params, quick=..., device=...)`` and return a flat-ish
 metrics dict: the reference's metrics, plus on the card the in-kernel
@@ -410,6 +412,30 @@ def longctx_inputs(ctx: int, device, pool_dtype):
     return q, k_pages, v_pages, bt, lens, readout
 
 
+def run_telemetry_replay_cell(params: Dict[str, Any], quick: bool = False,
+                              device=None) -> Dict[str, Any]:
+    """Replay one telemetry acceptance scenario on the deterministic sim
+    harness (``repro_torch.serve.sim``), the fake model's tensors on
+    ``device``, and record its evidence dict: the drift scenario must show
+    exactly one recalibration restoring the windowed prediction error
+    under the 10% gate; the overload scenario must show the token bucket
+    holding the p99 SLO that an ungated run of the same burst violates.
+    Both must keep tokens byte-identical."""
+    from repro_torch.serve.telemetry.scenarios import (run_drift_scenario,
+                                                       run_overload_scenario)
+    device = resolve_device(device)
+
+    if params["scenario"] == "drift":
+        res = run_drift_scenario(
+            drift_factor=float(params.get("factor", 2.0)), device=device)
+    else:
+        res = run_overload_scenario(load_factor=int(params.get("load", 2)),
+                                    device=device)
+    # the per-event dicts are nested detail; the flat fields are the table
+    res.pop("events", None)
+    return res
+
+
 def run_decode_longctx_cell(params: Dict[str, Any], quick: bool = False,
                             device=None) -> Dict[str, Any]:
     """Long-context decode attention at one token chunk of the paged kernel
@@ -646,6 +672,18 @@ register(Experiment(
     runner=run_decode_hotpath_cell,
     cost_per_cell_s=30.0,
     tags=("serve", "hotpath", "memory"),
+))
+
+register(Experiment(
+    name="telemetry_replay",
+    description="production-telemetry scenarios on the sim harness: "
+                "injected cost-model drift -> one online recalibration "
+                "(error back under the 10% gate), and burst overload "
+                "under the SLO token bucket (p99 held, newest shed)",
+    grid={"scenario": ("drift", "overload")},
+    runner=run_telemetry_replay_cell,
+    cost_per_cell_s=20.0,
+    tags=("serve", "telemetry", "costmodel"),
 ))
 
 register(Experiment(

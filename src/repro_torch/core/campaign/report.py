@@ -6,7 +6,7 @@ Every function here consumes only validated result documents
 be rebuilt from the JSON artifacts alone, on any machine.  Rows keep the
 reference's CSV shape ``name,us_per_call,derived`` and its row names
 (``table1/...`` to ``table5/...``, ``roofline/...``, ``autotune/...``,
-``paged_serve/...``, ``decode_hotpath/...``); over a document with the
+``paged_serve/...``, ``decode_hotpath/...``, ``telemetry/...``); over a document with the
 reference's keys a row is the reference's row.  ``decode_longctx/...``
 rows are the card's: the sweep is over the kernel's token chunk, not the
 reference's split factor, and the time is the kernel's own.  The port's
@@ -15,8 +15,8 @@ beyond the copy baseline) and a ``decode_hotpath`` row on the card
 ``baseline_peak_bytes=`` and ``fused_peak_bytes=``.
 
 ``table_for`` renders the ported experiments' documents and refuses the
-others (``telemetry_replay``, ``traffic_scaling``, ``sharded_decode``,
-``chaos_serving``), naming the experiment.
+others (``traffic_scaling``, ``sharded_decode``, ``chaos_serving``),
+naming the experiment.
 """
 from __future__ import annotations
 
@@ -191,6 +191,34 @@ def decode_longctx_table(doc: Mapping[str, Any]) -> List[Row]:
     return rows
 
 
+def telemetry_table(doc: Mapping[str, Any]) -> List[Row]:
+    """Telemetry-scenario evidence from a ``telemetry_replay`` result
+    file: the drift row shows the recalibration count and the error
+    before/after (the 10% gate), the overload row shows measured p99
+    against the SLO target next to the ungated baseline's spike — plus
+    the token-equality column CI greps on both."""
+    rows: List[Row] = []
+    for _, p, m in _cells(doc):
+        if p["scenario"] == "drift":
+            derived = (f"events={m['n_events']};"
+                       f"pre_err={m['pre_error']:.3f};"
+                       f"post_err={m['post_error']:.3f};"
+                       f"gate={m['gate']:.2f};"
+                       f"identical={m['tokens_ok']};"
+                       f"completed={m['completed']}/{m['n_requests']}")
+        else:
+            derived = (f"p99_s={m['p99_s']:.2f};"
+                       f"target_s={m['target_p99_s']:.2f};"
+                       f"baseline_p99_s={m['baseline_p99_s']:.2f};"
+                       f"slo_held={m['slo_held']};"
+                       f"deferred={m['deferred']};"
+                       f"fifo={m['admission_fifo']};"
+                       f"identical={m['tokens_ok']};"
+                       f"completed={m['completed']}/{m['n_requests']}")
+        rows.append((f"telemetry/{p['scenario']}", 0.0, derived))
+    return rows
+
+
 _TABLE_FOR = {
     "alu_chain": cpi_table,
     "mxu_shapes": mxu_table,
@@ -201,6 +229,7 @@ _TABLE_FOR = {
     "paged_serve": paged_serve_table,
     "decode_hotpath": decode_hotpath_table,
     "decode_longctx": decode_longctx_table,
+    "telemetry_replay": telemetry_table,
 }
 def table_for(doc: Mapping[str, Any]) -> List[Row]:
     """Dispatch a result document to its paper-table renderer; raises on

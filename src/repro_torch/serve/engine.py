@@ -74,8 +74,18 @@ entry when it lays out its pool: ``block_size=None`` takes the tuned page
 size (16 without a tuner), and ``kernel_chunk``, the tuned chunk, is
 passed to every paged decode explicitly.
 
-Not ported yet (each raises ``NotImplementedError`` when passed):
-``telemetry=``, ``mesh=`` (paged).
+Both engines take ``clock=`` (any object with ``time()`` and
+``perf_counter()``, the ``time`` module by default; ``serve.sim.SimClock``
+scripts it): every step's measured time and every submit and retirement
+stamp (``Request.submitted_s``/``finished_s``) reads it.  And both take
+``telemetry=`` (a ``serve.telemetry.TelemetryController``, bound at
+construction): ``_step_budget`` asks its ``begin_step()`` first (an SLO
+token bucket's budget, else the static ``step_budget_s``), each productive
+step hands it one ``StepRecord`` (``on_step``), built from host values
+only (no device read, no upload), with ``measured_s`` the span of
+``_record_step``, and each retirement one request (``on_retire``).
+
+Not ported yet: ``mesh=`` (paged) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -100,6 +110,7 @@ from repro_torch.models.zoo import Model
 from repro_torch.serve.paging import (BlockAllocator, blocks_for_tokens,
                                       remap_table)
 from repro_torch.serve.scheduler import ChunkedPrefillScheduler
+from repro_torch.serve.telemetry.metrics import StepRecord
 
 
 @dataclasses.dataclass
@@ -110,12 +121,13 @@ class Request:
     eos_id: Optional[int] = None
     # filled by the engine:
     tokens: List[int] = dataclasses.field(default_factory=list)
+    submitted_s: float = 0.0        # clock.time() at submit
+    finished_s: float = 0.0         # clock.time() at retirement
 
 
 @dataclasses.dataclass
 class EngineStats:
-    """Cumulative counters, as the JAX engine's (less those of the
-    telemetry and cluster layers, which are not ported yet)."""
+    """Cumulative counters, as the JAX engine's."""
     steps: int = 0
     prefills: int = 0               # completed prefills (net of evictions)
     decoded_tokens: int = 0         # delivered tokens (replays rolled back)
@@ -132,6 +144,8 @@ class EngineStats:
     preemptions: int = 0
     compactions: int = 0
     peak_blocks_in_use: int = 0
+    # paged: the pool's occupancy after each counted step
+    block_occupancy: List[float] = dataclasses.field(default_factory=list)
     admission_order: List[int] = dataclasses.field(default_factory=list)
     integrity_failures: int = 0     # corrupted step echoes dropped
 
@@ -141,12 +155,6 @@ def _echo_ok(arr: np.ndarray) -> bool:
     non-negative by construction, so a negative value means a corrupt
     step."""
     return bool((arr >= 0).all())
-
-
-def _refuse_unported(**options) -> None:
-    for name, val in options.items():
-        if val is not None:
-            raise NotImplementedError(f"{name}= is not ported yet")
 
 
 def _analytic_prefill_prediction(cost_model, cfg, n_tokens: int
@@ -171,6 +179,8 @@ class _DeviceLoop:
     step_budget_s: Optional[float]
     _pred_cache: Dict
     autotuner = None
+    telemetry = None
+    engine_name = "slot"        # a step record's ``engine``
     # the paged decode attention with the engine's resolved launch config
     # (None: the layers' default, tuned dispatch)
     _paged_fn = None
@@ -261,11 +271,26 @@ class _DeviceLoop:
                 torch.cuda.set_sync_debug_mode(mode)
         return buf.numpy().copy()
 
+    def _bind(self, clock, telemetry) -> None:
+        """Take the clock and bind the controller where the JAX engines
+        bind it: once ``max_batch`` is set and before ``chunk_size`` is, so
+        the controller's chunk bucket stays empty and only pure-decode
+        steps feed its drift detector, as in the reference."""
+        self._clock = clock if clock is not None else time
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.bind(self)
+
     # -- cost-model pricing ---------------------------------------------------
     def _step_budget(self) -> Optional[float]:
-        """The admission budget of this iteration: the static
-        ``step_budget_s`` (an adaptive budget needs the telemetry layer,
-        which is not ported)."""
+        """The admission budget of this iteration: the SLO token bucket's
+        when the telemetry controller carries one (refilled here: call once
+        an iteration), else the static ``step_budget_s``.  Either number
+        feeds the same gate arithmetic."""
+        if self.telemetry is not None:
+            budget = self.telemetry.begin_step()
+            if budget is not None:
+                return budget
         return self.step_budget_s
 
     def set_cost_model(self, cost_model) -> None:
@@ -295,11 +320,47 @@ class _DeviceLoop:
                 donated=self.fused, device_sampling=self.fused))
         return self._pred_cache[key]
 
-    def _record_step(self, planned: float, t0: float) -> None:
-        """Book a counted step's predicted and measured (host) seconds."""
+    def _record_step(self, planned: float, t0: float) -> float:
+        """Book a counted step's predicted and measured (host) seconds;
+        returns the measured seconds."""
+        measured = self._clock.perf_counter() - t0
         if self.cost_model is not None:
             self.stats.predicted_step_s.append(planned)
-            self.stats.measured_step_s.append(time.perf_counter() - t0)
+            self.stats.measured_step_s.append(measured)
+        return measured
+
+    def _step_record(self, planned: float, measured: float, n_active: int,
+                     decode_ran: bool, n_units: int,
+                     budget: Optional[float]) -> StepRecord:
+        """One telemetry ``StepRecord`` for this iteration, from host values
+        only."""
+        pred = self._pred_cache.get(("decode", self.max_batch))
+        return StepRecord(
+            engine=self.engine_name, step=self.stats.steps,
+            t_s=self._clock.time(), n_active=n_active,
+            queue_depth=len(self.queue), predicted_s=planned,
+            predicted_decode_s=pred.step_s if pred else 0.0,
+            measured_s=measured, decode_ran=decode_ran,
+            n_prefill_units=n_units,
+            bottleneck=getattr(pred, "bottleneck", ""),
+            budget_s=budget if budget is not None else 0.0,
+            host_syncs=self.stats.host_syncs,
+            table_uploads=self.stats.table_uploads,
+            decoded_tokens=self.stats.decoded_tokens,
+            preemptions=self.stats.preemptions,
+            deferred=self.stats.deferred_prefills,
+            integrity_failures=self.stats.integrity_failures,
+            **self._pool_fields())
+
+    def _pool_fields(self) -> Dict[str, int]:
+        """The block-pool fields of a step record: 0 without a pool."""
+        return {"blocks_in_use": 0, "n_blocks": 0, "kernel_splits": 0}
+
+    def _stamp_retired(self, req: Request) -> None:
+        """A retirement's clock stamp, and its telemetry sample."""
+        req.finished_s = self._clock.time()
+        if self.telemetry is not None:
+            self.telemetry.on_retire(req)
 
 
 @dataclasses.dataclass
@@ -323,18 +384,21 @@ class PagedServingEngine(_DeviceLoop):
     ceil(max_len / block_size)``); a smaller pool serves the same traffic
     in less memory, with eviction keeping the engine correct."""
 
+    engine_name = "paged"
+
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_len: int = 512, block_size: Optional[int] = None,
                  n_blocks: Optional[int] = None, chunk_size: int = 32,
                  cost_model: Optional[CostModel] = None,
                  step_budget_s: Optional[float] = None,
-                 autotuner=None, telemetry=None, mesh=None,
+                 autotuner=None, clock=None, telemetry=None, mesh=None,
                  fused: bool = True):
         if mesh is not None and not fused:
             raise ValueError("a sharded replica (mesh=...) requires the "
                              "fused decode path (fused=True); the legacy "
                              "blocking path is single-device by design")
-        _refuse_unported(telemetry=telemetry, mesh=mesh)
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet")
         self.fused = fused
         self.autotuner = autotuner
         self.model = model
@@ -345,6 +409,7 @@ class PagedServingEngine(_DeviceLoop):
         self._pred_cache: Dict = {}
         self.max_batch = max_batch
         self.max_len = max_len
+        self._bind(clock, telemetry)
         # the tuning cache resolves both paged axes here: block_size is a
         # cache-LAYOUT parameter (fixed at pool construction), the chunk a
         # launch parameter every decode is given explicitly (_paged_fn);
@@ -413,12 +478,18 @@ class PagedServingEngine(_DeviceLoop):
                              f"max_len={self.max_len} (needs >= 1 decode "
                              "slot)")
         rid = next(self._rid)
-        self.scheduler.submit(Request(rid, prompt, max_new_tokens, eos_id))
+        self.scheduler.submit(Request(rid, prompt, max_new_tokens, eos_id,
+                                      submitted_s=self._clock.time()))
         return rid
 
     @property
     def queue(self):
         return self.scheduler.queue
+
+    def _pool_fields(self) -> Dict[str, int]:
+        return {"blocks_in_use": self.allocator.n_in_use,
+                "n_blocks": self.n_blocks,
+                "kernel_splits": self.kernel_splits}
 
     def _predict_chunk(self) -> Prediction:
         """Price one prefill chunk as a ``chunk_size``-token prefill (chunks
@@ -589,7 +660,7 @@ class PagedServingEngine(_DeviceLoop):
         then drain the PREVIOUS step, so step N's tokens are read only
         after step N+1 is queued on the device.  Returns the number of
         placed rows (>= 1 while a step is still in flight)."""
-        t0 = time.perf_counter()
+        t0 = self._clock.perf_counter()
         prev, self._pending = self._pending, None
         unfinished = sorted(
             ((i, self.rows[i].req.rid, self.rows[i].req)
@@ -608,6 +679,7 @@ class PagedServingEngine(_DeviceLoop):
             chunk_s=self._predict_chunk().step_s if priced else 0.0,
             gated=priced and budget is not None, budget_s=budget)
         self.stats.deferred_prefills += plan.deferred
+        chunks_before = self.stats.prefill_chunks
 
         for item in plan.items:
             if item.row is None:
@@ -624,10 +696,20 @@ class PagedServingEngine(_DeviceLoop):
         active = self._decode_phase()
         self.stats.peak_blocks_in_use = self.allocator.peak_in_use
         did_work = bool(plan.items) or active
+        if did_work:
+            # sampled iff the step counts: occupancy and steps one-to-one
+            self.stats.block_occupancy.append(self.allocator.occupancy)
         self._drain(prev)
         if did_work:
             self.stats.steps += 1
-            self._record_step(plan.predicted_s, t0)
+            measured = self._record_step(plan.predicted_s, t0)
+            if self.telemetry is not None:
+                # n_prefill_units counts the chunks RUN (a planned chunk
+                # waits when the pool is dry)
+                self.telemetry.on_step(self._step_record(
+                    plan.predicted_s, measured, len(self._placed()),
+                    active > 0, self.stats.prefill_chunks - chunks_before,
+                    budget))
         n = len(self._placed())
         return n if self._pending is None else max(n, 1)
 
@@ -731,6 +813,7 @@ class PagedServingEngine(_DeviceLoop):
         self.done[req.rid] = req
         self._free_row(idx)
         self.stats.completed += 1
+        self._stamp_retired(req)
         self._maybe_compact()
 
     def run_until_done(self, max_steps: int = 10_000) -> EngineStats:
@@ -745,8 +828,7 @@ class ServingEngine(_DeviceLoop):
     def __init__(self, model: Model, params, *, max_batch: int = 8,
                  max_len: int = 512, cost_model: Optional[CostModel] = None,
                  step_budget_s: Optional[float] = None, autotuner=None,
-                 telemetry=None, fused: bool = True):
-        _refuse_unported(telemetry=telemetry)
+                 clock=None, telemetry=None, fused: bool = True):
         self.fused = fused
         self.autotuner = autotuner
         self.model = model
@@ -757,6 +839,7 @@ class ServingEngine(_DeviceLoop):
         self._pred_cache: Dict = {}
         self.max_batch = max_batch
         self.max_len = max_len
+        self._bind(clock, telemetry)
         self.queue: deque[Request] = deque()
         self.done: Dict[int, Request] = {}
         self.stats = EngineStats()
@@ -780,7 +863,8 @@ class ServingEngine(_DeviceLoop):
                              f"max_len={self.max_len} (needs >= 1 decode "
                              "slot)")
         rid = next(self._rid)
-        self.queue.append(Request(rid, prompt, max_new_tokens, eos_id))
+        self.queue.append(Request(rid, prompt, max_new_tokens, eos_id,
+                                  submitted_s=self._clock.time()))
         return rid
 
     def _predict_prefill(self, prompt_len: int) -> Prediction:
@@ -791,9 +875,11 @@ class ServingEngine(_DeviceLoop):
                 self.cost_model, self.model.cfg, prompt_len)
         return self._pred_cache[key]
 
-    def _admit(self) -> float:
-        """Prefill queued requests into the free slots, oldest first, and
-        return the iteration's predicted seconds (0.0 without a cost model).
+    def _admit(self):
+        """Prefill queued requests into the free slots, oldest first; returns
+        ``(planned, admitted, budget)``: the iteration's predicted seconds
+        (0.0 without a cost model), the prefills admitted and the budget the
+        gate used (None when ungated).
 
         With a cost model and a budget, admission stops once the decode
         step plus the admitted prefills would exceed the budget, but it
@@ -823,7 +909,7 @@ class ServingEngine(_DeviceLoop):
                 planned += pre_s
             self._prefill_into_slot(slot, self.queue.popleft())
             admitted += 1
-        return planned
+        return planned, admitted, budget
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
         """One uncached prefill, spliced into ``slot`` in place.  Fused: the
@@ -858,6 +944,7 @@ class ServingEngine(_DeviceLoop):
         self.done[req.rid] = req
         self.slot_req[slot] = None
         self.stats.completed += 1
+        self._stamp_retired(req)
 
     def _drain(self, pending) -> None:
         """Sync and book one in-flight step: append its tokens (plus the
@@ -894,9 +981,9 @@ class ServingEngine(_DeviceLoop):
         device.  Returns the number of occupied slots at dispatch."""
         if not self.fused:
             return self._step_blocking()
-        t0 = time.perf_counter()
+        t0 = self._clock.perf_counter()
         prev, self._pending = self._pending, None
-        planned = self._admit()
+        planned, admitted, budget = self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if active:
             with record_function("decode_step"):
@@ -911,15 +998,18 @@ class ServingEngine(_DeviceLoop):
             self.stats.decode_dispatches += 1
         self._drain(prev)
         if active:
-            self._record_step(planned, t0)
+            measured = self._record_step(planned, t0)
+            if self.telemetry is not None:
+                self.telemetry.on_step(self._step_record(
+                    planned, measured, len(active), True, admitted, budget))
         return len(active)
 
     def _step_blocking(self) -> int:
         """The legacy iteration: admit, decode every slot from host-uploaded
         tokens and positions into a copy of the store, sync the argmax,
         book and retire at once."""
-        t0 = time.perf_counter()
-        planned = self._admit()
+        t0 = self._clock.perf_counter()
+        planned, admitted, budget = self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return 0
@@ -931,7 +1021,10 @@ class ServingEngine(_DeviceLoop):
         self.stats.decode_dispatches += 1
         nxt = self._sync(staged)
         self.stats.steps += 1
-        self._record_step(planned, t0)
+        measured = self._record_step(planned, t0)
+        if self.telemetry is not None:
+            self.telemetry.on_step(self._step_record(
+                planned, measured, len(active), True, admitted, budget))
         for i in active:
             req = self.slot_req[i]
             req.tokens.append(int(nxt[i]))

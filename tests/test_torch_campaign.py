@@ -31,9 +31,9 @@ from repro_torch.core.microbench import tables
 
 EXPERIMENTS = tables.CALIBRATION_EXPERIMENTS
 # the experiments beyond calibration (tests/test_torch_isa.py,
-# tests/test_torch_autotune.py)
+# tests/test_torch_autotune.py, tests/test_torch_telemetry.py)
 PORTED = ("paged_serve", "decode_hotpath", "isa_mapping", "autotune",
-          "decode_longctx")
+          "decode_longctx", "telemetry_replay")
 
 
 @pytest.mark.parametrize("quick", [True, False])

@@ -848,3 +848,14 @@ def test_eval_step_on_card_matches_cpu(dev, arch, kernel):
         if d == "cuda":
             assert kernel.launches - before == cfg.n_layers
     assert loss["cuda"] == pytest.approx(loss["cpu"], rel=1e-5)
+
+
+def test_sim_scenarios_on_card_equal_cpu(dev):
+    """Phase telemetry's part (a): the drift and overload scenarios with the
+    fake model's tensors on the card return the CPU's dicts exactly, every
+    step record built with sync debugging set to "error"."""
+    want = chip_smoke.telemetry_scenarios("cpu")
+    with chip_smoke.record_sync_gate(torch):
+        got = chip_smoke.telemetry_scenarios(dev)
+    assert chip_smoke.scenario_gate(got, want) == []
+    assert got["drift"]["n_events"] == 1 and got["overload"]["slo_held"]

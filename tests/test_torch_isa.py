@@ -235,8 +235,7 @@ def test_report_rows_carry_the_ports_keys():
         ";baseline_peak_bytes=10;fused_peak_bytes=9")
 
 
-UNPORTED = ("telemetry_replay", "traffic_scaling", "sharded_decode",
-            "chaos_serving")
+UNPORTED = ("traffic_scaling", "sharded_decode", "chaos_serving")
 
 
 @pytest.mark.parametrize("name", UNPORTED)
@@ -307,10 +306,10 @@ def test_report_command_renders_result_files(tmp_path, capsys):
     jreport.render_rows(jreport.table_for(DOCS["paged_serve"])
                         + jreport.table_for(DOCS["isa_mapping"]), file=buf)
     assert out == buf.getvalue().splitlines()
-    bad = tmp_path / "telemetry_replay.json"
+    bad = tmp_path / "traffic_scaling.json"
     bad.write_text(json.dumps(dict(DOCS["paged_serve"],
-                                   experiment="telemetry_replay")))
-    with pytest.raises(SystemExit, match="telemetry_replay"):
+                                   experiment="traffic_scaling")))
+    with pytest.raises(SystemExit, match="traffic_scaling"):
         cli_main(["report", str(bad)])
 
 

@@ -56,7 +56,11 @@ def test_port_imports_without_jax_or_repro():
                 "core.isa", "core.isa.sass_census", "core.autotune",
                 "core.autotune.cache", "core.autotune.space",
                 "core.autotune.search", "core.autotune.cli",
-                "core.autotune.__main__"):
+                "core.autotune.__main__", "serve.sim", "serve.telemetry",
+                "serve.telemetry.metrics", "serve.telemetry.drift",
+                "serve.telemetry.slo", "serve.telemetry.control",
+                "serve.telemetry.recalibrate", "serve.telemetry.scenarios",
+                "serve.telemetry.cli", "serve.telemetry.__main__"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 

@@ -38,6 +38,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.telemetry import TelemetryController
 
 KW = dict(n_layers=2, vocab_size=128, compute_dtype="float32")
 
@@ -256,11 +257,27 @@ def test_deferred_count_excludes_requests_that_would_fit():
 
 
 def test_engine_refuses_unported_options_and_long_prompts():
+    """``telemetry=`` is ported: the slot engine binds the controller and
+    hands it one record a productive step and one a retirement; an
+    over-long prompt is still refused."""
     _, _, _, tm, tparams = _models()
-    for kw in (dict(telemetry=object()),):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tm, tparams, max_batch=2, max_len=16, **kw)
-    eng = ServingEngine(tm, tparams, max_batch=2, max_len=16)
+    ctl = TelemetryController(drift=False)
+    eng = ServingEngine(tm, tparams, max_batch=2, max_len=16, telemetry=ctl)
+    assert ctl.engine is eng and ctl.engine_name == "slot"
+    for n in (3, 5, 4):
+        eng.submit(np.arange(1, n + 1, dtype=np.int32), max_new_tokens=3)
+    productive = 0
+    while True:
+        active = eng.step()
+        productive += active > 0
+        if active == 0 and not eng.queue:
+            break
+    steps = ctl.sink.steps()
+    assert len(steps) == productive == eng.stats.steps
+    assert [r.step for r in steps] == list(range(1, eng.stats.steps + 1))
+    assert all(r.engine == "slot" and r.decode_ran for r in steps)
+    assert sum(r.n_prefill_units for r in steps) == 3
+    assert sorted(r.rid for r in ctl.sink.requests()) == [0, 1, 2]
     with pytest.raises(ValueError):
         eng.submit(np.zeros(16, np.int32))
 
