@@ -215,7 +215,33 @@ exits non-zero):
    ``TELEMETRY_MUST_CATCH`` (a record reading the device, mixed steps fed
    to the detector as decode samples, a retirement stamped by the wall
    clock in place of the injected one).
-16. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
+16. cluster: the serving cluster and the chaos tier
+   (``repro_torch.serve.cluster``, ``repro_torch.serve.chaos``): (a) the
+   skewed sim trace of ``tests/test_cluster.py`` under round-robin and
+   cost-aware placement and the ``chaos_serving`` quick drills, the fake
+   model's tensors on the card, each result equal to the CPU's; (b) two
+   fused paged replicas of full-width gemma2-2b on one set of weights
+   (max_batch 4, max_len 1024, page 16, chunk 64, ``cluster_pool``
+   blocks each) serving ``CLUSTER_TRACE`` (16 requests, every second a
+   768-token prompt with 32 new tokens, the rest 16 with 8) at
+   ``CLUSTER_LOAD`` times a warm replica's step rate through
+   ``serve_trace`` (a ``SimClock`` advanced by each tick's largest host
+   wall) under sync debugging, once a policy: tokens conserved, the
+   router drained, no leaked block, ``host_syncs <= steps + 1`` a
+   replica, paged attention in every layer of every decode dispatch,
+   tokens in the vocabulary; tok/s, p50/p99, shed rate, reroutes,
+   preemptions, each replica's counters and the ranked 2-device topology
+   printed; (c) reduced f32 gemma2 (the trace's long prompts cut to
+   max_len 64) under the drill's unit prices: equal tokens under both
+   policies and from a 1-replica cluster and the bare engine; ``crash``
+   and ``corrupt`` on replica 0 of 2 real replicas (``ServingCluster``,
+   ``FaultPlan.wrap``, ``ChaosSupervisor``) against the fault-free twin:
+   survivors' tokens equal, nothing lost or leaked, the router drained,
+   the failure detected, one integrity failure for ``corrupt`` and its
+   requests recovered; and ``CLUSTER_MUST_CATCH`` (``_origin`` left
+   after collection, the poison written into a copy of the staged
+   buffer, a reclaimed request that drops its delivered tokens).
+17. wkv6_kernel: the RWKV6 recurrence kernel against its plain version on
    the reference sweep's shapes (B=2, S=24, (H,N) in {(2,32), (4,64)},
    f32) and at the eval shape (B=4, S=4096, H=32, N=64; r, k, v bf16, w
    f32; block_h 1, which changes no value on the card) in three cases
@@ -229,7 +255,7 @@ exits non-zero):
    step late, w rounded to bf16, u's term dropped, head 0's u for every
    head; the state zeroed every 256 steps, one thread's rows left out of
    y), which they must catch; then "long" and "fast" in f32 at B=1.
-17. ssm_kernel: the selective-scan kernel against its plain version on the
+18. ssm_kernel: the selective-scan kernel against its plain version on the
    sweep's (Di,N) in {(256,8), (512,16)} in f32 and bf16 (Bt=2, S=32) and
    at the eval shape (Bt=4, S=4224, Di=1600, N=16; x, B, C bf16, dt, A
    f32; block_d 256 -> 64) in two cases (``SSM_CASES``): "eval", init_mamba's
@@ -243,7 +269,7 @@ exits non-zero):
    every 256 steps, the last state's term left out of y), and the
    kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
    biased exponential shows against the f32 tolerance.
-18. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+19. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
    ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
@@ -254,11 +280,11 @@ exits non-zero):
    holds controls, the plain version with a fault injected (an input one
    step late; in bf16 also the decay rounded to bf16 and ``u`` left in
    f32); the gates must catch those ``MUST_CATCH`` names.
-19. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+20. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
    its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
    with a CUDA event pair around each call of the recurrence kernel.
-20. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+21. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 
 A ``timing`` line gives each phase's seconds; the line before the last
@@ -270,6 +296,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -3479,6 +3506,481 @@ def phase_telemetry(torch, np, dev, seed, card):
                              f"controls missed: {missed}")
 
 
+CLUSTER_MUST_CATCH = ("leaked_origin", "unseen_poison", "dropped_reclaim")
+CLUSTER_REPLICAS = 2
+CLUSTER_POOL = 0.6            # a replica's pool over the slot rectangle
+CLUSTER_LOAD = 2.0            # offered load over one warm replica's step
+# (b) and (c): the skewed trace (every 2nd request long, so round-robin
+# puts every long one on replica 0)
+CLUSTER_TRACE = dict(n_requests=16, period=2, long_len=768, long_new=32,
+                     short_len=16, short_new=8)
+# (a): the skewed sim trace and cluster of tests/test_cluster.py
+CLUSTER_SIM_TRACE = dict(n_requests=12, vocab=97, period=2, long_len=24,
+                         short_len=4, long_new=12, short_new=4,
+                         interval_s=1.0, load=2.0)
+CLUSTER_SIM_KW = dict(max_batch=4, max_len=64, n_blocks=24, block_size=8,
+                      chunk_size=8)
+CHAOS_PRICES = (0.5, 0.25, 0.01)    # the drill's decode, chunk, overhead s
+CHAOS_KINDS = ("crash", "hang", "corrupt", "crashloop")
+CHAOS_AT_STEP = 6             # (c): replica 0's fault, mid-decode
+
+
+def cluster_pool(max_batch, max_len, block_size):
+    """A replica's pool: ``CLUSTER_POOL`` of the slot-equivalent rectangle
+    (``traffic_scaling``'s ratio), at least one max_len sequence."""
+    per_seq = -(-max_len // block_size)
+    return max(per_seq, int(CLUSTER_POOL * max_batch * per_seq))
+
+
+def cluster_trace(vocab, max_len, interval_s=1.0):
+    """``CLUSTER_TRACE`` with the long prompts cut to fit ``max_len``."""
+    from repro_torch.serve.cluster import skewed_trace
+
+    kw = dict(CLUSTER_TRACE)
+    kw["long_len"] = min(kw["long_len"], max_len - kw["long_new"] - 1)
+    return skewed_trace(kw.pop("n_requests"), vocab=vocab,
+                        interval_s=interval_s, load=CLUSTER_LOAD, **kw)
+
+
+@contextlib.contextmanager
+def cluster_fault(name):
+    """Inject a fault of ``CLUSTER_MUST_CATCH`` for the duration of the
+    block: the router keeps ``_origin`` entries it collected; the echo
+    poison written into a copy of the staged buffer, not the buffer the
+    drain reads; a reclaimed request continued after the tokens it had
+    delivered, which are dropped."""
+    import numpy as np
+
+    from repro_torch.serve.chaos.faults import FaultyReplica
+    from repro_torch.serve.cluster.router import Router
+
+    if name == "leaked_origin":
+        cls, attr = Router, "collect"
+
+        def fault(self):
+            n = 0
+            for i, eng in enumerate(self.replicas):
+                for rid in [r for r in eng.done if (i, r) in self._origin]:
+                    crid = self._origin[(i, rid)]     # left in _origin
+                    self.done[crid] = eng.done.pop(rid)
+                    del self._local[crid]
+                    self._moves.pop(crid, None)
+                    n += 1
+            return n
+    elif name == "unseen_poison":
+        cls, attr = FaultyReplica, "_poison_pending"
+
+        def fault(self):
+            if self.engine._pending is None:
+                return False
+            (buf, event), _ = self.engine._pending
+            self.engine._wait_staged(event)
+            copy = buf.clone()
+            copy[1, :] = -1                          # nobody reads it
+            return True
+    elif name == "dropped_reclaim":
+        cls, attr = Router, "reclaim_replica"
+        reclaim = Router.reclaim_replica
+
+        def fault(self, i):
+            out = []
+            for crid, req in reclaim(self, i):
+                if 0 < len(req.tokens) < req.max_new_tokens:
+                    req = dataclasses.replace(
+                        req, prompt=np.concatenate(
+                            [req.prompt, np.asarray(req.tokens, np.int32)]),
+                        max_new_tokens=req.max_new_tokens - len(req.tokens),
+                        tokens=[])
+                out.append((crid, req))
+            return out
+    else:
+        raise ValueError(name)
+    saved = cls.__dict__[attr]
+    setattr(cls, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, saved)
+
+
+def cluster_sim(dev):
+    """(a) The sim tier with the fake model's tensors on ``dev``: the
+    skewed sim trace through 2 replicas under each policy, and the
+    ``chaos_serving`` quick grid's drills."""
+    from repro_torch.serve.chaos import run_chaos_drill
+    from repro_torch.serve.cluster import (ServingCluster, serve_trace,
+                                           skewed_trace, unit_latency)
+    from repro_torch.serve.sim import FakeCostModel, FakeModel, SimClock
+
+    kw = dict(CLUSTER_SIM_TRACE)
+    trace = skewed_trace(kw.pop("n_requests"), **kw)
+    out = {}
+    for policy in ("round_robin", "cost_aware"):
+        clock = SimClock()
+        cl = ServingCluster.build(
+            FakeModel(vocab=kw["vocab"], device=dev), None,
+            n_replicas=CLUSTER_REPLICAS, policy=policy, clock=clock,
+            cost_model=FakeCostModel(decode_s=CHAOS_PRICES[0],
+                                     prefill_s=CHAOS_PRICES[1]),
+            **CLUSTER_SIM_KW)
+        admitted = serve_trace(cl, trace, clock,
+                               step_seconds=unit_latency(*CHAOS_PRICES),
+                               min_dt=0.25)
+        lats = sorted(cl.done[c].finished_s - admitted[c] for c in cl.done)
+        out[policy] = {
+            "wall_s": clock.t, "p99_s": lats[int(0.99 * (len(lats) - 1))],
+            "completed": len(cl.done), "routed": list(cl.stats.routed),
+            "reroutes": cl.stats.reroutes,
+            "front_requeues": cl.stats.front_requeues,
+            "preemptions": [e.stats.preemptions for e in cl.replicas],
+            "tokens": [list(cl.done[c].tokens) for c in sorted(cl.done)]}
+    for fault in CHAOS_KINDS:
+        out[f"chaos_{fault}"] = run_chaos_drill(
+            fault, CLUSTER_REPLICAS, n_requests=8, device=dev)
+    return out
+
+
+def cluster_sim_gates(sim):
+    """The sim's own claims: cost-aware beats round-robin on wall time and
+    p99 with the same tokens; every drill holds its invariants."""
+    bad = []
+    rr, ca = sim["round_robin"], sim["cost_aware"]
+    if not (ca["wall_s"] < rr["wall_s"] and ca["p99_s"] < rr["p99_s"]):
+        bad.append(f"cost_aware {ca['wall_s']}/{ca['p99_s']} s does not "
+                   f"beat round_robin {rr['wall_s']}/{rr['p99_s']} s")
+    if ca["tokens"] != rr["tokens"]:
+        bad.append("sim tokens differ between policies")
+    for fault in CHAOS_KINDS:
+        m = sim[f"chaos_{fault}"]
+        ok = (m["survivors_identical"] and m["all_accounted"]
+              and m["tokens_lost"] == 0 and m["blocks_leaked"] == 0
+              and m["failures"] >= 1
+              and (fault != "crashloop" or m["quarantined"]))
+        if not ok:
+            bad.append(f"drill {fault}: {m}")
+    return bad
+
+
+def cluster_gates(cl, admitted, vocab, n_layers=0, launches=None):
+    """(b)'s gates over a drained cluster: tokens conserved, the router
+    drained, no leaked block, one sync a step, tokens in the vocabulary,
+    and, given the paged kernel's ``launches``, one a layer of every
+    decode dispatch."""
+    bad = []
+    if len(cl.done) != len(admitted) or any(
+            len(q.tokens) != q.max_new_tokens for q in cl.done.values()):
+        bad.append(f"{len(cl.done)} of {len(admitted)} admitted completed "
+                   f"with all their tokens")
+    try:
+        cl.router.assert_drained()
+    except AssertionError as e:
+        bad.append(str(e))
+    dispatches = 0
+    for i, eng in enumerate(cl.replicas):
+        try:
+            eng.allocator.check()
+        except AssertionError as e:
+            bad.append(f"replica {i}: {e}")
+        if eng.allocator.n_in_use:
+            bad.append(f"replica {i}: {eng.allocator.n_in_use} blocks "
+                       f"leaked")
+        st = eng.stats
+        if st.host_syncs > st.steps + 1:
+            bad.append(f"replica {i}: {st.host_syncs} syncs over "
+                       f"{st.steps} steps")
+        dispatches += st.decode_dispatches
+    if launches is not None and (launches == 0
+                                 or launches != n_layers * dispatches):
+        bad.append(f"{launches} paged launches != {n_layers} x "
+                   f"{dispatches} decode dispatches")
+    if any(t < 0 or t >= vocab for q in cl.done.values() for t in q.tokens):
+        bad.append("a token outside the vocabulary")
+    return bad
+
+
+def cluster_live(torch, model, params, kw, cm):
+    """(b) Two replicas of the fused paged engine sharing ``model`` and
+    ``params``, each pool ``cluster_pool`` blocks; the arrival gap a warm
+    replica's steady step at ``CLUSTER_LOAD``; the skewed trace through
+    ``serve_trace`` under a ``SimClock`` advanced by the measured walls,
+    once a policy, under sync debugging ("error") on the card.  Returns
+    ({policy: reading}, failures)."""
+    import numpy as np
+
+    from repro_torch.serve.cluster import ServingCluster, serve_trace
+    from repro_torch.serve.cluster.traffic import (decode_topology,
+                                                   steady_step_s,
+                                                   trace_summary)
+    from repro_torch.serve.engine import PagedServingEngine
+    from repro_torch.serve.sim import SimClock
+
+    cfg = model.cfg
+    kw = dict(kw, n_blocks=cluster_pool(kw["max_batch"], kw["max_len"],
+                                        kw["block_size"]))
+    cuda = model.device.type == "cuda"
+    interval = steady_step_s(
+        lambda: PagedServingEngine(model, params, **kw),
+        [np.arange(1, 6, dtype=np.int32) + i for i in range(2)])
+    trace = cluster_trace(cfg.vocab_size, kw["max_len"], interval)
+    top = decode_topology(cfg, kw["max_len"], kw["max_batch"],
+                          CLUSTER_REPLICAS, cm)
+    out, failures = {}, []
+    for policy in ("round_robin", "cost_aware"):
+        clock = SimClock()
+        cl = ServingCluster.build(model, params,
+                                  n_replicas=CLUSTER_REPLICAS,
+                                  policy=policy, clock=clock, cost_model=cm,
+                                  shed_wait_s=30.0, **kw)
+        reset_launches()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        t_run = time.perf_counter()
+        try:
+            admitted = serve_trace(cl, trace, clock, min_dt=interval / 4,
+                                   max_ticks=50_000)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        if cuda:
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        counts = launch_counts()
+        # on the CPU the wrapper runs its plain version: nothing to count
+        failures += [f"{policy}: {b}" for b in cluster_gates(
+            cl, admitted, cfg.vocab_size, cfg.n_layers,
+            counts["paged_attention"] if cuda else None)]
+        st = cl.stats
+        out[policy] = dict(
+            trace_summary(cl, admitted, clock, len(trace)),
+            virtual_s=clock.t, host_run_s=run_s,
+            front_requeues=st.front_requeues, routed=list(st.routed),
+            replicas=[{"steps": e.stats.steps,
+                       "host_syncs": e.stats.host_syncs,
+                       "decode_dispatches": e.stats.decode_dispatches,
+                       "prefill_chunks": e.stats.prefill_chunks,
+                       "preemptions": e.stats.preemptions,
+                       "peak_blocks": e.stats.peak_blocks_in_use}
+                      for e in cl.replicas],
+            paged_attention_launches=counts["paged_attention"])
+        del cl
+        if cuda:
+            torch.cuda.empty_cache()
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "engine": kw,
+            "arrival_gap_s": interval / CLUSTER_LOAD,
+            "trace": {"requests": len(trace),
+                      "prompt_tokens": sorted({len(a[1]) for a in trace}),
+                      "new_tokens": sorted({a[2] for a in trace})},
+            "topology": top.describe(), "policies": out}
+    return line, failures
+
+
+def cluster_chaos(make, trace, fault):
+    """(c) One fault on replica 0 of a 2-replica cluster of real engines
+    (``make(clock)``), built from ``ServingCluster``, ``FaultPlan.wrap``
+    and ``ChaosSupervisor`` under a ``SimClock`` priced by the drill's
+    unit prices, against the fault-free twin of the same trace.  Returns
+    (reading, failures)."""
+    from repro_torch.serve.chaos import ChaosSupervisor, FaultPlan, FaultSpec
+    from repro_torch.serve.chaos.drill import _drive
+    from repro_torch.serve.cluster import ServingCluster, unit_latency
+    from repro_torch.serve.sim import SimClock
+
+    clock0 = SimClock()
+    twin = ServingCluster([make(clock0) for _ in range(CLUSTER_REPLICAS)])
+    twin_adm = _drive(twin, trace, clock0, supervisor=None, max_ticks=600)
+    want = {k: list(twin.done[c].tokens) for c, k in twin_adm.items()}
+
+    plan = FaultPlan((FaultSpec(fault, 0, CHAOS_AT_STEP),))
+    clock = SimClock()
+    reps = [plan.wrap(make(clock), i, 0, clock=clock)
+            for i in range(CLUSTER_REPLICAS)]
+    cl = ServingCluster(reps)
+    sup = ChaosSupervisor(
+        cl, clock, step_seconds=unit_latency(*CHAOS_PRICES),
+        engine_factory=lambda i, gen, ctl: plan.wrap(make(clock), i, gen,
+                                                     clock=clock),
+        heartbeat_interval_s=1.0, miss_limit=3,
+        straggler_abs_limit_s=4.0 * (CHAOS_PRICES[0] + CHAOS_PRICES[2]),
+        retry_budget=3, resubmit_backoff_s=0.5)
+    router, reclaimed = cl.router, []
+    reclaim = router.reclaim_replica
+
+    def spy(i):
+        out = reclaim(i)
+        reclaimed.extend((crid, len(req.tokens)) for crid, req in out)
+        return out
+    router.reclaim_replica = spy
+    adm = _drive(cl, trace, clock, supervisor=sup, max_ticks=600)
+    got = {adm[c]: list(q.tokens) for c, q in router.done.items()
+           if c in adm}
+    bad = []
+    if any(got[k] != want[k] for k in got if k in want):
+        bad.append("survivors' tokens differ from the twin's")
+    lost = sum(max(0, len(want[k]) - len(t)) for k, t in got.items()
+               if k in want)
+    if lost:
+        bad.append(f"{lost} tokens lost")
+    if len(got) + router.stats.abandoned < len(adm):
+        bad.append(f"{len(got)} completed + {router.stats.abandoned} "
+                   f"abandoned < {len(adm)} admitted")
+    try:
+        router.assert_drained()
+    except AssertionError as e:
+        bad.append(str(e))
+    for j in router.live_indices():
+        alloc = cl.replicas[j].allocator
+        try:
+            alloc.check()
+        except AssertionError as e:
+            bad.append(f"replica {j}: {e}")
+        if alloc.n_in_use:
+            bad.append(f"replica {j}: {alloc.n_in_use} blocks leaked")
+    kinds = sorted({f.kind for f in sup.failures})
+    if not sup.failures:
+        bad.append("no failure detected")
+    integrity = reps[0].stats.integrity_failures
+    if fault == "corrupt":
+        if integrity != 1:
+            bad.append(f"{integrity} integrity failures on the poisoned "
+                       f"replica, not 1")
+        lost_crids = [c for c, _ in reclaimed if c not in router.done]
+        if not reclaimed or lost_crids:
+            bad.append(f"the poisoned replica's requests not recovered "
+                       f"({len(reclaimed)} reclaimed, {lost_crids} lost)")
+    return {"admitted": len(adm), "completed": len(got),
+            "failures": len(sup.failures), "kinds": kinds,
+            "integrity_failures": integrity,
+            "reclaimed": len(reclaimed),
+            "reclaimed_tokens": sum(n for _, n in reclaimed),
+            "recovered": router.stats.recovered,
+            "abandoned": router.stats.abandoned,
+            "live_replicas": len(router.live_indices()),
+            "recovery_s": max([f.recovery_s for f in sup.failures
+                               if f.recovery_s is not None] or [0.0]),
+            "virtual_s": clock.t}, bad
+
+
+def cluster_reduced(torch, np, seed, dev="cuda"):
+    """(c) Reduced f32 gemma2 (2 layers, vocab 128) on ``dev``: the skewed
+    trace with the long prompts cut to max_len 64, under a ``SimClock``
+    priced by the drill's unit prices, must give identical tokens under
+    round-robin and cost-aware placement, and a 1-replica cluster the
+    bare engine's; then ``crash`` and ``corrupt`` on real replicas against
+    the fault-free twin (``cluster_chaos``), and ``CLUSTER_MUST_CATCH``.
+    Returns (readings, failures, {control: what caught it})."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.cluster import (ServingCluster, serve_trace,
+                                           unit_latency)
+    from repro_torch.serve.cluster.traffic import tokens_by_index
+    from repro_torch.serve.engine import PagedServingEngine
+    from repro_torch.serve.sim import SimClock
+
+    cfg = reduced(get_config("gemma2-2b"), n_layers=2, vocab_size=128,
+                  compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = params_to(build_model(cfg, device="cpu").init(seed), dev)
+    cm = CostModel.from_named("hopper_h100")
+    kw = dict(max_batch=4, max_len=64, block_size=8, chunk_size=8,
+              n_blocks=cluster_pool(4, 64, 8))
+    trace = cluster_trace(cfg.vocab_size, kw["max_len"])
+    gap = 1.0 / CLUSTER_LOAD
+
+    def make(clock):
+        return PagedServingEngine(model, params, clock=clock, cost_model=cm,
+                                  **kw)
+
+    def serve(policy, n_replicas=CLUSTER_REPLICAS):
+        clock = SimClock()
+        cl = ServingCluster.build(model, params, n_replicas=n_replicas,
+                                  policy=policy, clock=clock, cost_model=cm,
+                                  **kw)
+        admitted = serve_trace(cl, trace, clock,
+                               step_seconds=unit_latency(*CHAOS_PRICES),
+                               min_dt=0.25)
+        return cl, admitted
+    failures, readings, toks = [], {}, {}
+    for policy in ("round_robin", "cost_aware"):
+        cl, admitted = serve(policy)
+        toks[policy] = tokens_by_index(cl, admitted, gap)
+        readings[policy] = {"reroutes": cl.stats.reroutes,
+                            "preemptions": [e.stats.preemptions
+                                            for e in cl.replicas]}
+        failures += [f"{policy}: {b}"
+                     for b in cluster_gates(cl, admitted, cfg.vocab_size)]
+    one, admitted = serve("cost_aware", 1)
+    toks["one"] = tokens_by_index(one, admitted, gap)
+    bare = make(SimClock())
+    rids = [bare.submit(np.asarray(p, np.int32), max_new_tokens=new,
+                        eos_id=eos) for _, p, new, eos in trace]
+    bare.run_until_done()
+    toks["bare"] = {i: list(bare.done[r].tokens) for i, r in enumerate(rids)}
+    if len(toks["round_robin"]) != len(trace):
+        failures.append("not every request completed")
+    if toks["round_robin"] != toks["cost_aware"]:
+        failures.append("tokens differ between policies")
+    if toks["one"] != toks["bare"]:
+        failures.append("1-replica cluster tokens differ from the bare "
+                        "engine's")
+    readings["distinct_tokens"] = len({t for r in toks["bare"].values()
+                                       for t in r})
+    for fault in ("crash", "corrupt"):
+        readings[fault], bad = cluster_chaos(make, trace, fault)
+        failures += [f"{fault}: {b}" for b in bad]
+    caught = {}
+    with cluster_fault("leaked_origin"):
+        cl, admitted = serve("cost_aware")
+    caught["leaked_origin"] = [b for b in cluster_gates(
+        cl, admitted, cfg.vocab_size) if "leaked after drain" in b]
+    with cluster_fault("unseen_poison"):
+        _, bad = cluster_chaos(make, trace, "corrupt")
+    caught["unseen_poison"] = [b for b in bad if "integrity" in b]
+    with cluster_fault("dropped_reclaim"):
+        _, bad = cluster_chaos(make, trace, "crash")
+    caught["dropped_reclaim"] = [b for b in bad if "twin" in b or "lost" in b]
+    return readings, failures, caught
+
+
+def phase_cluster(torch, np, dev, seed, card):
+    """The serving cluster and the chaos tier on the card: (a) the sim tier
+    with the fake model's tensors on the card, equal to the CPU's dicts;
+    (b) two full-width paged replicas over phase serve's weights serving
+    the skewed trace under each policy (``cluster_live``); (c) reduced f32
+    token parity and chaos on real replicas (``cluster_reduced``), and
+    ``CLUSTER_MUST_CATCH``."""
+    from repro_torch.core.costmodel import CostModel
+
+    failures = []
+    want = cluster_sim("cpu")
+    got = cluster_sim(dev)
+    failures += [f"sim on the card: {k} differs"
+                 for k in scenario_gate(got, want)]
+    failures += [f"sim: {b}" for b in cluster_sim_gates(got)]
+
+    cfg, model, params, _ = serve_setup(np, dev, seed)
+    live, bad = cluster_live(
+        torch, model, params,
+        dict(max_batch=4, max_len=1024, block_size=16, chunk_size=64),
+        CostModel.from_named("hopper_h100"))
+    failures += bad
+    del model, params
+    torch.cuda.empty_cache()
+
+    reduced_line, bad, caught = cluster_reduced(torch, np, seed, dev)
+    failures += [f"reduced {b}" for b in bad]
+    missed = [n for n in CLUSTER_MUST_CATCH if not caught[n]]
+    emit({"phase": "cluster", "nvidia_smi": card,
+          "sim": {k: {f: v for f, v in res.items() if f != "tokens"}
+                  for k, res in got.items()},
+          **live, "reduced": reduced_line,
+          "controls": {n: {"caught": bool(c), "by": c[:2]}
+                       for n, c in caught.items()}})
+    if failures or missed:
+        raise AssertionError(f"cluster gates failed: {failures}; "
+                             f"controls missed: {missed}")
+
 def timed_once(torch, fn):
     """One call of ``fn`` between a CUDA event pair: (result, ms)."""
     torch.cuda.synchronize()
@@ -4103,6 +4605,8 @@ def main(argv=None) -> int:
     lap("autotune")
     phase_telemetry(torch, np, dev, args.seed, card)
     lap("telemetry")
+    phase_cluster(torch, np, dev, args.seed, card)
+    lap("cluster")
     wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
     lap("wkv6_kernel")
     ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)

@@ -28,9 +28,12 @@ the same grids, quick grids, constraint, costs, tags and cell keys
                                of the reference's split-KV sweep)
   * ``telemetry_replay``     - the drift and overload scenarios of the
                                telemetry layer on the sim harness
+  * ``traffic_scaling``      - the serving cluster under offered load:
+                               round-robin vs cost-aware placement
+  * ``chaos_serving``        - fault drills on the serving cluster (sim)
 
-Not ported yet: ``traffic_scaling``, ``sharded_decode``,
-``chaos_serving``.
+Not ported yet: ``sharded_decode`` (it needs sharding over
+``torch.distributed``).
 
 Cell runners take ``(params, quick=..., device=...)`` and return a flat-ish
 metrics dict: the reference's metrics, plus on the card the in-kernel
@@ -551,6 +554,149 @@ ISA_CASES = ("add.f32", "mul.f32", "fma.f32", "div.f32", "rsqrt.f32",
 _ALU_OPS = tuple(ALU_OPS)
 
 
+def run_traffic_scaling_cell(params: Dict[str, Any], quick: bool = False,
+                             device=None) -> Dict[str, Any]:
+    """The cluster tier under offered load: one skewed trace (every
+    ``period``-th request long, period = replica count, so round-robin
+    piles the long ones onto one replica) served by an N-replica
+    ``ServingCluster`` of real engines on ``device`` under the
+    parallel-replica virtual clock, once per placement policy, priced by
+    the H100's measured table.  Reports tok/s, p50/p99 latency, shed
+    rate, reroute/preemption counts, token conservation, and the
+    cost-model-chosen topology for the device budget.  On the card the
+    replicas share one device and the clock advances by host walls
+    (``serve.cluster.traffic``)."""
+    import numpy as np
+
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.serve.cluster import (ServingCluster, serve_trace,
+                                           skewed_trace)
+    from repro_torch.serve.cluster.traffic import (decode_topology,
+                                                   steady_step_s,
+                                                   tokens_by_index,
+                                                   trace_summary)
+    from repro_torch.serve.engine import PagedServingEngine
+    from repro_torch.serve.sim import SimClock
+    device = resolve_device(device)
+
+    r = int(params["replicas"])
+    load = float(params["load"])
+    n_req = (4 * r if quick else 8 * r)
+    cfg, model, weights = _serving_setup(device)
+    cm = CostModel.from_named("hopper_h100")
+    max_batch, max_len, bs, chunk = 4, 64, 8, 16
+    # per-replica pool: ~60% of the slot-equivalent rectangle, same ratio
+    # as paged_serve: tight enough that a long-request pileup preempts
+    n_blocks = max(-(-max_len // bs),
+                   int(0.6 * max_batch * (-(-max_len // bs))))
+    period = max(r, 2)
+
+    def build_cluster(policy):
+        clock = SimClock()
+        cl = ServingCluster.build(
+            model, weights, n_replicas=r, policy=policy, clock=clock,
+            cost_model=cm, max_batch=max_batch, max_len=max_len,
+            block_size=bs, n_blocks=n_blocks, chunk_size=chunk,
+            shed_wait_s=float(params.get("shed_wait_s", 30.0)))
+        return cl, clock
+
+    def bare_engine():
+        return PagedServingEngine(model, weights, max_batch=max_batch,
+                                  max_len=max_len, block_size=bs,
+                                  n_blocks=n_blocks, chunk_size=chunk)
+
+    # the arrival gap from this machine: a warm engine's steady step
+    rng = np.random.default_rng(0)
+    warm_prompts = [rng.integers(0, cfg.vocab_size, size=5).astype(np.int32)
+                    for _ in range(2)]
+    interval_s = steady_step_s(bare_engine, warm_prompts)
+
+    out: Dict[str, Any] = {
+        "replicas": r, "load": load, "n_requests": n_req,
+        "interval_s": interval_s, "n_blocks_per_replica": n_blocks,
+    }
+    trace = skewed_trace(n_req, vocab=cfg.vocab_size, period=period,
+                         long_len=32, short_len=4, long_new=16, short_new=4,
+                         interval_s=interval_s, load=load)
+    tokens_by_policy: Dict[str, Dict[int, list]] = {}
+    for key, policy in (("rr", "round_robin"), ("ca", "cost_aware")):
+        cl, clock = build_cluster(policy)
+        # warm every replica outside the router so the timed trace
+        # measures steady-state decode, then rewind the clock
+        for eng in cl.replicas:
+            for p in warm_prompts:
+                eng.submit(p, max_new_tokens=4)
+            eng.run_until_done(max_steps=20_000)
+        clock.t = 0.0
+        admitted = serve_trace(cl, trace, clock, min_dt=interval_s / 4,
+                               max_ticks=50_000)
+        summary = trace_summary(cl, admitted, clock, len(trace))
+        if summary["conserved"]:
+            # drained-trace invariant: every per-request router dict
+            # (_local/_origin/_moves) must be pruned
+            cl.router.assert_drained()
+        tokens_by_policy[key] = tokens_by_index(cl, admitted,
+                                                interval_s / load)
+        out.update({f"{key}_{k}": v for k, v in summary.items()})
+
+    # greedy decode is deterministic per request, so the two policies must
+    # produce identical tokens for every trace index both admitted
+    shared = set(tokens_by_policy["rr"]) & set(tokens_by_policy["ca"])
+    out["identical_tokens"] = all(
+        tokens_by_policy["rr"][i] == tokens_by_policy["ca"][i]
+        for i in shared)
+    if r == 1:
+        # ...and at one replica the cluster must give a bare paged
+        # engine's tokens for the same prompts
+        eng = bare_engine()
+        rids = [eng.submit(np.asarray(p, np.int32), max_new_tokens=new,
+                           eos_id=eos) for _, p, new, eos in trace]
+        eng.run_until_done(max_steps=50_000)
+        bare = {i: list(eng.done[rid].tokens) for i, rid in enumerate(rids)}
+        out["identical_tokens"] = out["identical_tokens"] and all(
+            tokens_by_policy["ca"][i] == bare[i]
+            for i in tokens_by_policy["ca"])
+    out["speedup_tok_s"] = (out["ca_tok_per_s"]
+                            / max(out["rr_tok_per_s"], 1e-9))
+    out["p99_ratio"] = out["rr_p99_s"] / max(out["ca_p99_s"], 1e-9)
+
+    # what the cost model would buy with an r-device budget
+    top = decode_topology(cfg, max_len, max_batch, r, cm)
+    out["topology_replicas"] = top.n_replicas
+    out["topology_data"] = top.plan.data
+    out["topology_model"] = top.plan.model
+    out["topology_pred_tok_s"] = top.predicted_tok_s
+    return out
+
+
+def run_chaos_serving_cell(params: Dict[str, Any], quick: bool = False,
+                           device=None) -> Dict[str, Any]:
+    """One chaos drill: a seeded fault of ``params['fault']`` injected
+    into a ``params['replicas']``-wide paged cluster under SimClock (the
+    fake model's tensors on ``device``), with detection (heartbeats /
+    straggler ceiling / integrity probe), router-level request recovery
+    and restart-budget rejoin, then the recovery invariants checked
+    against a fault-free twin of the same trace
+    (``repro_torch.serve.chaos.drill``).  ``ok`` summarizes the cell's
+    gate: identical survivors, all requests accounted, zero lost tokens,
+    zero leaked blocks, at least one fault detected, and, for
+    ``crashloop``, the breaker quarantining the flapper."""
+    from repro_torch.serve.chaos.drill import run_chaos_drill
+    device = resolve_device(device)
+
+    fault = str(params["fault"])
+    replicas = int(params["replicas"])
+    out = run_chaos_drill(fault, replicas, n_requests=8 if quick else 12,
+                          device=device)
+    ok = (out["survivors_identical"] and out["all_accounted"]
+          and out["tokens_lost"] == 0 and out["blocks_leaked"] == 0
+          and out["failures"] >= 1)
+    if fault == "crashloop":
+        ok = ok and out["quarantined"]
+    out["ok"] = bool(ok)
+    return out
+
+
 def _alu_legal(params: Dict[str, Any]) -> bool:
     return alu_legal(params["op"], getattr(torch, params["dtype"]))
 
@@ -710,4 +856,36 @@ register(Experiment(
     runner=run_decode_longctx_cell,
     cost_per_cell_s=15.0,
     tags=("serve", "kernels", "longctx"),
+))
+
+register(Experiment(
+    name="chaos_serving",
+    description="deterministic fault drills on the serving cluster: "
+                "crash / hang / corrupt / crash-loop x replica count "
+                "under SimClock — heartbeat+straggler+integrity "
+                "detection, router request recovery with retry budget, "
+                "brownout admission, restart-budget quarantine; gates "
+                "byte-identical survivors, zero lost tokens, zero "
+                "leaked blocks, drained router",
+    grid={"fault": ("crash", "hang", "corrupt", "crashloop"),
+          "replicas": (2, 3)},
+    quick_grid={"fault": ("crash", "hang", "corrupt", "crashloop"),
+                "replicas": (2,)},
+    runner=run_chaos_serving_cell,
+    cost_per_cell_s=30.0,
+    tags=("serve", "cluster", "chaos"),
+))
+
+register(Experiment(
+    name="traffic_scaling",
+    description="multi-replica cluster under offered load x replica "
+                "count: skewed trace served round-robin vs cost-aware "
+                "placement on real arrays under the parallel-replica "
+                "virtual clock — tok/s, p50/p99 latency, shed rate, "
+                "reroutes, token conservation, chosen topology",
+    grid={"replicas": (1, 2, 4), "load": (1.0, 2.0)},
+    quick_grid={"replicas": (1, 2), "load": (2.0,)},
+    runner=run_traffic_scaling_cell,
+    cost_per_cell_s=60.0,
+    tags=("serve", "cluster", "costmodel"),
 ))

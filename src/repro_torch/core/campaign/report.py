@@ -6,7 +6,8 @@ Every function here consumes only validated result documents
 be rebuilt from the JSON artifacts alone, on any machine.  Rows keep the
 reference's CSV shape ``name,us_per_call,derived`` and its row names
 (``table1/...`` to ``table5/...``, ``roofline/...``, ``autotune/...``,
-``paged_serve/...``, ``decode_hotpath/...``, ``telemetry/...``); over a document with the
+``paged_serve/...``, ``decode_hotpath/...``, ``telemetry/...``,
+``traffic_scaling/...``, ``chaos_serving/...``); over a document with the
 reference's keys a row is the reference's row.  ``decode_longctx/...``
 rows are the card's: the sweep is over the kernel's token chunk, not the
 reference's split factor, and the time is the kernel's own.  The port's
@@ -15,8 +16,7 @@ beyond the copy baseline) and a ``decode_hotpath`` row on the card
 ``baseline_peak_bytes=`` and ``fused_peak_bytes=``.
 
 ``table_for`` renders the ported experiments' documents and refuses the
-others (``traffic_scaling``, ``sharded_decode``, ``chaos_serving``),
-naming the experiment.
+other (``sharded_decode``), naming the experiment.
 """
 from __future__ import annotations
 
@@ -219,6 +219,54 @@ def telemetry_table(doc: Mapping[str, Any]) -> List[Row]:
     return rows
 
 
+def traffic_scaling_table(doc: Mapping[str, Any]) -> List[Row]:
+    """Cluster traffic-scaling evidence from a ``traffic_scaling`` result
+    file: round-robin vs cost-aware tok/s and tail latency per
+    (replicas, load) point, the shed/conservation/identity columns CI
+    greps, and the cost-model-chosen topology for the device budget."""
+    rows: List[Row] = []
+    for _, p, m in _cells(doc):
+        name = f"traffic_scaling/r{m['replicas']}_load{m['load']:g}"
+        derived = (f"rr_tok_s={m['rr_tok_per_s']:.1f};"
+                   f"ca_tok_s={m['ca_tok_per_s']:.1f};"
+                   f"speedup={m['speedup_tok_s']:.2f};"
+                   f"rr_p99_s={m['rr_p99_s']:.2f};"
+                   f"ca_p99_s={m['ca_p99_s']:.2f};"
+                   f"p99_ratio={m['p99_ratio']:.2f};"
+                   f"shed_rr={m['rr_shed_rate']:.2f};"
+                   f"shed_ca={m['ca_shed_rate']:.2f};"
+                   f"reroutes={m['ca_reroutes']};"
+                   f"identical={m['identical_tokens']};"
+                   f"conserved={m['rr_conserved'] and m['ca_conserved']};"
+                   f"topology={m['topology_replicas']}x"
+                   f"[{m['topology_data']},{m['topology_model']}]")
+        rows.append((name, 0.0, derived))
+    return rows
+
+
+def chaos_serving_table(doc: Mapping[str, Any]) -> List[Row]:
+    """Chaos-drill evidence from a ``chaos_serving`` result file: one
+    row per (fault, replicas) cell with the recovery-invariant columns
+    CI greps (byte-identical survivors, lost tokens, leaked blocks) and
+    the detection/recovery trace (failures seen, requests recovered or
+    abandoned, worst detection-to-rejoin latency, quarantine verdict)."""
+    rows: List[Row] = []
+    for _, p, m in _cells(doc):
+        name = f"chaos_serving/{m['fault']}_r{m['replicas']}"
+        derived = (f"failures={m['failures']};"
+                   f"kinds={m['failure_kinds']};"
+                   f"recovered={m['recovered']};"
+                   f"abandoned={m['abandoned']};"
+                   f"recovery_s={m['recovery_latency_s']:.2f};"
+                   f"survivors_identical={m['survivors_identical']};"
+                   f"tokens_lost={m['tokens_lost']};"
+                   f"blocks_leaked={m['blocks_leaked']};"
+                   f"quarantined={m['quarantined']};"
+                   f"ok={m['ok']}")
+        rows.append((name, float(m["recovery_latency_s"]), derived))
+    return rows
+
+
 _TABLE_FOR = {
     "alu_chain": cpi_table,
     "mxu_shapes": mxu_table,
@@ -230,7 +278,11 @@ _TABLE_FOR = {
     "decode_hotpath": decode_hotpath_table,
     "decode_longctx": decode_longctx_table,
     "telemetry_replay": telemetry_table,
+    "traffic_scaling": traffic_scaling_table,
+    "chaos_serving": chaos_serving_table,
 }
+
+
 def table_for(doc: Mapping[str, Any]) -> List[Row]:
     """Dispatch a result document to its paper-table renderer; raises on
     an experiment the port does not render, naming it."""

@@ -255,20 +255,28 @@ class _DeviceLoop:
         ev.record()
         return buf, ev
 
+    @staticmethod
+    def _wait_staged(ev) -> None:
+        """Wait on a staged copy's event (``None`` on the CPU: nothing to
+        wait for), with sync debugging lifted for that one declared wait.
+        The only wait on the card that may bypass sync debugging."""
+        if ev is None:
+            return
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            with record_function("sync"):
+                ev.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
     def _sync(self, staged) -> np.ndarray:
         """THE device->host boundary: every value the engine reads back
-        crosses here, counted.  The wait is on the staged copy's event, with
-        sync debugging lifted for that one declared wait."""
+        crosses here, counted.  The wait is on the staged copy's event
+        (``_wait_staged``)."""
         self.stats.host_syncs += 1
         buf, ev = staged
-        if ev is not None:
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode(0)
-            try:
-                with record_function("sync"):
-                    ev.synchronize()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        self._wait_staged(ev)
         return buf.numpy().copy()
 
     def _bind(self, clock, telemetry) -> None:
@@ -355,6 +363,10 @@ class _DeviceLoop:
     def _pool_fields(self) -> Dict[str, int]:
         """The block-pool fields of a step record: 0 without a pool."""
         return {"blocks_in_use": 0, "n_blocks": 0, "kernel_splits": 0}
+
+    def _stamp(self, submitted_s: Optional[float]) -> float:
+        """A submit's stamp: the caller's, else this engine's clock."""
+        return self._clock.time() if submitted_s is None else submitted_s
 
     def _stamp_retired(self, req: Request) -> None:
         """A retirement's clock stamp, and its telemetry sample."""
@@ -470,7 +482,9 @@ class PagedServingEngine(_DeviceLoop):
 
     # -- public ---------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
-               eos_id: Optional[int] = None) -> int:
+               eos_id: Optional[int] = None,
+               submitted_s: Optional[float] = None) -> int:
+        """Enqueue one request; ``submitted_s`` as the slot engine's."""
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) >= self.max_len:
             # rejected here: mid-trace it would outgrow the block table
@@ -479,7 +493,7 @@ class PagedServingEngine(_DeviceLoop):
                              "slot)")
         rid = next(self._rid)
         self.scheduler.submit(Request(rid, prompt, max_new_tokens, eos_id,
-                                      submitted_s=self._clock.time()))
+                                      submitted_s=self._stamp(submitted_s)))
         return rid
 
     @property
@@ -856,7 +870,12 @@ class ServingEngine(_DeviceLoop):
             self._pos = self._dev(np.zeros(max_batch, np.int32))
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
-               eos_id: Optional[int] = None) -> int:
+               eos_id: Optional[int] = None,
+               submitted_s: Optional[float] = None) -> int:
+        """Enqueue one request.  ``submitted_s`` is the cluster router's
+        hook (``serve.cluster``): a request it moves to another replica
+        keeps its original arrival time; the default stamps this engine's
+        clock."""
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) >= self.max_len:
             raise ValueError(f"prompt of {len(prompt)} tokens cannot fit "
@@ -864,7 +883,7 @@ class ServingEngine(_DeviceLoop):
                              "slot)")
         rid = next(self._rid)
         self.queue.append(Request(rid, prompt, max_new_tokens, eos_id,
-                                  submitted_s=self._clock.time()))
+                                  submitted_s=self._stamp(submitted_s)))
         return rid
 
     def _predict_prefill(self, prompt_len: int) -> Prediction:

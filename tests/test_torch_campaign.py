@@ -31,9 +31,11 @@ from repro_torch.core.microbench import tables
 
 EXPERIMENTS = tables.CALIBRATION_EXPERIMENTS
 # the experiments beyond calibration (tests/test_torch_isa.py,
-# tests/test_torch_autotune.py, tests/test_torch_telemetry.py)
+# tests/test_torch_autotune.py, tests/test_torch_telemetry.py,
+# tests/test_torch_cluster.py, tests/test_torch_chaos.py)
 PORTED = ("paged_serve", "decode_hotpath", "isa_mapping", "autotune",
-          "decode_longctx", "telemetry_replay")
+          "decode_longctx", "telemetry_replay", "traffic_scaling",
+          "chaos_serving")
 
 
 @pytest.mark.parametrize("quick", [True, False])

@@ -11,7 +11,8 @@ package, on the CPU.
   ``init_paged_decode_cache``), so its bytes are the reference's times
   ``(n_blocks + 1) / n_blocks``.
 * Report rows equal the reference's over the same result documents for
-  every ported table; ``table_for`` refuses an unported experiment by name.
+  every ported table (``traffic_scaling`` and ``chaos_serving``
+  included); ``table_for`` refuses the unported experiment by name.
 * The ISA census over PTX and SASS recorded on the H100
   (``tests/data/isa``: the copy baseline, ``add.f32`` and ``rsqrt.f32``,
   and the two built fault controls of ``chip_smoke.py``) with its counts,
@@ -198,12 +199,42 @@ DOCS = {
           "predicted_hbm_bytes_saved": 64512.0,
           "predicted_boundary_bytes_saved": 2016.0})
         for e in ("slot", "paged")]),
+    "traffic_scaling": _doc("traffic_scaling", [
+        (f"load=2.0,replicas={r}", {"replicas": r, "load": 2.0},
+         {"replicas": r, "load": 2.0, "n_requests": 8 * r,
+          "interval_s": 0.004, "n_blocks_per_replica": 19,
+          "rr_tok_per_s": 447.04, "ca_tok_per_s": 798.01 / r,
+          "rr_p50_s": 0.04, "ca_p50_s": 0.03, "rr_p99_s": 0.181,
+          "ca_p99_s": 0.0815, "rr_shed_rate": 0.125, "ca_shed_rate": 0.0,
+          "rr_completed": 8 * r, "ca_completed": 8 * r,
+          "rr_reroutes": 0, "ca_reroutes": r - 1,
+          "rr_preemptions": 42, "ca_preemptions": 22,
+          "rr_conserved": True, "ca_conserved": r == 1,
+          "identical_tokens": True, "speedup_tok_s": 1.785 / r,
+          "p99_ratio": 2.22, "topology_replicas": r, "topology_data": 1,
+          "topology_model": 1, "topology_pred_tok_s": 5.5e6})
+        for r in (1, 2)]),
+    "chaos_serving": _doc("chaos_serving", [
+        (f"fault={f},replicas=2", {"fault": f, "replicas": 2},
+         {"fault": f, "replicas": 2, "n_requests": 8, "admitted": 8,
+          "completed": 8, "shed": 0, "abandoned": int(f == "hang"),
+          "recovered": 3, "failures": 4 if f == "crashloop" else 1,
+          "failure_kinds": kind, "quarantined": f == "crashloop",
+          "reclaimed": 3, "recovery_latency_s": 1.01 * (1 + (f == "hang")),
+          "survivors_identical": True, "all_accounted": True,
+          "tokens_lost": 0, "blocks_leaked": 0,
+          "live_replicas": 1 if f == "crashloop" else 2,
+          "t_end_s": 20.56, "ok": f != "hang"})
+        for f, kind in (("crash", "dead"), ("hang", "straggler"),
+                        ("corrupt", "corrupt"), ("crashloop", "dead"))]),
 }
 FUNCS = {"alu_chain": "cpi_table", "mxu_shapes": "mxu_table",
          "memory_chase": "memory_table", "isa_mapping": "isa_table",
          "roofline_calibration": "roofline_table",
          "paged_serve": "paged_serve_table",
-         "decode_hotpath": "decode_hotpath_table"}
+         "decode_hotpath": "decode_hotpath_table",
+         "traffic_scaling": "traffic_scaling_table",
+         "chaos_serving": "chaos_serving_table"}
 
 
 @pytest.mark.parametrize("name", sorted(DOCS))
@@ -235,7 +266,7 @@ def test_report_rows_carry_the_ports_keys():
         ";baseline_peak_bytes=10;fused_peak_bytes=9")
 
 
-UNPORTED = ("traffic_scaling", "sharded_decode", "chaos_serving")
+UNPORTED = ("sharded_decode",)
 
 
 @pytest.mark.parametrize("name", UNPORTED)
@@ -306,10 +337,10 @@ def test_report_command_renders_result_files(tmp_path, capsys):
     jreport.render_rows(jreport.table_for(DOCS["paged_serve"])
                         + jreport.table_for(DOCS["isa_mapping"]), file=buf)
     assert out == buf.getvalue().splitlines()
-    bad = tmp_path / "traffic_scaling.json"
+    bad = tmp_path / "sharded_decode.json"
     bad.write_text(json.dumps(dict(DOCS["paged_serve"],
-                                   experiment="traffic_scaling")))
-    with pytest.raises(SystemExit, match="traffic_scaling"):
+                                   experiment="sharded_decode")))
+    with pytest.raises(SystemExit, match="sharded_decode"):
         cli_main(["report", str(bad)])
 
 

@@ -60,7 +60,14 @@ def test_port_imports_without_jax_or_repro():
                 "serve.telemetry.metrics", "serve.telemetry.drift",
                 "serve.telemetry.slo", "serve.telemetry.control",
                 "serve.telemetry.recalibrate", "serve.telemetry.scenarios",
-                "serve.telemetry.cli", "serve.telemetry.__main__"):
+                "serve.telemetry.cli", "serve.telemetry.__main__",
+                "serve.cluster", "serve.cluster.policy",
+                "serve.cluster.router", "serve.cluster.traffic",
+                "serve.cluster.metrics", "serve.cluster.cluster",
+                "serve.chaos", "serve.chaos.faults",
+                "serve.chaos.supervise", "serve.chaos.drill",
+                "distributed", "distributed.fault_tolerance", "sharding",
+                "sharding.plans", "sharding.cli", "sharding.__main__"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 
