@@ -222,7 +222,7 @@ exits non-zero):
    model's tensors on the card, each result equal to the CPU's; (b) two
    fused paged replicas of full-width gemma2-2b on one set of weights
    (max_batch 4, max_len 1024, page 16, chunk 64, ``cluster_pool``
-   blocks each) serving ``CLUSTER_TRACE`` (16 requests, every second a
+   blocks each) serving ``CLUSTER_TRACE`` (12 requests, every second a
    768-token prompt with 32 new tokens, the rest 16 with 8) at
    ``CLUSTER_LOAD`` times a warm replica's step rate through
    ``serve_trace`` (a ``SimClock`` advanced by each tick's largest host
@@ -286,6 +286,23 @@ exits non-zero):
    with a CUDA event pair around each call of the recurrence kernel.
 21. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
+22. recurrent_serve: (a) full-width rwkv6-1.6b and hymba-1.5b (seeded
+   random bf16 weights) through the fused slot engine (max_batch 4,
+   max_len 1024; 8 prompts of 16-384 tokens, 16 new tokens each, so rows
+   are reused) under sync debugging: every request complete in
+   vocabulary, at most one sync a step, no ``wkv6``/``ssm_scan`` launch
+   (prefill and decode run the reference's scans); readings tok/s, the
+   prefill's ms a prompt token, the median step, ``kv_cache_bytes`` and
+   peak memory.  (b) decode equivalence at full width in f32 and bf16:
+   a prefill of 2 x 256 tokens, then 8 teacher-forced decode steps, each
+   step's logits against the train-mode forward (through the recurrence
+   kernels) and the cache after them against a prefill of all 264
+   tokens (``RECURRENT_LOGIT_TOL``, ``RECURRENT_STATE_TOL``), beside the
+   controls of ``RECURRENT_MUST_CATCH`` (a state leaf zeroed before
+   every step; hymba decoding at S instead of meta_tokens + S), each of
+   which the gate must catch.  (c) reduced f32 rwkv6 and hymba through
+   the fused and legacy engines, rows reused, on the card and the CPU:
+   tokens equal to the port's teacher-forced greedy decode on the card.
 
 A ``timing`` line gives each phase's seconds; the line before the last
 holds every kernel's numbers; the last line is
@@ -2989,7 +3006,7 @@ def phase_autotune(torch, np, dev, seed, card):
 TELEMETRY_MUST_CATCH = ("record_reads_device", "mixed_fed",
                         "wall_clock_retire")
 TELEMETRY_GATE = 0.10         # the drift detector's gate (the cost CLI's bar)
-TELEMETRY_RUNS = 3            # full-width runs with telemetry on, and off
+TELEMETRY_RUNS = 2            # full-width runs with telemetry on, and off
 SLO_TARGET_FACTOR = 0.8       # the SLO's p99 target over the ungated p99
 SLO_ARRIVAL_GAP = 2           # (c): one request arrives every 2 iterations
 SLO_WINDOW = 8                # (c): the bucket of the sim overload scenario
@@ -3511,8 +3528,10 @@ CLUSTER_REPLICAS = 2
 CLUSTER_POOL = 0.6            # a replica's pool over the slot rectangle
 CLUSTER_LOAD = 2.0            # offered load over one warm replica's step
 # (b) and (c): the skewed trace (every 2nd request long, so round-robin
-# puts every long one on replica 0)
-CLUSTER_TRACE = dict(n_requests=16, period=2, long_len=768, long_new=32,
+# puts every long one on replica 0); 12 requests (6 long) keep the whole
+# script near 600 s: round-robin's replays of a 7th and 8th long request
+# on replica 0 took most of the phase's time
+CLUSTER_TRACE = dict(n_requests=12, period=2, long_len=768, long_new=32,
                      short_len=16, short_new=8)
 # (a): the skewed sim trace and cluster of tests/test_cluster.py
 CLUSTER_SIM_TRACE = dict(n_requests=12, vocab=97, period=2, long_len=24,
@@ -4540,6 +4559,320 @@ def phase_reference_eval(torch, np, seed):
     emit({"phase": "reference_eval", "tokens": 64, "rows": 2, **out})
 
 
+# --- phase recurrent_serve ---------------------------------------------------
+
+RECURRENT_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")
+# (a): the fused slot engine at full width; 8 prompts of 16-384 tokens
+# over 4 rows, so rows are reused and a splice overwrites a row's state
+RECURRENT_SERVE = dict(max_batch=4, max_len=1024, n_requests=8, lo=16,
+                       hi=384, max_new=16)
+# (b): prefill S0 tokens of B rows, then T decode steps
+RECURRENT_EQ = dict(B=2, S0=256, T=8)
+# (b)'s gate, measured first on the reduced configs on the CPU, seeds
+# 0-2, S0 64, T 8 (tests/test_torch_recurrent_serve.py
+# ``test_recurrent_equivalence_gate_holds_and_catches_each_control``):
+# * logits: the largest |decode - train forward| over the prefill's last
+#   position and the T steps, over max(max|train logits|, 1), the
+#   reference's scale.  Sound runs: f32 0.00024-0.0016 (the decode reads
+#   K/V, token shifts and conv rows stored in bf16, as the reference's
+#   does); bf16 0-0.0039; the reference's own bar is 0.05.
+# * state: each cache leaf after the T steps against a prefill of all
+#   S0+T tokens, the largest |difference| over max|want|.  Sound runs:
+#   f32 0.0023-0.0057 (bf16 storage again), bf16 0 on the CPU (the same
+#   loops in the same order).
+# The controls read 0.10-0.70 on the logits but ``h_not_carried``
+# (0.0033-0.0098: the SSM state decays within a step or two and the
+# skip path carries most of the output; zeroed before every step, its
+# error does not build with T), which only the state gate sees
+# (0.23-0.99; every control's state reads 0.22 or more).
+RECURRENT_LOGIT_TOL = {"float32": 0.01, "bfloat16": 0.05}
+RECURRENT_STATE_TOL = 0.05
+# the faults (b)'s gate must catch, each on its arch in both dtypes: a
+# state leaf zeroed before every decode step, or hymba decoding at the
+# prompt length, as the JAX engine does, instead of meta_tokens + S
+RECURRENT_MUST_CATCH = {"wkv_not_carried": "rwkv6-1.6b",
+                        "shift_dropped": "rwkv6-1.6b",
+                        "conv_dropped": "hymba-1.5b",
+                        "h_not_carried": "hymba-1.5b",
+                        "meta_offset_dropped": "hymba-1.5b"}
+RECURRENT_ZEROED = {"wkv_not_carried": ("wkv",),
+                    "shift_dropped": ("tm_shift", "cm_shift"),
+                    "conv_dropped": ("conv",), "h_not_carried": ("h",)}
+# (c): reduced f32 through the fused and legacy engines, rows reused
+RECURRENT_REDUCED = dict(max_batch=2, max_len=48, n_requests=5, lo=3,
+                         hi=20, max_new=6)
+
+
+def recurrent_prompts(np, vocab, seed, n_requests, lo, hi, **_):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in rng.integers(lo, hi + 1, size=n_requests)]
+
+
+def recurrent_teacher(torch, model, params, toks, S0, T):
+    """What (b) holds decode against: the train-mode forward's logits of
+    all S0+T tokens (through the recurrence kernels on the card), the
+    prefill of the first S0 tokens (its logits and cache), and the cache
+    a prefill of all S0+T tokens leaves."""
+    from repro_torch.models import transformer as lm_mod
+
+    cfg = model.cfg
+    n = S0 + T + cfg.meta_tokens
+    with torch.no_grad():
+        full, _ = lm_mod.lm_apply(params, cfg, tokens=toks, mode="train")
+        lg0, c0 = model.prefill(params, {"tokens": toks[:, :S0]}, max_len=n)
+        _, want = model.prefill(params, {"tokens": toks}, max_len=n)
+    return full[..., :cfg.vocab_size].float(), lg0, c0, want
+
+
+def recurrent_check(torch, model, params, toks, teacher, S0, T, fault=None):
+    """T decode steps from the prefill's cache (a copy), teacher-forced,
+    with ``fault`` (``RECURRENT_MUST_CATCH``) injected: the logits' error
+    against the train forward over the reference's scale, and each cache
+    leaf's against the full prefill's over its scale."""
+    cfg = model.cfg
+    full, lg0, c0, want = teacher
+    V = cfg.vocab_size
+    cache = {k: t.clone() for k, t in c0.items()}
+    errs = [(lg0[:, :V].float() - full[:, S0 - 1]).abs().max().item()]
+    prefix = 0 if fault == "meta_offset_dropped" else cfg.meta_tokens
+    with torch.no_grad():
+        for t in range(T):
+            for key in RECURRENT_ZEROED.get(fault, ()):
+                cache[key].zero_()
+            pos = torch.full((toks.shape[0],), prefix + S0 + t,
+                             dtype=torch.int32, device=toks.device)
+            lg, cache = model.decode(params, cache, toks[:, S0 + t:S0 + t + 1],
+                                     pos)
+            errs.append((lg[:, :V].float() - full[:, S0 + t]).abs().max()
+                        .item())
+    scale = max(full.abs().max().item(), 1.0)
+    state = {k: ((cache[k].float() - w.float()).abs().max()
+                 / w.float().abs().max().clamp(min=1e-30)).item()
+             for k, w in want.items()}
+    return {"logit_rel": max(errs) / scale, "logit_max_abs": max(errs),
+            "scale": scale, "state_rel": state,
+            "finite": all(math.isfinite(e) for e in errs)}
+
+
+def recurrent_gate(r, dtype):
+    """What of (b)'s gate a check fails: [] when it holds."""
+    bad = []
+    if not (r["finite"] and r["logit_rel"] <= RECURRENT_LOGIT_TOL[dtype]):
+        bad.append("logits")
+    if not max(r["state_rel"].values()) <= RECURRENT_STATE_TOL:
+        bad.append("state")
+    return bad
+
+
+def recurrent_equivalence(torch, model, params, toks, S0, T, dtype):
+    """(b) on one model: the sound check and each of its arch's
+    ``RECURRENT_MUST_CATCH`` controls, with what the gate says of each."""
+    teacher = recurrent_teacher(torch, model, params, toks, S0, T)
+    sound = recurrent_check(torch, model, params, toks, teacher, S0, T)
+    sound["failed"] = recurrent_gate(sound, dtype)
+    controls = {}
+    for name, arch in RECURRENT_MUST_CATCH.items():
+        if arch == model.cfg.name:
+            c = recurrent_check(torch, model, params, toks, teacher, S0, T,
+                                name)
+            c["caught_by"] = recurrent_gate(c, dtype)
+            controls[name] = c
+    return sound, controls
+
+
+def recurrent_teacher_tokens(torch, model, params, prompt, max_len, max_new):
+    """Greedy tokens of one request through ``Model.prefill`` then
+    ``Model.decode`` at ``meta_tokens + S + t``, the engine's oracle."""
+    dev = model.device
+    with torch.no_grad():
+        lg, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt[None]).to(dev)},
+            max_len=max_len)
+        toks = [int(lg[0].argmax())]
+        pos = model.cfg.meta_tokens + len(prompt)
+        for t in range(max_new - 1):
+            lg, cache = model.decode(
+                params, cache,
+                torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev),
+                torch.tensor([pos + t], dtype=torch.int32, device=dev))
+            toks.append(int(lg[0].argmax()))
+    return toks
+
+
+def recurrent_engine_tokens(model, params, prompts, max_batch, max_len,
+                            max_new, fused=True, **_):
+    from repro_torch.serve.engine import ServingEngine
+
+    eng = ServingEngine(model, params, max_batch=max_batch, max_len=max_len,
+                        fused=fused)
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run_until_done()
+    return [eng.done[r].tokens for r in rids]
+
+
+def recurrent_reduced(torch, np, seed, dev="cuda"):
+    """(c): reduced f32 rwkv6 and hymba (weights drawn on the CPU, then
+    moved) through the fused and the legacy slot engines on ``dev`` and
+    on the CPU, rows reused; each request's tokens against the port's
+    teacher-forced greedy decode on ``dev``.  Returns the tokens and the
+    mismatches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+
+    kw = RECURRENT_REDUCED
+    out, bad = {}, []
+    for arch in RECURRENT_ARCHS:
+        cfg = reduced(get_config(arch), compute_dtype="float32")
+        cpu_params = build_model(cfg, device="cpu").init(seed)
+        prompts = recurrent_prompts(np, cfg.vocab_size, seed, **kw)
+        runs = {}
+        for d in dict.fromkeys((dev, "cpu")):
+            model = build_model(cfg, device=d)
+            params = params_to(cpu_params, d)
+            runs[f"teacher_{d}"] = [recurrent_teacher_tokens(
+                torch, model, params, p, kw["max_len"], kw["max_new"])
+                for p in prompts]
+            for fused in (True, False):
+                runs[f"{'fused' if fused else 'legacy'}_{d}"] = \
+                    recurrent_engine_tokens(model, params, prompts,
+                                            fused=fused, **kw)
+        want = runs[f"teacher_{dev}"]
+        bad += [f"{arch} {name}" for name, got in runs.items()
+                if got != want]
+        out[arch] = want
+    return out, bad
+
+
+def recurrent_serve_gates(eng, rids, counts, max_new):
+    """(a)'s gates on a drained slot engine: every request complete with
+    ``max_new`` tokens in the vocabulary, at most one sync a step, and no
+    ``wkv6``/``ssm_scan`` launch (prefill and decode run the scans)."""
+    st, vocab = eng.stats, eng.model.cfg.vocab_size
+    toks = [eng.done[r].tokens for r in rids if r in eng.done]
+    failed = []
+    if st.completed != len(rids):
+        failed.append(f"completed {st.completed} of {len(rids)}")
+    if any(len(t) != max_new or min(t) < 0 or max(t) >= vocab
+           for t in toks):
+        failed.append("a request came back short or out of vocab")
+    if st.host_syncs > st.steps + 1:
+        failed.append(f"{st.host_syncs} syncs over {st.steps} steps")
+    if counts["wkv6"] or counts["ssm_scan"]:
+        failed.append(f"recurrence kernels launched while serving: {counts}")
+    return failed
+
+
+def recurrent_serve_full(torch, np, arch, seed):
+    """(a): full-width ``arch`` through the fused slot engine under sync
+    debugging: gates and readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import ServingEngine
+
+    kw = RECURRENT_SERVE
+    cfg = get_config(arch)
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed)
+    prompts = recurrent_prompts(np, cfg.vocab_size, seed, **kw)
+    ekw = dict(max_batch=kw["max_batch"], max_len=kw["max_len"])
+    warm = ServingEngine(model, params, **ekw)
+    warm.submit(prompts[0][:16], max_new_tokens=2)
+    warm.run_until_done()
+    del warm
+    longest = max(prompts, key=len)
+    batch = {"tokens": torch.from_numpy(longest[None]).cuda()}
+    with torch.no_grad():
+        _, prefill_ms = timed_once(torch, lambda: model.prefill(
+            params, batch, max_len=kw["max_len"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    eng = ServingEngine(model, params, **ekw)
+    rids = [eng.submit(p, max_new_tokens=kw["max_new"]) for p in prompts]
+    step_ms, run_s, counts = drive(torch, eng)
+    st = eng.stats
+    line = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "meta_tokens": cfg.meta_tokens, **ekw,
+            "requests": len(prompts),
+            "prompt_tokens": [len(p) for p in prompts],
+            "max_new": kw["max_new"], "completed": st.completed,
+            "decoded_tokens": st.decoded_tokens, "steps": st.steps,
+            "prefills": st.prefills, "host_syncs": st.host_syncs,
+            "kernel_launches": counts, "run_s": run_s,
+            "decode_tok_per_s": st.decoded_tokens / run_s,
+            "median_step_ms": statistics.median(step_ms),
+            "prefill_ms": prefill_ms, "prefill_tokens": len(longest),
+            "prefill_ms_per_token": prefill_ms / len(longest),
+            "kv_cache_bytes": eng.kv_cache_bytes(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "resident_before_gib": resident / 2 ** 30,
+            "failed": recurrent_serve_gates(eng, rids, counts, kw["max_new"])}
+    del eng
+    torch.cuda.empty_cache()
+    return model, params, line
+
+
+def phase_recurrent_serve(torch, np, seed):
+    """Full-width rwkv6 and hymba served through the fused slot engine
+    (a), their decode held against the kernel-backed train forward in f32
+    and bf16 beside ``RECURRENT_MUST_CATCH`` (b), and reduced f32 engines'
+    tokens against the teacher-forced decode on the card and the CPU
+    (c)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_to
+    from repro_torch.models.zoo import build_model
+
+    failed = []
+    eq = RECURRENT_EQ
+    for arch in RECURRENT_ARCHS:
+        model, params, line = recurrent_serve_full(torch, np, arch, seed)
+        emit({"phase": "recurrent_serve", "part": "serve", **line})
+        failed += [f"{arch} serve: {f}" for f in line["failed"]]
+        rng = np.random.default_rng(seed + 3)
+        toks = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, size=(eq["B"], eq["S0"] + eq["T"]))
+            .astype(np.int32)).cuda()
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "float32":
+                m = build_model(get_config(arch).replace(
+                    compute_dtype="float32"), device="cuda")
+                p = params_to(params, dtype=torch.float32)
+            else:
+                m, p = model, params
+            reset_launches()
+            t0 = time.perf_counter()
+            sound, controls = recurrent_equivalence(
+                torch, m, p, toks, eq["S0"], eq["T"], dtype)
+            counts = launch_counts()
+            kernel = "wkv6" if arch.startswith("rwkv6") else "ssm_scan"
+            emit({"phase": "recurrent_serve", "part": "equivalence",
+                  "arch": arch, "dtype": dtype, **eq,
+                  "logit_tol": RECURRENT_LOGIT_TOL[dtype],
+                  "state_tol": RECURRENT_STATE_TOL, **sound,
+                  "kernel_launches": counts[kernel],
+                  "seconds": time.perf_counter() - t0,
+                  "controls": controls})
+            failed += [f"{arch} {dtype}: the sound decode fails {f}"
+                       for f in sound["failed"]]
+            failed += [f"{arch} {dtype}: control {n} not caught"
+                       for n, c in controls.items() if not c["caught_by"]]
+            if counts[kernel] != model.cfg.n_layers:
+                failed.append(f"{arch} {dtype}: {counts[kernel]} {kernel} "
+                              "launches in the train forward")
+            del m, p
+            torch.cuda.empty_cache()
+        del model, params
+        torch.cuda.empty_cache()
+    tokens, bad = recurrent_reduced(torch, np, seed)
+    emit({"phase": "recurrent_serve", "part": "reduced",
+          **RECURRENT_REDUCED, "tokens": tokens, "mismatched": bad})
+    failed += [f"reduced tokens differ: {b}" for b in bad]
+    if failed:
+        raise AssertionError(f"recurrent_serve: {failed}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4618,6 +4951,8 @@ def main(argv=None) -> int:
     lap("eval_hymba")
     phase_reference_eval(torch, np, args.seed)
     lap("reference_eval")
+    phase_recurrent_serve(torch, np, args.seed)
+    lap("recurrent_serve")
     emit({"phase": "timing", "seconds": seconds,
           "total_s": sum(seconds.values())})
 

@@ -11,7 +11,9 @@ CPU.
   its rounding points);
 * the recurrences: ``wkv6_plain`` and ``ssm_scan_plain`` (ports of
   ``repro.kernels.ref``'s scans, with the dtypes of the Pallas kernels
-  ``repro.kernels.wkv6`` and ``repro.kernels.ssm_scan``);
+  ``repro.kernels.wkv6`` and ``repro.kernels.ssm_scan``), each the zero
+  start of ``wkv6_carry`` / ``ssm_scan_carry`` (a carried state in, the
+  final state out: the models' prefill and decode recurrences);
 * the paper's probes: ``alu_chain_plain`` over the 21-op table ``ALU_OPS``
   (a port of ``repro.core.microbench.harness.OPS``, with jnp's semantics:
   ``%`` is a floor-mod, ``popc``/``clz`` count the int32 bit pattern),
@@ -253,51 +255,72 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
 
 # --- the recurrences -------------------------------------------------------
 
-def wkv6_plain(r, k, v, w, u, *, block_h=1):
-    """RWKV6, a port of ``repro.kernels.ref.wkv6_ref`` with the Pallas
-    kernel's dtypes.  r,k,v,w [B,S,H,N]; u [H,N] -> y [B,S,H,N]: an f32
-    state [B,H,N,N], every input read in f32 (the model rounds ``u`` to
-    r's dtype before the call, as the Pallas path does; an f32 ``u``, as
-    on the reference's scan path, is used as it is); y in r's dtype.
+def wkv6_carry(r, k, v, w, u, s0):
+    """The RWKV6 recurrence from a carried state, a port of
+    ``repro.models.layers.rwkv._wkv_scan_ref`` as a plain time loop (its
+    sqrt-remat chunking only saves memory for gradients).  r,k,v,w
+    [B,S,H,N]; u [H,N]; s0 [B,H,N,N] -> (y [B,S,H,N] f32, sT f32), every
+    input read in f32.
 
-      y_t = r_t . (S + diag(u) k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T
-
-    ``block_h`` heads share a block in the kernel; heads are independent,
-    so the blocking changes no value and this runs all heads at once."""
-    del block_h
+      y_t = r_t . (S + diag(u) k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T"""
     B, S, H, N = r.shape
     rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, w, u))
-    s = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    s = s0.float()
     y = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]       # [B,H,N,N]
         y[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t],
                                s + uf[..., None] * kv)
         s = wf[:, t, :, :, None] * s + kv
-    return y.to(r.dtype)
+    return y, s
 
 
-def ssm_scan_plain(x, dt, B, C, A, *, block_d=256):
-    """Selective scan, a port of ``repro.kernels.ref.ssm_scan_ref`` with
-    the Pallas kernel's dtypes.  x,dt [Bt,S,Di]; B,C [Bt,S,N]; A [Di,N] ->
-    y [Bt,S,Di] in x's dtype: an f32 state h [Bt,Di,N], every input read
-    in f32.
+def wkv6_plain(r, k, v, w, u, *, block_h=1):
+    """RWKV6, a port of ``repro.kernels.ref.wkv6_ref`` with the Pallas
+    kernel's dtypes.  r,k,v,w [B,S,H,N]; u [H,N] -> y [B,S,H,N]: an f32
+    state [B,H,N,N] from zero, every input read in f32 (the model rounds
+    ``u`` to r's dtype before the call, as the Pallas path does; an f32
+    ``u``, as on the reference's scan path, is used as it is); y in r's
+    dtype (``wkv6_carry`` from a zero state).
 
-      h_t = exp(dt_t A) h + (dt_t x_t) B_t;   y_t = h_t . C_t
+    ``block_h`` heads share a block in the kernel; heads are independent,
+    so the blocking changes no value and this runs all heads at once."""
+    del block_h
+    B, _, H, N = r.shape
+    s0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    return wkv6_carry(r, k, v, w, u, s0)[0].to(r.dtype)
 
-    Channels are independent, so the kernel's ``block_d`` tiling changes
-    no value."""
-    del block_d
+
+def ssm_scan_carry(x, dt, B, C, A, h0):
+    """The selective scan from a carried state, a port of
+    ``repro.models.layers.mamba._ssm_scan_ref`` as a plain time loop.
+    x,dt [Bt,S,Di]; B,C [Bt,S,N]; A [Di,N]; h0 [Bt,Di,N] -> (y [Bt,S,Di]
+    f32, hT f32), every input read in f32.
+
+      h_t = exp(dt_t A) h + (dt_t x_t) B_t;   y_t = h_t . C_t"""
     Bt, S, Di = x.shape
     xf, dtf, bf, cf, Af = (t.float() for t in (x, dt, B, C, A))
-    h = torch.zeros((Bt, Di, Af.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    h = h0.float()
     y = torch.empty((Bt, S, Di), dtype=torch.float32, device=x.device)
     for t in range(S):
         dA = torch.exp(dtf[:, t, :, None] * Af)
         h = dA * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         y[:, t] = torch.einsum("bdn,bn->bd", h, cf[:, t])
-    return y.to(x.dtype)
+    return y, h
+
+
+def ssm_scan_plain(x, dt, B, C, A, *, block_d=256):
+    """Selective scan, a port of ``repro.kernels.ref.ssm_scan_ref`` with
+    the Pallas kernel's dtypes.  x,dt [Bt,S,Di]; B,C [Bt,S,N]; A [Di,N] ->
+    y [Bt,S,Di] in x's dtype: an f32 state h [Bt,Di,N] from zero, every
+    input read in f32 (``ssm_scan_carry`` from a zero state).
+
+    Channels are independent, so the kernel's ``block_d`` tiling changes
+    no value."""
+    del block_d
+    h0 = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
+                     dtype=torch.float32, device=x.device)
+    return ssm_scan_carry(x, dt, B, C, A, h0)[0].to(x.dtype)
 
 
 # --- the paper's probes ----------------------------------------------------

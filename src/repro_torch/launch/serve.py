@@ -4,14 +4,17 @@
   python -m repro_torch.launch.serve --arch gemma2-2b --paged      # paged engine
   python -m repro_torch.launch.serve --arch gemma2-2b --profile    # + where the time goes
   python -m repro_torch.launch.serve --arch gemma2-2b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b             # or hymba-1.5b: slot engine only
 
-The traffic is chip_smoke.py's: 8 requests of 16 to 900 prompt tokens,
-32 new tokens each, through ``ServingEngine(max_batch=8, max_len=1024)``
-or, with ``--paged``, ``PagedServingEngine(max_batch=8, max_len=1024,
-block_size=16, chunk_size=64)``.  Weights are random, drawn from
-``--seed``; so are the prompts.  After a one-request warm-up (kernel
-build, library start-up) the traffic is served once, timed step by step;
-one JSON line reports it.  With ``--profile`` it is served again under
+The traffic is chip_smoke.py's: 8 requests of 16 to 900 prompt tokens
+(hymba: to 863, so its 128 meta tokens and the new tokens fit), 32 new
+tokens each, through ``ServingEngine(max_batch=8, max_len=1024)`` or,
+with ``--paged``, ``PagedServingEngine(max_batch=8, max_len=1024,
+block_size=16, chunk_size=64)``, which serves the dense family only
+(with rwkv6 or hymba it raises ``NotImplementedError``).  Weights are
+random, drawn from ``--seed``; so are the prompts.  After a one-request
+warm-up (kernel build, library start-up) the traffic is served once,
+timed step by step; one JSON line reports it.  With ``--profile`` it is served again under
 ``torch.profiler``, which adds the device's busy share of the wall time,
 the kernels by device time (the twelve largest, and the port's own
 attention kernels by source), and the engine's spans (``prefill`` or
@@ -39,10 +42,11 @@ def _serve(model, params, prompts, paged):
     from repro_torch.serve.engine import PagedServingEngine, ServingEngine
 
     if paged:
-        eng = PagedServingEngine(model, params, max_batch=8, max_len=1024,
-                                 block_size=16, chunk_size=64)
+        eng = PagedServingEngine(model, params, max_batch=8,
+                                 max_len=MAX_LEN, block_size=16,
+                                 chunk_size=64)
     else:
-        eng = ServingEngine(model, params, max_batch=8, max_len=1024)
+        eng = ServingEngine(model, params, max_batch=8, max_len=MAX_LEN)
     for p in prompts:
         eng.submit(p, max_new_tokens=MAX_NEW)
     steps = []
@@ -67,6 +71,7 @@ SPANS = ("prefill", "prefill_chunk", "decode_step", "sync")
 # the profiler names them (``flash_attention`` counts both flash sources)
 PORT_KERNELS = ("paged_attention", "flash_attention")
 MAX_NEW = 32
+MAX_LEN = 1024
 
 
 def _profile(model, params, prompts, paged):
@@ -148,8 +153,9 @@ def main(argv=None):
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
+    longest = min(900, MAX_LEN - cfg.meta_tokens - MAX_NEW - 1)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in rng.integers(16, 901, size=8)]
+               for n in rng.integers(16, longest + 1, size=8)]
     # warm-up: builds the kernels and initialises the libraries
     _serve(model, params, prompts[:1], args.paged)
     stats, secs, steps = _serve(model, params, prompts, args.paged)

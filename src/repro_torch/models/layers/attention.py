@@ -11,8 +11,9 @@ and the paged KV pool.
   reference does.
 * **Dense slot cache** (``cache={'k','v': [B, Smax, KH, hd]}``): write the
   new K/V at ``write_pos`` in place, clamped as ``dynamic_update_slice``
-  clamps, then the plain masked ``attend``; the JAX package runs no kernel
-  here either.
+  clamps, then the plain masked ``attend``, hymba's meta tokens (the
+  cache's first slots) attendable outside the window; the JAX package
+  runs no kernel here either.
 * **Paged pool** (``block_tables`` given): every call writes its new K/V
   into the layer's block pool.  ``Sq == 1`` (a decode step) goes to
   ``kernels.ops.paged_attention``; ``Sq > 1`` (a chunked-prefill chunk)
@@ -238,7 +239,8 @@ def attention(p, x, *, cfg, positions, is_global: bool, cache=None,
         written = slot <= write_pos.long()[:, None] + Sq - 1
         out_h = attend(q, cache["k"].to(cdt), cache["v"].to(cdt), positions,
                        torch.where(written, slot, -1), scale=scale,
-                       window=window, cap=cfg.attn_softcap)
+                       window=window, n_sink=cfg.meta_tokens,
+                       cap=cfg.attn_softcap)
     else:
         pool_k, pool_v = cache["k"], cache["v"]
         paged_write(pool_k, pool_v, k_new, v_new, block_tables, write_pos)

@@ -1,5 +1,5 @@
-"""Selective-SSM (Mamba) mixer of hymba's parallel SSM heads, train mode,
-ported from ``repro.models.layers.mamba``.
+"""Selective-SSM (Mamba) mixer of hymba's parallel SSM heads, ported from
+``repro.models.layers.mamba``.
 
 hymba runs attention heads and SSM heads in parallel inside every layer:
 both read the same normed input, and their pre-projection outputs are each
@@ -8,10 +8,15 @@ RMS-normed and mean-fused before the shared output projection (the trunk,
 
   h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t,   y_t = C_t . h_t + D x_t
 
-Train mode starts every row from a zero state and never reads the final
-one, so the scan runs through ``kernels.ops.ssm_scan`` (the CUDA kernel on
-the card, its plain version on the CPU).  The reference's ``lax.scan``
-path with a carried state waits for the serving slice.
+* **Train mode** (no state in, none needed) starts every row from a zero
+  state and never reads the final one, so the scan runs through
+  ``kernels.ops.ssm_scan`` (the CUDA kernel on the card, its plain version
+  on the CPU).
+* **Prefill and decode** carry the state: the causal conv reads the
+  ``W-1`` rows before the new ones from the state's buffer, and the scan
+  is the reference's (``kernels.ref.ssm_scan_carry``, a plain f32 time
+  loop) from the state's ``h``.  The new conv buffer is stored in bf16
+  whatever the compute dtype, as the reference stores it.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models.layers.basic import uniform
 
 
@@ -46,21 +52,29 @@ def init_mamba(gen, cfg, device, dtype):
     }
 
 
-def mamba_mixer(p, x, cfg, ssm_fn=None):
-    """x [Bt,S,D] -> y_pre [Bt,S,di], the gated pre-projection SSM path,
-    from a zero state.
+def mamba_mixer(p, x, cfg, state=None, need_state=False, ssm_fn=None):
+    """x [Bt,S,D] -> (y_pre [Bt,S,di], new state): the gated
+    pre-projection SSM path.
 
-    ``ssm_fn`` is the scan (default ``kernels.ops.ssm_scan``); a check can
-    pass its plain version to compare the kernel inside the model."""
+    ``state`` {'conv': [Bt,W-1,di], 'h': [Bt,di,N] f32} or None (a zero
+    start).  With no state and ``need_state`` False (train) the scan is
+    ``ssm_fn`` (default ``kernels.ops.ssm_scan``; a check can pass its
+    plain version to compare the kernel inside the model) and the new
+    state is None; otherwise it is the carried scan and the new state is
+    ``{'conv': the last W-1 conv inputs in bf16, 'h': hT}``."""
     s = cfg.ssm
     cdt = x.dtype
-    S, di = x.shape[1], x.shape[2]
+    Bt, S, di = x.shape
     xz = torch.matmul(x, p["w_in"].to(cdt))
     xr, z = xz[..., :di], xz[..., di:]
 
-    # depthwise causal conv of width W over the zero-padded sequence
+    # depthwise causal conv of width W over the buffer (or zeros) and the
+    # new rows
     W = s.conv_width
-    xin = F.pad(xr, (0, 0, W - 1, 0))
+    if state is None:
+        xin = F.pad(xr, (0, 0, W - 1, 0))
+    else:
+        xin = torch.cat([state["conv"].to(cdt), xr], dim=1)
     conv_w = p["conv"].to(cdt)
     xc = F.silu(sum(xin[:, i:i + S] * conv_w[i] for i in range(W)))
 
@@ -71,6 +85,25 @@ def mamba_mixer(p, x, cfg, ssm_fn=None):
     dt = F.softplus(torch.matmul(bcdt[..., 2 * N:], p["w_dt"].to(cdt)).float()
                     + p["dt_bias"])
     A = -torch.exp(p["a_log"])                                 # [di,N] f32
-    y = (ssm_fn or functools.partial(kops.ssm_scan, tuned=True))(
-        xc, dt, Bm, Cm, A)
-    return (y.to(cdt) + xc * p["d_skip"].to(cdt)) * F.silu(z)
+    new_state = None
+    if state is None and not need_state:
+        y = (ssm_fn or functools.partial(kops.ssm_scan, tuned=True))(
+            xc, dt, Bm, Cm, A)
+    else:
+        h0 = (state["h"] if state is not None else
+              torch.zeros((Bt, di, N), dtype=torch.float32, device=x.device))
+        y, hT = ref.ssm_scan_carry(xc, dt, Bm, Cm, A, h0)
+        new_state = {"conv": xin[:, -(W - 1):].to(torch.bfloat16), "h": hT}
+    return (y.to(cdt) + xc * p["d_skip"].to(cdt)) * F.silu(z), new_state
+
+
+def init_mamba_state(cfg, batch, n_layers, device):
+    """The decode state of ``n_layers`` layers: ``conv`` [L,B,W-1,di] bf16
+    and ``h`` [L,B,di,N] f32, zeros (as ``init_mamba_state``)."""
+    s, di = cfg.ssm, cfg.d_model
+    return {
+        "conv": torch.zeros((n_layers, batch, s.conv_width - 1, di),
+                            dtype=torch.bfloat16, device=device),
+        "h": torch.zeros((n_layers, batch, di, s.state_dim),
+                         dtype=torch.float32, device=device),
+    }

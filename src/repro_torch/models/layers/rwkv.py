@@ -1,4 +1,4 @@
-"""RWKV6 (Finch) time-mix and channel-mix in train mode, ported from
+"""RWKV6 (Finch) time-mix and channel-mix, ported from
 ``repro.models.layers.rwkv``.
 
 Per head (dim N) a state S in R^{N x N}:
@@ -6,12 +6,16 @@ Per head (dim N) a state S in R^{N x N}:
   S_{t+1} = diag(w_t) S_t + k_t v_t^T            (update; w_t data-dependent)
 Token shift is the v6 "ddlerp" (a LoRA-modulated lerp with x_{t-1}).
 
-Train mode starts every row from a zero state and never reads the final
-one, so the recurrence runs through ``kernels.ops.wkv6`` (the CUDA kernel
-on the card, its plain version on the CPU) with ``u`` rounded to r's dtype,
-as the reference's Pallas path rounds it.  The reference's ``lax.scan``
-path, which carries the state across calls for prefill and decode, waits
-for the serving slice.
+* **Train mode** (no state in, none needed) starts every row from a zero
+  state and never reads the final one, so the recurrence runs through
+  ``kernels.ops.wkv6`` (the CUDA kernel on the card, its plain version on
+  the CPU) with ``u`` rounded to r's dtype, as the reference's Pallas path
+  rounds it.
+* **Prefill and decode** carry the state: the token shifts come from the
+  state and the recurrence runs the reference's scan
+  (``kernels.ref.wkv6_carry``, a plain f32 time loop) with ``u`` in f32.
+  The new token shifts are stored in bf16 whatever the compute dtype, as
+  the reference stores them.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.models.layers.basic import (groupnorm_heads, init_layernorm,
                                              uniform)
 
@@ -65,9 +70,12 @@ def init_rwkv_cmix(gen, cfg, device, dtype):
     }
 
 
-def _shifted(x):
-    """x_{t-1} with a zero row before the first token: [B,S,D]."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shifted(x, prev=None):
+    """x_{t-1} [B,S,D]: the row before the first token is ``prev`` [B,D]
+    (a carried token shift) or zero."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _ddlerp(p, x, x_prev):
@@ -82,16 +90,21 @@ def _ddlerp(p, x, x_prev):
             for i, t in enumerate(TM_TARGETS)}
 
 
-def rwkv_time_mix(p, x, cfg, wkv_fn=None):
-    """x [B,S,D] -> out [B,S,D], from a zero state.
+def rwkv_time_mix(p, x, cfg, state=None, need_state=False, wkv_fn=None):
+    """x [B,S,D] -> (out [B,S,D], new state).
 
-    ``wkv_fn`` is the recurrence (default ``kernels.ops.wkv6``); a check
-    can pass its plain version to compare the kernel inside the model."""
+    ``state`` {'shift': [B,D], 'wkv': [B,H,N,N] f32} or None (a zero
+    start).  With no state and ``need_state`` False (train) the recurrence
+    is ``wkv_fn`` (default ``kernels.ops.wkv6``; a check can pass its plain
+    version to compare the kernel inside the model) and the new state is
+    None; otherwise it is the carried scan and the new state is
+    ``{'shift': x[:, -1] in bf16, 'wkv': sT}``."""
     cdt = x.dtype
     B, S, D = x.shape
     N = cfg.rwkv.head_dim
     H = D // N
-    mixed = _ddlerp(p, x, _shifted(x))
+    mixed = _ddlerp(p, x, _shifted(x, None if state is None
+                                   else state["shift"]))
 
     def proj(name, t):
         return torch.matmul(mixed[t], p[name].to(cdt))
@@ -103,19 +116,44 @@ def rwkv_time_mix(p, x, cfg, wkv_fn=None):
         torch.matmul(mixed["w"], p["w_lora_a"].to(cdt)),
         p["w_lora_b"].to(cdt))
     w = torch.exp(-torch.exp(w_log.float())).reshape(B, S, H, N)
-    y = (wkv_fn or functools.partial(kops.wkv6, tuned=True))(
-        r, k, v, w, p["u_bonus"].to(r.dtype))
+    new_state = None
+    if state is None and not need_state:
+        y = (wkv_fn or functools.partial(kops.wkv6, tuned=True))(
+            r, k, v, w, p["u_bonus"].to(r.dtype))
+    else:
+        s0 = (state["wkv"] if state is not None else
+              torch.zeros((B, H, N, N), dtype=torch.float32,
+                          device=x.device))
+        y, sT = ref.wkv6_carry(r, k, v, w, p["u_bonus"].float(), s0)
+        new_state = {"shift": x[:, -1].to(torch.bfloat16), "wkv": sT}
     y = groupnorm_heads(p["gn"], y.to(cdt).reshape(B, S, D), H) * g
-    return torch.matmul(y, p["wo"].to(cdt))
+    return torch.matmul(y, p["wo"].to(cdt)), new_state
 
 
-def rwkv_channel_mix(p, x, cfg):
-    """x [B,S,D] -> out [B,S,D]: squared-ReLU FFN on the token-shifted
-    input, gated by a sigmoid receptance."""
+def rwkv_channel_mix(p, x, cfg, state=None):
+    """x [B,S,D] -> (out [B,S,D], new shift [B,D] bf16): squared-ReLU FFN
+    on the token-shifted input (the row before the first token is
+    ``state``, a carried shift, or zero), gated by a sigmoid receptance."""
     cdt = x.dtype
-    dx = _shifted(x) - x
+    dx = _shifted(x, state) - x
     xk = x + dx * p["mu_k"].to(cdt)
     xr = x + dx * p["mu_r"].to(cdt)
     k = torch.square(F.relu(torch.matmul(xk, p["wk"].to(cdt))))
     kv = torch.matmul(k, p["wv"].to(cdt))
-    return torch.sigmoid(torch.matmul(xr, p["wr"].to(cdt))) * kv
+    out = torch.sigmoid(torch.matmul(xr, p["wr"].to(cdt))) * kv
+    return out, x[:, -1].to(torch.bfloat16)
+
+
+def init_rwkv_state(cfg, batch, n_layers, device):
+    """The decode state of ``n_layers`` layers: ``tm_shift``/``cm_shift``
+    [L,B,d] bf16 and ``wkv`` [L,B,H,N,N] f32, zeros (as
+    ``init_rwkv_state``)."""
+    d, N = cfg.d_model, cfg.rwkv.head_dim
+    return {
+        "tm_shift": torch.zeros((n_layers, batch, d), dtype=torch.bfloat16,
+                                device=device),
+        "cm_shift": torch.zeros((n_layers, batch, d), dtype=torch.bfloat16,
+                                device=device),
+        "wkv": torch.zeros((n_layers, batch, d // N, N, N),
+                           dtype=torch.float32, device=device),
+    }

@@ -1,5 +1,5 @@
 """Model API of the port: dense GQA decoders (prefill, decode), rwkv6 and
-hymba (the train-mode forward and its loss).
+hymba (the train-mode forward and its loss, prefill and decode).
 
 ``build_model(cfg, device=None)`` returns a ``Model`` whose members are
 plain functions on tensors, with the JAX package's signatures:
@@ -10,12 +10,18 @@ plain functions on tensors, with the JAX package's signatures:
   decode(params, cache, tokens, pos, bt=None)      -> (logits [B,Vpad], cache)
   decode_step(params, cache, tokens, pos, bt=None) -> (next tokens [B], cache)
   init_cache(batch, max_len)                       -> the dense slot cache
+                                                      and/or recurrent state
   init_paged_cache(n_blocks, block_size)           -> the paged pool
 
 ``decode`` runs over the paged pool when given block tables, else over the
-dense slot cache; both are updated in place.  A member whose mode the
+dense slot cache (with rwkv6's and hymba's recurrent state); both are
+updated in place.  hymba's prefill prepends its meta tokens, so its
+decode positions start at ``meta_tokens + S``.  A member whose mode the
 family does not run yet (``transformer.supported_modes``) raises
-``NotImplementedError`` when called.
+``NotImplementedError`` when called, and so does ``init_paged_cache`` for
+the recurrent families.  ``wkv_fn``/``ssm_fn`` (``loss``) reach the
+train-mode forward only: prefill and decode carry state through the
+reference's scans.
 
 ``device=None`` means the card; without CUDA it raises (pass
 ``device="cpu"`` for the plain versions on the host).

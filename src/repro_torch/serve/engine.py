@@ -16,13 +16,19 @@ default):
   ``torch.cuda.set_sync_debug_mode("error")`` any other sync raises.
 
 ``ServingEngine``: every admitted request reserves a full ``max_len``
-stripe of the ``[L, max_batch, max_len, KH, hd]`` slot cache.  Admission
-runs one uncached prefill per request (``Model.prefill``, whose attention
-is the flash-attention kernel on the card), splices its cache into the
-slot and sets the slot's device token (argmax) and position, with nothing
-crossing to the host.  The step decodes every slot, free ones included,
-as the JAX engine's does; rows are independent, so a free slot's writes
-(clamped to its own stripe) touch no live row.
+stripe of the ``[L, max_batch, max_len, KH, hd]`` slot cache, and its row
+of any recurrent state (rwkv6's token shifts and WKV state, hymba's conv
+buffer and SSM state beside its stripes).  Admission runs one uncached
+prefill per request (``Model.prefill``, whose attention is the
+flash-attention kernel on the card for the dense family), splices every
+leaf of its cache into the slot and sets the slot's device token (argmax)
+and position, with nothing crossing to the host.  The position is the
+prompt length plus the model's prefix (hymba's meta tokens, which its
+prefill prepends): the JAX engine sets it to the prompt length alone, so
+it decodes hymba at positions ``meta_tokens`` short, over the prompt's own
+slots.  The step decodes every slot, free ones included, as the JAX
+engine's does; rows are independent, so a free slot's writes (clamped to
+its own stripe) touch no live row.
 
 ``PagedServingEngine``:
 
@@ -85,7 +91,9 @@ step hands it one ``StepRecord`` (``on_step``), built from host values
 only (no device read, no upload), with ``measured_s`` the span of
 ``_record_step``, and each retirement one request (``on_retire``).
 
-Not ported yet: ``mesh=`` (paged) raises ``NotImplementedError``.
+Not ported yet: ``mesh=`` (paged) raises ``NotImplementedError``, and so
+do ``cost_model=`` (slot) and the paged engine (its pool,
+``Model.init_paged_cache``) for the recurrent families (rwkv6, hymba).
 """
 from __future__ import annotations
 
@@ -106,6 +114,7 @@ from repro_torch.core.costmodel.analytic import analytic_census
 from repro_torch.core.costmodel.model import CostModel, Prediction
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import CHUNK_TOKENS
+from repro_torch.models.transformer import is_recurrent
 from repro_torch.models.zoo import Model
 from repro_torch.serve.paging import (BlockAllocator, blocks_for_tokens,
                                       remap_table)
@@ -208,9 +217,10 @@ class _DeviceLoop:
         return self.stats
 
     def kv_cache_bytes(self) -> int:
-        """Resident bytes of the preallocated KV store: the slot stripes,
-        or the paged pool with its trash page.  Fused steps update it in
-        place, so this is also its peak; a legacy step holds two."""
+        """Resident bytes of the preallocated KV store: the slot stripes
+        and any recurrent state, or the paged pool with its trash page.
+        Fused steps update it in place, so this is also its peak; a legacy
+        step holds two."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.cache.values()))
 
@@ -843,6 +853,10 @@ class ServingEngine(_DeviceLoop):
                  max_len: int = 512, cost_model: Optional[CostModel] = None,
                  step_budget_s: Optional[float] = None, autotuner=None,
                  clock=None, telemetry=None, fused: bool = True):
+        if cost_model is not None and is_recurrent(model.cfg):
+            raise NotImplementedError(
+                f"{model.cfg.name}: cost_model= is not ported for the "
+                "recurrent families")
         self.fused = fused
         self.autotuner = autotuner
         self.model = model
@@ -853,6 +867,9 @@ class ServingEngine(_DeviceLoop):
         self._pred_cache: Dict = {}
         self.max_batch = max_batch
         self.max_len = max_len
+        # positions a prefill prepends before the prompt (hymba's meta
+        # tokens): a row's first decode position is prefix + prompt length
+        self.prefix = model.cfg.meta_tokens
         self._bind(clock, telemetry)
         self.queue: deque[Request] = deque()
         self.done: Dict[int, Request] = {}
@@ -877,10 +894,10 @@ class ServingEngine(_DeviceLoop):
         keeps its original arrival time; the default stamps this engine's
         clock."""
         prompt = np.asarray(prompt, np.int32)
-        if len(prompt) >= self.max_len:
-            raise ValueError(f"prompt of {len(prompt)} tokens cannot fit "
-                             f"max_len={self.max_len} (needs >= 1 decode "
-                             "slot)")
+        if len(prompt) + self.prefix >= self.max_len:
+            raise ValueError(f"prompt of {len(prompt)} tokens (+ {self.prefix}"
+                             f" prefix) cannot fit max_len={self.max_len} "
+                             "(needs >= 1 decode slot)")
         rid = next(self._rid)
         self.queue.append(Request(rid, prompt, max_new_tokens, eos_id,
                                   submitted_s=self._stamp(submitted_s)))
@@ -931,12 +948,13 @@ class ServingEngine(_DeviceLoop):
         return planned, admitted, budget
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
-        """One uncached prefill, spliced into ``slot`` in place.  Fused: the
-        slot's device token is set to the prefill's argmax and its device
-        position to the prompt length, and nothing crosses to the host (the
-        first token reaches ``req.tokens`` through the next step's echo).
-        Legacy: the argmax is synced into ``slot_tok`` and ``req.tokens``."""
-        S = len(req.prompt)
+        """One uncached prefill, every cache leaf spliced into ``slot`` in
+        place.  Fused: the slot's device token is set to the prefill's
+        argmax and its device position to the prefix plus the prompt
+        length, and nothing crosses to the host (the first token reaches
+        ``req.tokens`` through the next step's echo).  Legacy: the argmax
+        is synced into ``slot_tok`` and ``req.tokens``."""
+        S = self.prefix + len(req.prompt)
         with record_function("prefill"):
             logits, cache1 = self.model.prefill(
                 self.params, {"tokens": self._dev(req.prompt[None, :])},

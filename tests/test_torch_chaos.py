@@ -658,7 +658,7 @@ def test_reduced_cluster_gates_hold_on_the_cpu(reduced_run):
     assert corrupt["kinds"] == ["corrupt"]
     assert corrupt["integrity_failures"] == 1 and corrupt["recovered"] >= 1
     for m in (crash, corrupt):
-        assert m["completed"] == m["admitted"] == 16
+        assert m["completed"] == m["admitted"] == 12
         assert m["live_replicas"] == 2 and m["recovery_s"] > 0
 
 

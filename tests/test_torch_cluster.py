@@ -605,10 +605,10 @@ def test_phase_cluster_live_gates_hold_on_reduced_gemma2():
         CostModel.from_named("hopper_h100"))
     assert bad == []
     rr = line["policies"]["round_robin"]
-    assert rr["routed"] == [8, 8] and rr["reroutes"] == 0
+    assert rr["routed"] == [6, 6] and rr["reroutes"] == 0
     assert rr["replicas"][0]["preemptions"] > 0
     assert rr["front_requeues"] == rr["replicas"][0]["preemptions"]
-    assert line["trace"] == {"requests": 16, "prompt_tokens": [16, 31],
+    assert line["trace"] == {"requests": 12, "prompt_tokens": [16, 31],
                              "new_tokens": [8, 32]}
     assert line["engine"]["n_blocks"] == 19
     for res in line["policies"].values():

@@ -188,19 +188,26 @@ def test_seeded_init_has_the_jax_layout(arch):
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_serving_modes_of_recurrent_families_raise(arch):
+    """What still raises when a recurrent family serves: the paged modes
+    (the pool, and decode through block tables).  The slot modes they
+    are refused beside run (prefill, then decode over ``init_cache``'s
+    state): only the paged ones raise."""
     cfg = reduced(ARCHS[arch])
     model = build_model(cfg, device="cpu")
     params = model.init(0)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        model.prefill(params, {"tokens": toks})
-    with pytest.raises(NotImplementedError):
-        model.decode(params, None, toks[:, :1],
-                     torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        model.init_cache(1, 8)
+    logits, cache = model.prefill(params, {"tokens": toks}, max_len=16)
+    assert logits.shape == (1, cfg.padded_vocab)
+    assert {k: t.shape[:2] for k, t in cache.items()} == {
+        k: t.shape[:2] for k, t in model.init_cache(1, 16).items()}
+    pos = torch.full((1,), cfg.meta_tokens + 4, dtype=torch.int32)
+    logits, _ = model.decode(params, cache, toks[:, :1], pos)
+    assert torch.isfinite(logits).all()
     with pytest.raises(NotImplementedError):
         model.init_paged_cache(4, 4)
+    with pytest.raises(NotImplementedError):
+        model.decode(params, cache, toks[:, :1], pos,
+                     torch.zeros((1, 4), dtype=torch.int32))
 
 
 def test_dense_train_mode_raises():

@@ -121,13 +121,14 @@ def test_unported_families_raise():
                  "llava-next-34b"):
         with pytest.raises(NotImplementedError):
             build_model(reduced(ARCHS[arch]), device="cpu")
-    # the recurrent families build for their train-mode forward; serving
-    # them is not ported
+    # the recurrent families build and serve through the slot cache; the
+    # paged pool is not theirs
     for arch in ("rwkv6-1.6b", "hymba-1.5b"):
         m = build_model(reduced(ARCHS[arch]), device="cpu")
+        m.prefill(m.init(0), {"tokens": torch.zeros((1, 4),
+                                                    dtype=torch.int32)})
         with pytest.raises(NotImplementedError):
-            m.prefill(m.init(0), {"tokens": torch.zeros((1, 4),
-                                                        dtype=torch.int32)})
+            m.init_paged_cache(4, 4)
 
 
 def test_seeded_init_is_deterministic_and_shaped():

@@ -372,7 +372,8 @@ def test_rwkv_time_mix_matches_jax(use_pallas):
     x = x.astype(np.float32)
     want, _ = jrwkv.rwkv_time_mix(_jax_tree(tree), jnp.asarray(x), jcfg,
                                   need_state=False)
-    got = trwkv.rwkv_time_mix(_torch_tree(tree), torch.from_numpy(x), cfg)
+    got, _ = trwkv.rwkv_time_mix(_torch_tree(tree), torch.from_numpy(x),
+                                 cfg)
     _close(got, want, F32_TOL)
 
 
@@ -383,7 +384,8 @@ def test_rwkv_channel_mix_matches_jax(use_pallas):
     x = np.random.default_rng(4).normal(size=(2, 16, cfg.d_model))
     x = x.astype(np.float32)
     want, _ = jrwkv.rwkv_channel_mix(_jax_tree(tree), jnp.asarray(x), jcfg)
-    got = trwkv.rwkv_channel_mix(_torch_tree(tree), torch.from_numpy(x), cfg)
+    got, _ = trwkv.rwkv_channel_mix(_torch_tree(tree), torch.from_numpy(x),
+                                    cfg)
     _close(got, want, F32_TOL)
 
 
@@ -395,7 +397,7 @@ def test_mamba_mixer_matches_jax(use_pallas):
     x = x.astype(np.float32)
     want, _ = jmamba.mamba_mixer(_jax_tree(tree), jnp.asarray(x), jcfg,
                                  need_state=False)
-    got = tmamba.mamba_mixer(_torch_tree(tree), torch.from_numpy(x), cfg)
+    got, _ = tmamba.mamba_mixer(_torch_tree(tree), torch.from_numpy(x), cfg)
     _close(got, want, F32_TOL)
 
 
@@ -425,3 +427,114 @@ def test_layers_pass_the_recurrence_to_the_injected_fn():
                        ssm_fn=spy(ref.ssm_scan_plain))
     assert calls == [(torch.bfloat16, torch.float32, torch.bfloat16,
                       torch.bfloat16, torch.float32)]
+
+
+# --- carried state (prefill and decode) ---------------------------------------
+
+def _state(rng, shapes):
+    """Random carried state in f32, ``scale`` times a standard normal per
+    leaf; the callers round the token shifts and conv rows to bf16, as
+    the caches store them."""
+    return {k: rng.normal(size=shape).astype(np.float32) * scale
+            for k, (shape, scale) in shapes.items()}
+
+
+@pytest.mark.parametrize("S", [1, 7])
+def test_rwkv_time_mix_with_state_matches_jax(S):
+    """A decode step (S=1) and a multi-token call from a carried state:
+    the output and the new state (shift in bf16, WKV state in f32) equal
+    the reference scan path's."""
+    jcfg, cfg = _cfgs("rwkv6-1.6b", False)
+    tree = _perturbed(jrwkv.init_rwkv_tmix(jax.random.PRNGKey(1), jcfg), 1)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    H, N = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    st = _state(rng, {"shift": ((2, cfg.d_model), 1.0),
+                      "wkv": ((2, H, N, N), 0.3)})
+    jst = {"shift": jnp.asarray(st["shift"], jnp.bfloat16),
+           "wkv": jnp.asarray(st["wkv"])}
+    want, wnew = jrwkv.rwkv_time_mix(_jax_tree(tree), jnp.asarray(x), jcfg,
+                                     jst)
+    got, new = trwkv.rwkv_time_mix(
+        _torch_tree(tree), torch.from_numpy(x), cfg,
+        {"shift": torch.from_numpy(st["shift"]).bfloat16(),
+         "wkv": torch.from_numpy(st["wkv"])}, need_state=True)
+    _close(got, want, F32_TOL)
+    assert new["shift"].dtype == torch.bfloat16
+    _close(new["shift"], wnew["shift"], F32_TOL)
+    _close(new["wkv"], wnew["wkv"], F32_TOL)
+
+
+def test_rwkv_channel_mix_with_state_matches_jax():
+    jcfg, cfg = _cfgs("rwkv6-1.6b", False)
+    tree = _perturbed(jrwkv.init_rwkv_cmix(jax.random.PRNGKey(3), jcfg), 3)
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 3, cfg.d_model)).astype(np.float32)
+    shift = rng.normal(size=(2, cfg.d_model)).astype(np.float32)
+    want, wnew = jrwkv.rwkv_channel_mix(_jax_tree(tree), jnp.asarray(x), jcfg,
+                                        jnp.asarray(shift, jnp.bfloat16))
+    got, new = trwkv.rwkv_channel_mix(_torch_tree(tree), torch.from_numpy(x),
+                                      cfg, torch.from_numpy(shift).bfloat16())
+    _close(got, want, F32_TOL)
+    assert new.dtype == torch.bfloat16
+    _close(new, wnew, F32_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 2, 7])
+def test_mamba_mixer_with_state_matches_jax(S):
+    """From a carried conv buffer and SSM state, including a call shorter
+    than the buffer (S=2 < W-1=3): the output, the new conv rows (bf16)
+    and the new state (f32) equal the reference's."""
+    jcfg, cfg = _cfgs("hymba-1.5b", False)
+    tree = _perturbed(jmamba.init_mamba(jax.random.PRNGKey(5), jcfg), 5)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    W, N = cfg.ssm.conv_width, cfg.ssm.state_dim
+    st = _state(rng, {"conv": ((2, W - 1, cfg.d_model), 1.0),
+                      "h": ((2, cfg.d_model, N), 0.5)})
+    jst = {"conv": jnp.asarray(st["conv"], jnp.bfloat16),
+           "h": jnp.asarray(st["h"])}
+    want, wnew = jmamba.mamba_mixer(_jax_tree(tree), jnp.asarray(x), jcfg,
+                                    jst)
+    got, new = tmamba.mamba_mixer(
+        _torch_tree(tree), torch.from_numpy(x), cfg,
+        {"conv": torch.from_numpy(st["conv"]).bfloat16(),
+         "h": torch.from_numpy(st["h"])}, need_state=True)
+    _close(got, want, F32_TOL)
+    assert new["conv"].dtype == torch.bfloat16
+    _close(new["conv"], wnew["conv"], F32_TOL)
+    _close(new["h"], wnew["h"], F32_TOL)
+
+
+def test_carried_scans_split_anywhere_equal_one_scan():
+    """``wkv6_carry`` and ``ssm_scan_carry``: two calls carrying the state
+    give one call's outputs and final state, and from zero they are the
+    plain versions."""
+    g = torch.Generator().manual_seed(11)
+    B, S, H, N = 2, 9, 2, 8
+    r, k, v = (torch.randn(B, S, H, N, generator=g) for _ in range(3))
+    w = torch.rand(B, S, H, N, generator=g) * 0.5 + 0.45
+    u = torch.randn(H, N, generator=g)
+    s0 = torch.randn(B, H, N, N, generator=g)
+    y, sT = ref.wkv6_carry(r, k, v, w, u, s0)
+    y1, s1 = ref.wkv6_carry(r[:, :4], k[:, :4], v[:, :4], w[:, :4], u, s0)
+    y2, s2 = ref.wkv6_carry(r[:, 4:], k[:, 4:], v[:, 4:], w[:, 4:], u, s1)
+    _close(torch.cat([y1, y2], 1), y.numpy(), F32_TOL)
+    _close(s2, sT.numpy(), F32_TOL)
+    assert torch.equal(ref.wkv6_carry(r, k, v, w, u, 0 * s0)[0],
+                       ref.wkv6_plain(r, k, v, w, u))
+    Di = 16
+    x = torch.randn(B, S, Di, generator=g)
+    dt = torch.rand(B, S, Di, generator=g) * 0.1
+    Bm, Cm = (torch.randn(B, S, N, generator=g) for _ in range(2))
+    A = -torch.rand(Di, N, generator=g)
+    h0 = torch.randn(B, Di, N, generator=g)
+    y, hT = ref.ssm_scan_carry(x, dt, Bm, Cm, A, h0)
+    y1, h1 = ref.ssm_scan_carry(x[:, :4], dt[:, :4], Bm[:, :4], Cm[:, :4], A,
+                                h0)
+    y2, h2 = ref.ssm_scan_carry(x[:, 4:], dt[:, 4:], Bm[:, 4:], Cm[:, 4:], A,
+                                h1)
+    _close(torch.cat([y1, y2], 1), y.numpy(), F32_TOL)
+    _close(h2, hT.numpy(), F32_TOL)
+    assert torch.equal(ref.ssm_scan_carry(x, dt, Bm, Cm, A, 0 * h0)[0],
+                       ref.ssm_scan_plain(x, dt, Bm, Cm, A))
