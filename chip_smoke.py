@@ -7,8 +7,9 @@ Phases, each printing JSON lines (a failing phase raises, so the run
 exits non-zero):
 
 1. card: the ``nvidia-smi`` name and power limit, and the build of every
-   CUDA kernel from this checkout's sources (one nvcc per source, all at
-   once), beside them the ``alu_chain`` fault controls' builds.
+   CUDA kernel from this checkout's sources (one nvcc per source, all
+   started at once, in the background), beside them the ``alu_chain``
+   fault controls' builds.
 2. kernel: the paged-attention kernels (chunks, then merge) against their
    plain PyTorch version at the serving shapes (B=8, H=8, KH=4, D=256,
    block 16, 64-entry tables, bf16 pools), ragged contexts {0, 1, 17, 300,
@@ -288,7 +289,7 @@ exits non-zero):
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
 22. recurrent_serve: (a) full-width rwkv6-1.6b and hymba-1.5b (seeded
    random bf16 weights) through the fused slot engine (max_batch 4,
-   max_len 1024; 8 prompts of 16-384 tokens, 16 new tokens each, so rows
+   max_len 1024; 8 prompts of 16-384 tokens, 8 new tokens each, so rows
    are reused) under sync debugging: every request complete in
    vocabulary, at most one sync a step, no ``wkv6``/``ssm_scan`` launch
    (prefill and decode run the reference's scans); readings tok/s, the
@@ -303,6 +304,40 @@ exits non-zero):
    which the gate must catch.  (c) reduced f32 rwkv6 and hymba through
    the fused and legacy engines, rows reused, on the card and the CPU:
    tokens equal to the port's teacher-forced greedy decode on the card.
+
+23. flash_bwd_kernel: the flash backward (``flash_attention_bwd``, the
+   two kernels of ``csrc/flash_attention_bwd.cu``) against
+   ``flash_attention_bwd_plain`` at the train path's shapes
+   (``FLASH_BWD_CASES``, 512 tokens: gemma2-2b's B=4, H=8, KH=4, D=256
+   with softcap 50 and window None or 128, and with both off; gemma3-1b's
+   H=4, KH=1, D=256; internlm2-20b's B=2, H=48, KH=8, D=128), each in
+   bf16 and in f32 at B=1, every gradient within ``FLASH_BWD_TOL`` (f32
+   1e-4, bf16 3e-2) of its max|want|; ``ms`` and ``stream_ms`` as the
+   flash kernels', the plain version's time, SDPA's backward alone
+   (``torch.autograd.grad`` through ``F.scaled_dot_product_attention``,
+   causal, GQA) where window and softcap are off, and the bound
+   (``_flash_bound_ms(backward=True)``: 5 products of 2 D a kept pair
+   and query head against 8 tensors moved once); the controls of
+   ``FLASH_BWD_MUST_CATCH`` on an f32 case where the softcap binds; and
+   ``wkv6``, ``ssm_scan`` and ``paged_attention`` refusing inputs that
+   require grad on the card (``guards_raise``).
+24. train: (a) full-width gemma2-2b (26 layers, d_model 2304, vocab
+   256,000; f32 params, bf16 compute, AdamW) through ``train()``,
+   ``TRAIN_FULL`` (3 steps of 8 x 512 tokens, accum 2), priced by the
+   committed H100 table, no checkpoint: losses and grad norms finite,
+   the params moved, and each step's flash launches exactly remat's,
+   2 x 26 x 2 forward and 26 x 2 backward (``train_launch_gate``);
+   readings the losses, the median step of steps 2-3 (host wall around
+   a step that ends in a synchronize), tokens/s, the predicted step and
+   peak memory.  (b) reduced f32 gemma2 (``TRAIN_REDUCED``, 8 steps) on
+   the card and on the CPU from one init, losses within
+   ``TRAIN_LOSS_RTOL``; then a run of 4 steps with a checkpoint and a
+   restarted run to 8, its losses the uninterrupted run's.
+
+Run order: the card phase starts every build and returns; phases 2-8
+then run, each waiting for the kernels it launches, then phases 17 and
+18, while the probe kernels finish building; ``build_wait`` (the card
+line, with each build's seconds) waits for the rest before phase 9.
 
 A ``timing`` line gives each phase's seconds; the line before the last
 holds every kernel's numbers; the last line is
@@ -356,7 +391,7 @@ MUST_CATCH = {"rwkv6-1.6b": {"float32": ("k_late", "w_late"),
                              "bfloat16": ("k_late", "w_bf16")},
               "hymba-1.5b": {"float32": ("B_late", "dt_late"),
                              "bfloat16": ()}}
-EVAL_REPS = 5                     # timed eval steps after the checked one
+EVAL_REPS = 3                     # timed eval steps after the checked one
 
 
 def emit(obj) -> None:
@@ -384,15 +419,33 @@ def gpu_ms(torch, fn, reps, flush=None):
 
 
 def phase_card(torch):
+    """The card's name and power limit, printed; every kernel's build
+    started at once in the background (``card_builds`` waits for them).
+    A phase that launches a kernel still being built waits for that
+    build (``_build.build``)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    libs = _build.build_all(variants=alu_control_sources())
+    pool = ThreadPoolExecutor(max_workers=1)
+    builds = (pool.submit(_build.build_all, variants=alu_control_sources()),
+              time.perf_counter())
+    pool.shutdown(wait=False)
+    return card, builds
+
+
+def card_builds(torch, card, builds):
+    """Wait for phase card's builds and print their line: nvcc's output of
+    each to stderr, the seconds from their start to the last one's end
+    (``build_s``) and each one's own."""
+    from repro_torch.kernels import _build
+    future, t0 = builds
+    libs = future.result()
     build_s = time.perf_counter() - t0
     for name in libs:
         print(f"[{name}] nvcc:\n{_build.BUILD_LOG[name]['log']}",
@@ -642,18 +695,21 @@ def _paged_boundary(torch, np, ref, paged_attention, dev, seed, scale,
 
 
 def _flash_bound_ms(B, Sq, Skv, H, KH, D, causal, window, elem=2,
-                    ops_per_s=BF16_OPS_PER_S):
+                    ops_per_s=BF16_OPS_PER_S, backward=False):
     """Least time for the work these inputs need: Q, K, V read once and
     the output written once, against the operations of the (query, key)
     pairs the mask keeps (2 * D for the score, 2 * D for P @ V) at the
-    inputs' type's peak."""
+    inputs' type's peak.  With ``backward``: q, k, v, o and dO read once
+    and dq, dk, dv written once, against 5 products of 2 * D a kept pair
+    and query head (S, dP, dV, dQ, dK)."""
     import numpy as np
     qp = np.arange(Sq)
     hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
     lo = np.maximum(qp - window + 1, 0) if window else np.zeros(Sq, int)
     pairs = int(np.clip(hi - lo + 1, 0, None).sum())
-    nbytes = elem * D * (2 * B * Sq * H + 2 * B * Skv * KH)
-    ops = 4 * D * H * B * pairs
+    per_side = 4 if backward else 2
+    nbytes = elem * D * per_side * (B * Sq * H + B * Skv * KH)
+    ops = 2 * D * (5 if backward else 2) * H * B * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -893,14 +949,17 @@ def reset_launches():
     for f in wrappers.values():
         f.launches = 0
     wrappers["flash_attention"].mma_launches = 0
+    wrappers["flash_attention"].bwd_launches = 0
 
 
 def launch_counts():
     """Each wrapper's launches; ``flash_attention`` counts both flash
-    kernels, ``flash_attention_mma`` the tensor-core one alone."""
+    forward kernels, ``flash_attention_mma`` the tensor-core one alone,
+    ``flash_attention_bwd`` the backward's launches."""
     wrappers = _wrappers()
     counts = {name: f.launches for name, f in wrappers.items()}
     counts["flash_attention_mma"] = wrappers["flash_attention"].mma_launches
+    counts["flash_attention_bwd"] = wrappers["flash_attention"].bwd_launches
     return counts
 
 
@@ -3006,7 +3065,7 @@ def phase_autotune(torch, np, dev, seed, card):
 TELEMETRY_MUST_CATCH = ("record_reads_device", "mixed_fed",
                         "wall_clock_retire")
 TELEMETRY_GATE = 0.10         # the drift detector's gate (the cost CLI's bar)
-TELEMETRY_RUNS = 2            # full-width runs with telemetry on, and off
+TELEMETRY_RUNS = 1            # full-width runs with telemetry on, and off
 SLO_TARGET_FACTOR = 0.8       # the SLO's p99 target over the ungated p99
 SLO_ARRIVAL_GAP = 2           # (c): one request arrives every 2 iterations
 SLO_WINDOW = 8                # (c): the bucket of the sim overload scenario
@@ -4565,7 +4624,7 @@ RECURRENT_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")
 # (a): the fused slot engine at full width; 8 prompts of 16-384 tokens
 # over 4 rows, so rows are reused and a splice overwrites a row's state
 RECURRENT_SERVE = dict(max_batch=4, max_len=1024, n_requests=8, lo=16,
-                       hi=384, max_new=16)
+                       hi=384, max_new=8)
 # (b): prefill S0 tokens of B rows, then T decode steps
 RECURRENT_EQ = dict(B=2, S0=256, T=8)
 # (b)'s gate, measured first on the reduced configs on the CPU, seeds
@@ -4873,6 +4932,387 @@ def phase_recurrent_serve(torch, np, seed):
         raise AssertionError(f"recurrent_serve: {failed}")
 
 
+# the flash backward's cases: the train path's attention shapes (gemma2-2b's
+# layers with and without a window that bites, and softcap off where SDPA
+# computes the same function; gemma3-1b's GQA group of 4 over one KV head;
+# internlm2-20b's 48 heads of 128), each in bf16 at the batch given and in
+# f32 at B=1, and the f32 case the controls run on, where the softcap binds
+# (q x 8)
+FLASH_BWD_CASES = (
+    dict(arch="gemma2-2b", B=4, H=8, KH=4, D=256, window=None, softcap=50.0),
+    dict(arch="gemma2-2b", B=4, H=8, KH=4, D=256, window=128, softcap=50.0),
+    dict(arch="gemma2-2b", B=4, H=8, KH=4, D=256, window=None, softcap=None),
+    dict(arch="gemma3-1b", B=4, H=4, KH=1, D=256, window=None, softcap=None),
+    dict(arch="internlm2-20b", B=2, H=48, KH=8, D=128, window=None,
+         softcap=None))
+FLASH_BWD_S = 512
+FLASH_BWD_CONTROL_CASE = dict(arch="gemma2-2b", B=1, H=8, KH=4, D=256,
+                              window=128, softcap=50.0, q_mul=8.0)
+# the backward's gates, each gradient's max |got - want| over its max|want|
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the plain backward with one fault, which the f32 gate must catch on the
+# control case: the softcap's chain-rule factor dropped, each GQA group's
+# dK and dV taken from its first query head alone, the window one key
+# wider, and the D term (dO.O) left out of dS
+FLASH_BWD_MUST_CATCH = ("softcap_factor_dropped", "gqa_first_head",
+                        "window_one_off", "delta_dropped")
+
+
+def flash_bwd_fault(torch, ref, name, q, k, v, out, dout, kw):
+    """The plain backward on these inputs with fault ``name``."""
+    if name == "window_one_off":
+        return ref.flash_attention_bwd_plain(
+            q, k, v, out, dout, **{**kw, "window": kw["window"] + 1})
+    G = q.shape[2] // k.shape[2]
+    if name == "gqa_first_head":
+        ke, ve = (t.repeat_interleave(G, dim=2) for t in (k, v))
+        dq, dk, dv = ref.flash_attention_bwd_plain(q, ke, ve, out, dout, **kw)
+        return dq, dk[:, :, ::G].contiguous(), dv[:, :, ::G].contiguous()
+    # the chain rule written out again, one term wrong
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    qf = q.float().reshape(B, Sq, -1, G, D)
+    of, gf = (t.float().reshape(B, Sq, -1, G, D) for t in (out, dout))
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * kw["scale"]
+    cap = kw["softcap"]
+    t = torch.tanh(s / cap)
+    s = cap * t
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    ki = torch.arange(Skv, device=q.device)[None, :]
+    keep = (ki <= qi) & ((qi - ki) < kw["window"])
+    p = torch.softmax(torch.where(keep, s, -torch.inf), dim=-1)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", gf, of)
+    if name == "delta_dropped":
+        delta = torch.zeros_like(delta)
+    ds = p * (torch.einsum("bqkgd,bskd->bkgqs", gf, vf) - delta[..., None])
+    if name != "softcap_factor_dropped":
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * kw["scale"]
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * kw["scale"]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, gf)
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_bwd_ratios(got, want):
+    """Each gradient's max |got - want| over its max|want|."""
+    return [((g.float() - w.float()).abs().max()
+             / w.float().abs().max().clamp(min=1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def flash_bwd_inputs(torch, g, dev, c, dtype, S=FLASH_BWD_S):
+    """q, k, v, the forward's output and a cotangent for case ``c``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, H, KH, D = c["B"], c["H"], c["KH"], c["D"]
+    q = (torch.randn((B, S, H, D), generator=g, device=dev)
+         * c.get("q_mul", 1.0)).to(dtype)
+    k, v = (torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=True, window=c["window"], softcap=c["softcap"],
+              scale=D ** -0.5)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, **kw)
+    dout = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    return q, k, v, out, dout, kw
+
+
+def flash_bwd_controls(torch, ref, q, k, v, out, dout, kw, want):
+    """``FLASH_BWD_MUST_CATCH`` on one f32 case: each fault's ratios and
+    whether the f32 gate catches it."""
+    controls = {}
+    for name in FLASH_BWD_MUST_CATCH:
+        r = flash_bwd_ratios(flash_bwd_fault(torch, ref, name, q, k, v, out,
+                                             dout, kw), want)
+        controls[name] = {"ratios": r,
+                          "caught": max(r) > FLASH_BWD_TOL["float32"]}
+    return controls
+
+
+def guards_raise(torch, dev):
+    """The kernels with no backward refuse grad-requiring inputs on
+    ``dev``: each name mapped to whether its wrapper raised
+    ``NotImplementedError``."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.wkv6 import wkv6
+
+    def t(*shape, dtype=torch.float32):
+        return torch.rand(shape, device=dev, dtype=dtype).requires_grad_()
+    calls = {
+        "wkv6": lambda: wkv6(t(1, 4, 1, 16), t(1, 4, 1, 16), t(1, 4, 1, 16),
+                             t(1, 4, 1, 16), t(1, 16)),
+        "ssm_scan": lambda: ssm_scan(t(1, 4, 8), t(1, 4, 8), t(1, 4, 4),
+                                     t(1, 4, 4), t(8, 4), block_d=8),
+        "paged_attention": lambda: paged_attention(
+            t(1, 2, 16, dtype=torch.bfloat16),
+            t(2, 16, 1, 16, dtype=torch.bfloat16),
+            t(2, 16, 1, 16, dtype=torch.bfloat16),
+            torch.zeros((1, 2), dtype=torch.int32, device=dev),
+            torch.full((1,), 4, dtype=torch.int32, device=dev))}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = False
+        except NotImplementedError:
+            out[name] = True
+    return out
+
+
+def phase_flash_bwd_kernel(torch, dev, seed):
+    """The flash backward kernels against ``flash_attention_bwd_plain`` at
+    the train path's shapes, bf16 and f32, timed beside the plain version,
+    SDPA's backward where it computes the same function and the bound;
+    the controls of ``FLASH_BWD_MUST_CATCH``; the no-backward guards."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    torch.cuda.empty_cache()        # what earlier phases left cached
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = [(c, dt) for c in FLASH_BWD_CASES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append((FLASH_BWD_CONTROL_CASE, torch.float32))
+    out_cases, failed, controls = [], [], None
+    max_err = 0.0
+    for c, dt in cases:
+        dname = str(dt).split(".")[-1]
+        c = {**c, "B": c["B"] if dt == torch.bfloat16 else 1}
+        q, k, v, out, dout, kw = flash_bwd_inputs(torch, g, dev, c, dt)
+        got = flash_attention_bwd(q, k, v, out, dout, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+        ratios = flash_bwd_ratios(got, want)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        max_err = max(max_err, err)
+        if max(ratios) > FLASH_BWD_TOL[dname]:
+            failed.append(f"{c['arch']} {dname} window={c['window']} "
+                          f"softcap={c['softcap']}: {ratios}")
+        if "q_mul" in c:
+            controls = flash_bwd_controls(torch, ref, q, k, v, out, dout,
+                                          kw, want)
+
+        def call():
+            return flash_attention_bwd(q, k, v, out, dout, **kw)
+        ms, s_ms = gpu_ms(torch, call, 20), stream_ms(torch, call)
+        plain_ms = gpu_ms(torch, lambda: ref.flash_attention_bwd_plain(
+            q, k, v, out, dout, **kw), 3)
+        lib_ms = lib_s_ms = None
+        if c["window"] is None and c["softcap"] is None:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=kw["scale"],
+                                               enable_gqa=True)
+            go = dout.transpose(1, 2).contiguous()
+
+            def sdpa_bwd():
+                return torch.autograd.grad(o, (qt, kt, vt), go,
+                                           retain_graph=True)
+            lib_ms, lib_s_ms = gpu_ms(torch, sdpa_bwd, 20), stream_ms(
+                torch, sdpa_bwd)
+            del o
+        elem = 2 if dt == torch.bfloat16 else 4
+        bound, bound_by = _flash_bound_ms(
+            c["B"], FLASH_BWD_S, FLASH_BWD_S, c["H"], c["KH"], c["D"], True,
+            c["window"], elem,
+            BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S,
+            backward=True)
+        case = {"arch": c["arch"], "dtype": dname, "B": c["B"],
+                "S": FLASH_BWD_S, "H": c["H"], "KH": c["KH"], "D": c["D"],
+                "window": c["window"], "softcap": c["softcap"],
+                "q_mul": c.get("q_mul", 1.0), "ratios": ratios,
+                "max_abs_err": err, "ms": ms, "stream_ms": s_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_stream_ms": lib_s_ms, "bound_ms": bound,
+                "bound_by": bound_by}
+        out_cases.append(case)
+        emit({"phase": "flash_bwd_kernel", "name": "flash_attention_bwd",
+              **case})
+        del q, k, v, out, dout, got, want
+    guards = guards_raise(torch, dev)
+    emit({"phase": "flash_bwd_kernel", "controls": controls,
+          "guards_raise": guards})
+    failed += [f"control {n} not caught" for n in FLASH_BWD_MUST_CATCH
+               if not controls[n]["caught"]]
+    failed += [f"{n} takes grad-requiring inputs" for n, ok in
+               guards.items() if not ok]
+    if failed:
+        raise AssertionError(f"flash_bwd_kernel: {failed}")
+    torch.cuda.empty_cache()
+    return out_cases, max_err
+
+
+# phase train: (a) full-width gemma2-2b, 3 AdamW steps of 8 x 512 tokens
+# (accum 2 from microbatch 4), no checkpoint (the f32 params, both moments
+# and the summed grads are 42 GB); (b) reduced f32 gemma2, 8 steps on the
+# card against the CPU from one init, then a restart from step 4
+TRAIN_FULL = dict(num_steps=3, global_batch=8, seq_len=512)
+TRAIN_REDUCED = dict(num_steps=8, global_batch=8, seq_len=64, lr=1e-2)
+TRAIN_RESTART_AT = 4
+TRAIN_LOSS_RTOL = 1e-4
+
+
+def train_launch_gate(per_step, cfg, accum):
+    """Each step's flash launches must be remat's: the forward kernel twice
+    a layer a micro-batch (the forward and its recomputation in the
+    backward), the backward kernel once."""
+    want = {"flash_attention": 2 * cfg.n_layers * accum,
+            "flash_attention_bwd": cfg.n_layers * accum}
+    return [f"step {i}: {got} launches, want {want}"
+            for i, got in enumerate(per_step) if got != want]
+
+
+def train_counting_hook(per_step):
+    """A train() hook appending each step's flash launches (the counts
+    since the previous step's hook)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    last = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    def hook(step, metrics):
+        now = {"flash_attention": flash_attention.launches,
+               "flash_attention_bwd": flash_attention.bwd_launches}
+        per_step.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+    return hook
+
+
+def train_reduced(torch, seed):
+    """Reduced f32 gemma2: ``TRAIN_REDUCED`` on the card and on the CPU
+    from one (CPU-drawn) init, then on the card again as a run of
+    ``TRAIN_RESTART_AT`` steps with a checkpoint and a restarted run to
+    the end.  Returns the readings and the failed gates."""
+    import tempfile
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import accum_steps_for
+    from repro_torch.train.tree import tree_map
+
+    cfg = reduced(get_config("gemma2-2b"), compute_dtype="float32")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg,
+                                                            device="cuda")
+    init = cpu.init(seed, dtype=torch.float32)
+
+    def fresh(dev):
+        """A copy of the init on ``dev`` (train() updates it in place)."""
+        return tree_map(lambda t: t.to(dev, copy=True), init)
+    kw = dict(TRAIN_REDUCED, seed=seed)
+    reset_launches()
+    per_step = []
+    on_card = train(card, params=fresh("cuda"),
+                    hooks=[train_counting_hook(per_step)], **kw)
+    on_cpu = train(cpu, params=fresh("cpu"), **kw)
+    with tempfile.TemporaryDirectory() as d:
+        first = train(card, params=fresh("cuda"), ckpt_dir=d,
+                      ckpt_every=TRAIN_RESTART_AT,
+                      **{**kw, "num_steps": TRAIN_RESTART_AT})
+        rest = train(card, params=fresh("cuda"), ckpt_dir=d,
+                     ckpt_every=TRAIN_RESTART_AT, **kw)
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+    line = {"card_losses": on_card.losses, "cpu_losses": on_cpu.losses,
+            "card_vs_cpu": rel(on_card.losses, on_cpu.losses),
+            "restarted_from": rest.restored_from,
+            "restart_losses": first.losses + rest.losses,
+            "restart_vs_full": rel(first.losses + rest.losses,
+                                   on_card.losses),
+            "launches_per_step": per_step[0] if per_step else None}
+    failed = []
+    if line["card_vs_cpu"] > TRAIN_LOSS_RTOL:
+        failed.append(f"card losses vs CPU {line['card_vs_cpu']}")
+    if rest.restored_from != TRAIN_RESTART_AT:
+        failed.append(f"restored from {rest.restored_from}")
+    if line["restart_vs_full"] > TRAIN_LOSS_RTOL:
+        failed.append(f"restart losses vs full {line['restart_vs_full']}")
+    failed += train_launch_gate(per_step, cfg, accum_steps_for(
+        cfg, kw["global_batch"], 1))
+    return line, failed
+
+
+def train_full(torch, seed):
+    """Full-width gemma2-2b through ``train()`` (``TRAIN_FULL``), priced by
+    the committed H100 table; the readings and the failed gates."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import accum_steps_for
+
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed, dtype=torch.float32)
+    probe = {"wq": params["layers"][0]["attn"]["wq"][:8].clone(),
+             "table": params["embed"]["table"][:8].clone(),
+             "ln_f": params["ln_f"]["scale"].clone()}
+    accum = accum_steps_for(cfg, TRAIN_FULL["global_batch"], 1)
+    metrics, per_step = [], []
+    count = train_counting_hook(per_step)
+
+    def hook(step, m):
+        count(step, m)
+        metrics.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "measured_step_s": m["measured_step_s"]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = train(model, params=params, seed=seed, hooks=[hook],
+                cost_model=CostModel.from_named("hopper_h100"), **TRAIN_FULL)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {k: (params_leaf - probe[k].float()).abs().max().item()
+             for k, params_leaf in (
+                 ("wq", params["layers"][0]["attn"]["wq"][:8].float()),
+                 ("table", params["embed"]["table"][:8].float()),
+                 ("ln_f", params["ln_f"]["scale"].float()))}
+    steps_ms = [1e3 * t for t in res.step_times_s]
+    median_ms = statistics.median(steps_ms[1:])
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, **TRAIN_FULL, "accum": accum,
+            "losses": res.losses,
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_ms": steps_ms, "median_step_ms_2_3": median_ms,
+            "tokens_per_s": tokens / (median_ms / 1e3),
+            "predicted_step_s": res.predicted_step_s,
+            "measured_step_s": [m["measured_step_s"] for m in metrics],
+            "peak_gib": peak, "moved": moved,
+            "launches_per_step": per_step,
+            "want_per_step": {"flash_attention": 2 * cfg.n_layers * accum,
+                              "flash_attention_bwd": cfg.n_layers * accum}}
+    failed = [f"{k} not finite" for k in ("losses", "grad_norms")
+              if not all(math.isfinite(x) for x in line[k])]
+    failed += [f"{k} did not move" for k, d in moved.items() if not d > 0]
+    failed += train_launch_gate(per_step, cfg, accum)
+    if len(res.losses) != TRAIN_FULL["num_steps"]:
+        failed.append(f"{len(res.losses)} steps run")
+    del model, params, res
+    torch.cuda.empty_cache()
+    return line, failed
+
+
+def phase_train(torch, seed):
+    """Dense training on the card: full-width gemma2-2b through the loop
+    (a), reduced f32 gemma2 card == CPU and a checkpoint restart (b)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, failed = train_full(torch, seed)
+    emit({"phase": "train", "part": "full_width", **full})
+    red, bad = train_reduced(torch, seed)
+    emit({"phase": "train", "part": "reduced", **red})
+    failed += [f"reduced: {b}" for b in bad]
+    if failed:
+        raise AssertionError(f"train: {failed}")
+    return sum(s["flash_attention_bwd"] for s in full["launches_per_step"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4905,7 +5345,7 @@ def main(argv=None) -> int:
         seconds[name] = t - t0[0]
         t0[0] = t
 
-    card = phase_card(torch)
+    card, builds = phase_card(torch)
     lap("card")
     cases, max_err = phase_kernel(torch, np, dev, args.seed)
     lap("kernel")
@@ -4923,6 +5363,14 @@ def main(argv=None) -> int:
     lap("parity")
     fa_f32_launches = phase_reference(torch, np, args.seed)
     lap("reference")
+    # the recurrence kernels' phases run here, while the probe kernels
+    # (alu_chain, the longest nvcc by far) finish building
+    wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
+    lap("wkv6_kernel")
+    ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)
+    lap("ssm_kernel")
+    card_builds(torch, card, builds)
+    lap("build_wait")
     probes, probe_err = phase_probes(torch, np, dev, args.seed)
     lap("probes")
     cal_counts = phase_calibration(torch, dev, card)
@@ -4940,10 +5388,6 @@ def main(argv=None) -> int:
     lap("telemetry")
     phase_cluster(torch, np, dev, args.seed, card)
     lap("cluster")
-    wkv_case, wkv_err = phase_wkv6_kernel(torch, dev, args.seed)
-    lap("wkv6_kernel")
-    ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)
-    lap("ssm_kernel")
     wkv_launches = phase_eval(torch, dev, args.seed, "rwkv6-1.6b", "wkv6")
     lap("eval_rwkv6")
     ssm_launches = phase_eval(torch, dev, args.seed, "hymba-1.5b",
@@ -4953,6 +5397,10 @@ def main(argv=None) -> int:
     lap("reference_eval")
     phase_recurrent_serve(torch, np, args.seed)
     lap("recurrent_serve")
+    bwd_cases, bwd_err = phase_flash_bwd_kernel(torch, dev, args.seed)
+    lap("flash_bwd_kernel")
+    bwd_launches = phase_train(torch, args.seed)
+    lap("train")
     emit({"phase": "timing", "seconds": seconds,
           "total_s": sum(seconds.values())})
 
@@ -4971,6 +5419,12 @@ def main(argv=None) -> int:
              and c["softcap"] is None and c["q_mul"] == 1.0
              and c["acc_dtype"] == "f32")
         for dtype in ("bfloat16", "float32"))
+    # the flash backward at the train path's shape (gemma2-2b, B=4, 512
+    # tokens, bf16) with softcap and window off, where SDPA's backward
+    # computes the same function
+    bwd_case = next(c for c in bwd_cases if c["arch"] == "gemma2-2b"
+                    and c["dtype"] == "bfloat16" and c["window"] is None
+                    and c["softcap"] is None)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     fa_keys = keys + ("stream_ms", "library_stream_ms")
     emit({"kernels": [
@@ -4991,7 +5445,12 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/flash_attention.py:80",
          "launches": fa_f32_launches,
          "max_abs_err": fa_err["flash_attention"],
-         **{k: fa_f32_case[k] for k in fa_keys}}] + [
+         **{k: fa_f32_case[k] for k in fa_keys}},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:80",
+         "launches": bwd_launches, "max_abs_err": bwd_err,
+         **{k: bwd_case[k] for k in fa_keys}}] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": replaces, "launches": cal_counts[name],

@@ -1,6 +1,7 @@
 """Deterministic synthetic LM data, numpy only: the port's copy of
-``repro.data.synthetic``'s ``DataConfig`` and ``SyntheticLM`` (the mesh
-sharding and prefetching around them are JAX code and stay there).
+``repro.data.synthetic``'s ``DataConfig``, ``SyntheticLM`` and
+``Prefetcher`` (the mesh sharding around them is JAX code and stays
+there).
 
 A counter-based generator: batch i is a pure function of (seed, i), so a
 restarted job resumes with identical batches, and the port draws the same
@@ -11,7 +12,7 @@ loss).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -63,3 +64,22 @@ class SyntheticLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class Prefetcher:
+    """One-batch-ahead prefetch: the next batch is drawn (and passed
+    through ``transform``, e.g. a copy to the card) when the current one
+    is handed out, so host data generation overlaps the device step."""
+
+    def __init__(self, it: Iterator, transform: Optional[Callable] = None):
+        self._it = it
+        self._tf = transform or (lambda x: x)
+        self._next = self._tf(next(self._it))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        cur = self._next
+        self._next = self._tf(next(self._it))
+        return cur

@@ -8,7 +8,9 @@ to ``kernels/build/`` (git-ignored), keyed by a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
 ``ptx`` compiles a source to PTX with the same flags, cached the same way,
 and ``sass`` disassembles a built library, so the two texts of one source
-can be set side by side (``repro_torch.core.isa``).
+can be set side by side (``repro_torch.core.isa``).  A build already
+running in this process for the same library is waited for, not started
+twice, so callers may load kernels while ``build_all`` runs in a thread.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -30,8 +33,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name -> loaded library (one per process; a rebuild needs a new process)
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# name -> what the last build in this process reported
+# name -> what the build in this process reported (a cached load does not
+# overwrite a compile's entry)
 BUILD_LOG: Dict[str, dict] = {}
+# library path -> set when the compile of it running in this process ends
+_RUNNING: Dict[Path, threading.Event] = {}
+_RUNNING_LOCK = threading.Lock()
 
 
 def _tool(name: str) -> str:
@@ -61,11 +68,30 @@ def build(name: str, source: Optional[str] = None) -> Path:
     text = ((CSRC / f"{name}.cu").read_text() if source is None
             else source).encode()
     out = BUILD_DIR / f"lib{name}-{_digest(text)}.so"
-    if out.exists():
-        BUILD_LOG[name] = {"cached": True, "seconds": 0.0, "log": ""}
+    with _RUNNING_LOCK:
+        running = _RUNNING.get(out)
+        owner = running is None and not out.exists()
+        if owner:
+            _RUNNING[out] = threading.Event()
+    if running is not None:
+        running.wait()
+    if not owner and out.exists():
+        BUILD_LOG.setdefault(name, {"cached": True, "seconds": 0.0,
+                                    "log": ""})
         return out
+    # (a waiter whose compile failed compiles again, to raise nvcc's output)
+    try:
+        return _compile(name, source, text, out)
+    finally:
+        if owner:
+            with _RUNNING_LOCK:
+                _RUNNING.pop(out).set()
+
+
+def _compile(name: str, source: Optional[str], text: bytes,
+             out: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     src = CSRC / f"{name}.cu"
     if source is not None:      # beside csrc, so its includes resolve
         src = out.with_suffix(".cu")

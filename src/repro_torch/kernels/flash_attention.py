@@ -33,9 +33,21 @@ folds (``merge_partials`` is its arithmetic).  The bf16 accumulator is
 never split.  ``split_plain`` runs the plain arithmetic item by item and
 merges, the CPU's rehearsal of the kernel's split.
 
-``flash_attention.launches`` counts the launches of both kernels and
-``flash_attention.mma_launches`` those of the tensor-core kernel (plain
-integers; reset them to 0 before a run to prove which kernel it took).
+The gradient (``FlashAttentionFn``, a ``torch.autograd.Function``):
+``flash_attention`` takes it whenever grad mode is on and q, k or v
+requires grad.  Its forward is the forward above, unchanged; it saves q,
+k, v and the output, and its backward (``flash_attention_bwd``) launches
+the CUDA-core kernels of ``csrc/flash_attention_bwd.cu`` on CUDA tensors
+(bf16 or f32, D <= 256, f32 sums; a dq kernel that also writes the row
+log-sum-exp and dO.O to an f32 scratch, then a dk/dv kernel) and calls
+``ref.flash_attention_bwd_plain`` on CPU tensors.  A CUDA tensor the
+kernel does not take raises.  The JAX package has no hand-written
+backward: JAX differentiates the Pallas kernel's body.
+
+``flash_attention.launches`` counts the launches of both forward kernels,
+``flash_attention.mma_launches`` those of the tensor-core kernel and
+``flash_attention.bwd_launches`` those of the backward (plain integers;
+reset them to 0 before a run to prove which kernel it took).
 """
 from __future__ import annotations
 
@@ -47,10 +59,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ACC_DTYPES, NEG_INF,
+                                     flash_attention_bwd_plain,
                                      flash_attention_plain)
 
 SIMT = "flash_attention"          # the CUDA-core kernel (csrc name)
 MMA = "flash_attention_mma"       # the tensor-core kernel (csrc name)
+BWD = "flash_attention_bwd"       # the backward's kernels (csrc name)
 ROWS = 64                 # query rows per block (csrc: kRows, kBM)
 SUB = 64                  # KV tile of the f32 accumulator (csrc: kSub, kBN)
 SMEM_LIMIT = 232448       # shared memory a Hopper block may use (227 KB)
@@ -75,6 +89,8 @@ def _launcher(name):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == MMA:
             fn.argtypes = [P, P, P, P, I, I, I, I, I, I, F, I, I, F, P]
+        elif name == BWD:
+            fn.argtypes = [P] * 9 + [I] * 7 + [F, I, I, F, P]
         else:
             fn.argtypes = [P, P, P, P, P] + [I] * 13 + [F, I, I, F, P]
         fn.restype = I
@@ -303,10 +319,25 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     Attention of every query over the keys, query i at position i and key
     j at position j: ``causal`` (top-left aligned), optional sliding
     ``window`` and logit ``softcap``, GQA (query head h reads KV head
-    h // (H/KH)), online softmax with an ``acc_dtype`` accumulator."""
+    h // (H/KH)), online softmax with an ``acc_dtype`` accumulator.  With
+    grad mode on and an input that requires grad, through
+    ``FlashAttentionFn``, whose backward is ``flash_attention_bwd``."""
     _check_args(q, k, v, window, softcap, acc_dtype)
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                      scale, block_q, block_k, acc_dtype)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale, block_q=block_q, block_k=block_k,
+                    acc_dtype=acc_dtype)
+
+
+def _forward(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
+             acc_dtype):
+    """The forward kernels (or, on the CPU, the plain version), arguments
+    checked and ``scale`` resolved."""
     D = q.shape[-1]
-    scale = float(scale) if scale is not None else D ** -0.5
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, block_q=block_q,
@@ -352,5 +383,78 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward kernels, then
+    ``flash_attention_bwd`` on the saved q, k, v and output.  Arguments
+    after v are ``flash_attention``'s keywords in order (``scale``
+    resolved); they get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, block_q,
+                block_k, acc_dtype):
+        out = _forward(q, k, v, causal=causal, window=window,
+                       softcap=softcap, scale=scale, block_q=block_q,
+                       block_k=block_k, acc_dtype=acc_dtype)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, out, d_out, **ctx.kw)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad)) \
+            + (None,) * 7
+
+
+def flash_attention_bwd(q, k, v, out, d_out, *, causal=True, window=None,
+                        softcap=None, scale=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, ...)`` at the output
+    ``out`` and its cotangent ``d_out`` (cast to q's dtype and made
+    contiguous, as autograd may hand it over strided), in q's dtype.  On
+    CUDA tensors the two kernels of ``csrc/flash_attention_bwd.cu`` (bf16
+    or f32, D <= 256; one launch counted in
+    ``flash_attention.bwd_launches``); on CPU tensors
+    ``ref.flash_attention_bwd_plain``."""
+    _check_args(q, k, v, window, softcap, "f32")
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if out.shape != q.shape or d_out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and d_out "
+                         f"{tuple(d_out.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    d_out = d_out.to(q.dtype).contiguous()
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, d_out, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU, not "
+                         f"{q.device}")
+    _check_cuda(q, k, v)
+    if out.dtype != q.dtype or not out.is_contiguous():
+        raise ValueError("out must be contiguous in q's dtype")
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    if D > 256 or B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention_bwd takes head_dim <= 256 and "
+                         f"B, H <= 65535; got {tuple(q.shape)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty(2 * B * H * Sq, dtype=torch.float32,
+                          device=q.device)
+    rc = _launcher(BWD)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv, H,
+        KH, D, scale, int(bool(causal)), int(window) if window else 0,
+        float(softcap) if softcap else 0.0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{BWD} kernel launch failed (rc={rc})")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
 flash_attention.mma_launches = 0
+flash_attention.bwd_launches = 0

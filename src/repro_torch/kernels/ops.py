@@ -52,7 +52,8 @@ def flash_attention(q, k, v, causal=True, window=None, softcap=None,
                     config=None, tuned=False):
     """Blocked forward attention (``kernels.flash_attention``) with
     ``block_q``/``block_k``/``acc_dtype`` resolved explicit > ``config=``
-    > tuned > default."""
+    > tuned > default; with grad mode on and an input that requires grad
+    it runs through ``FlashAttentionFn``, whose backward is a kernel."""
     shapes = {"batch": q.shape[0], "seq_q": q.shape[1],
               "seq_kv": k.shape[1], "heads": q.shape[2],
               "kv_heads": k.shape[2], "head_dim": q.shape[3]}

@@ -19,6 +19,9 @@ grid axis) and is accepted (clamped to >= 1), but the kernels' partition is
 their own chunking: the function, and the kernels' work, are the same for
 every split count.  The plain version still honours it.
 
+The kernels have no backward: with grad mode on, an input that requires
+grad raises ``NotImplementedError`` on every device (``refuse_grad``).
+
 ``paged_attention.launches`` counts wrapper calls that launch the kernels,
 one per call (plain integer; reset it to 0 before a run to prove the run
 went through them).
@@ -29,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.ref import paged_attention_plain
 
 _GMAX = (1, 2, 4, 8)
@@ -118,6 +121,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     after clamping) selects the plain version's split-KV form on the CPU
     and does not change the card's work; ``chunk_tokens`` (one of
     ``CHUNKS``) is the kernels' chunk on the card."""
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     B, H, D = q.shape
     scale = float(scale) if scale is not None else D ** -0.5
     num_splits = max(int(num_splits), 1)

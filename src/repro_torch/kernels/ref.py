@@ -253,6 +253,53 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     return out[:, :Sq].to(q.dtype)
 
 
+def flash_attention_bwd_plain(q, k, v, out, d_out, *, causal=True,
+                              window=None, softcap=None, scale=None):
+    """The gradients of the flash forward, in the backward kernel's own
+    arithmetic (``csrc/flash_attention_bwd.cu``), written out rather than
+    taken by autograd.  q, out, d_out [B,Sq,H,D]; k,v [B,Skv,KH,D] ->
+    (dq [B,Sq,H,D], dk, dv [B,Skv,KH,D]) in the inputs' dtype, every sum
+    in f32 (f64 inputs stay f64).
+
+    With S the capped score ``cap * tanh(scale q.k / cap)`` (the raw one
+    without a softcap) under the forward's mask: the row log-sum-exp L is
+    recomputed from Q and K, P = exp(S - L) (0 where masked), D_i =
+    sum_d dO.O, dV = P^T dO, dP = dO V^T, dS = P (dP - D), times
+    1 - (S / cap)^2 with a softcap, dQ = scale dS K, dK = scale dS^T Q;
+    dK and dV sum over the query heads of each GQA group."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    # [B, Sq, KH, G, D]: query head h = kh * G + g reads KV head kh
+    qf, of, gf = (t.to(acc).reshape(B, Sq, KH, G, D) for t in (q, out, d_out))
+    kf, vf = k.to(acc), v.to(acc)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    ki = torch.arange(Skv, device=q.device)[None, :]
+    keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= ki <= qi
+    if window is not None:
+        keep &= (qi - ki) < window
+    lse = torch.logsumexp(torch.where(keep, s, -torch.inf), dim=-1)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", gf, of)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, gf)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", gf, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # --- the recurrences -------------------------------------------------------
 
 def wkv6_carry(r, k, v, w, u, s0):

@@ -13,6 +13,9 @@ d_inner only in multiples of ``CHANNELS`` and 16-byte aligned tensors, and
 any value on the card.  The call reads no device value on the host, so it
 can be captured in a CUDA graph.
 
+The kernel has no backward: with grad mode on, an input that requires
+grad raises ``NotImplementedError`` on every device (``refuse_grad``).
+
 ``ssm_scan.launches`` counts kernel launches (plain integer; reset it to 0
 before a run to prove the run went through the kernel).
 """
@@ -22,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.ref import ssm_scan_plain
 
 STATE_DIMS = (4, 8, 16)       # csrc: the N the kernel is built for
@@ -97,6 +100,7 @@ def ssm_scan(x, dt, B, C, A, *, block_d=256):
     must divide Di; on the card the kernel takes its grid from the shapes
     alone (8 channels a one-warp block), so it changes no value."""
     _check_args(x, dt, B, C, A, block_d)
+    refuse_grad("ssm_scan", x, dt, B, C, A)
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, B, C, A, block_d=block_d)
     if x.device.type != "cuda":

@@ -12,6 +12,9 @@ aligned tensors, and ``block_h``, the Pallas kernel's head tile, changes
 neither the grid nor any value on the card.  The call reads no device
 value on the host, so it can be captured in a CUDA graph.
 
+The kernel has no backward: with grad mode on, an input that requires
+grad raises ``NotImplementedError`` on every device (``refuse_grad``).
+
 ``wkv6.launches`` counts kernel launches (plain integer; reset it to 0
 before a run to prove the run went through the kernel).
 """
@@ -21,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.ref import wkv6_plain
 
 HEAD_DIMS = (16, 32, 64)      # csrc: the N the kernel is built for
@@ -82,6 +85,7 @@ def wkv6(r, k, v, w, u, *, block_h=1):
     the shapes alone (a 4 x 4 state tile a thread, at most 32 columns of
     one head a block), so it changes no value."""
     _check_args(r, k, v, w, u, block_h)
+    refuse_grad("wkv6", r, k, v, w, u)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, block_h=block_h)
     if r.device.type != "cuda":

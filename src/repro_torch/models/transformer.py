@@ -1,7 +1,10 @@
 """Decoder-only LM trunk: a port of ``repro.models.transformer``.
 
-* the dense family: the prefill and decode modes, over the dense slot
-  cache or the paged KV pool;
+* the dense family: the train-mode forward (``mode="train"``: logits of
+  every position, each layer's attention through the flash kernel and,
+  under autograd, its backward kernel; ``remat`` recomputes each layer in
+  the backward pass), and the prefill and decode modes, over the dense
+  slot cache or the paged KV pool;
 * the ``ssm`` (rwkv6) and ``hybrid`` (hymba) families: the train-mode
   forward (``mode="train"``: logits of every position, from a zero
   recurrent state), the path on which the reference runs its ``wkv6`` and
@@ -19,8 +22,11 @@ heads raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import basic
@@ -42,7 +48,7 @@ def supported_modes(cfg) -> tuple:
         return ()
     if (cfg.family == "dense" and cfg.attn_impl == "gqa" and not cfg.ssm
             and not cfg.rwkv and not cfg.meta_tokens):
-        return ("prefill", "decode")
+        return ("train", "prefill", "decode")
     if is_recurrent(cfg):
         return ("train", "prefill", "decode")
     return ()
@@ -54,9 +60,9 @@ def check_supported(cfg, mode=None) -> None:
     modes = supported_modes(cfg)
     if not modes or (mode is not None and mode not in modes):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA decoders in prefill and "
-            "decode, and rwkv6 (ssm) and hymba (hybrid) in train, prefill "
-            f"and decode; not {cfg.family} in {mode or 'any'} mode (no moe, "
+            f"{cfg.name}: the port runs dense GQA decoders, rwkv6 (ssm) "
+            "and hymba (hybrid) in train, prefill and decode; not "
+            f"{cfg.family} in {mode or 'any'} mode (no moe, "
             "mla, encoder-decoder, frontends or padded heads yet)")
 
 
@@ -243,17 +249,31 @@ def _last_pos_head(x):
     return x[:, -1:, :] if x.shape[1] > 1 else x
 
 
+def _train_layer(x, lp, *, cfg, positions, is_global, flash_fn):
+    """One dense layer of the train-mode forward (no cache)."""
+    return _layer(x, lp, cfg=cfg, positions=positions, is_global=is_global,
+                  cache=None, write_pos=None, block_tables=None,
+                  paged_fn=None, flash_fn=flash_fn)[0]
+
+
 def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
              block_tables=None, max_len=None, paged_fn=None, flash_fn=None,
-             wkv_fn=None, ssm_fn=None):
+             wkv_fn=None, ssm_fn=None, remat=True):
     """Run the trunk.
 
     tokens        [B,S] int
-    mode          "train" (rwkv6, hymba): the forward of every position
-                  from zero recurrent state; returns (f32 logits
+    mode          "train": the forward of every position (rwkv6 and hymba
+                  from zero recurrent state); returns (f32 logits
                   [B, S, Vpad], None).  ``wkv_fn``/``ssm_fn`` replace the
-                  recurrences' kernels (a check passes their plain
-                  versions).
+                  recurrences' kernels and ``flash_fn`` the dense
+                  attention's (a check passes their plain versions).  With
+                  ``remat`` and grad mode on, each dense layer runs under
+                  ``torch.utils.checkpoint`` (non-reentrant), the
+                  counterpart of the reference's ``jax.checkpoint`` with
+                  ``nothing_saveable``: its forward runs again in the
+                  backward pass, so the attention's forward kernel
+                  launches twice a layer and its backward once;
+                  ``remat_policy="save_attn"`` is not ported and raises.
                   "prefill": the uncached forward from position 0; returns
                   the new cache (``init_decode_cache``'s keys): K/V [L, B,
                   max_len, KH, hd] in bf16, zero-padded (``max_len``
@@ -268,7 +288,9 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
                   negative positions (left pad, inactive rows) write
                   nothing into the paged pool
     block_tables  [B,NB] int32 (paged pool only)
-    Returns (f32 logits [B, 1, Vpad] of the last position, cache).
+    Returns (f32 logits [B, 1, Vpad] of the last position, cache) in
+    prefill and decode.  rwkv6 and hymba ignore ``remat``: their kernels
+    have no backward, so they do not train.
     """
     check_supported(cfg, mode)
     if is_recurrent(cfg):
@@ -277,6 +299,11 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
                 f"{cfg.name}: paged decode needs a plain GQA stack")
         return _recurrent_apply(params, cfg, tokens, mode, cache, write_pos,
                                 max_len, wkv_fn, ssm_fn)
+    remat = remat and mode == "train" and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported "
+            "(the port recomputes every layer: 'nothing')")
     cdt = getattr(torch, cfg.compute_dtype)
     B, S = tokens.shape
     x = basic.embed_tokens(params["embed"], tokens, cdt,
@@ -292,6 +319,13 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
                                  device=tokens.device)[None].expand(B, S)
     new = []
     for i, lp in enumerate(params["layers"]):
+        if mode == "train":
+            layer = functools.partial(
+                _train_layer, cfg=cfg, positions=positions,
+                is_global=cfg.layer_is_global(i), flash_fn=flash_fn)
+            x = (checkpoint(layer, x, lp, use_reentrant=False) if remat
+                 else layer(x, lp))
+            continue
         layer_cache = None
         if mode == "decode":
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
@@ -303,7 +337,8 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
         if mode == "prefill":
             new.append(_prefill_pad_cache(new_kv, max_len))
     x = basic.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    x = _last_pos_head(x)
+    if mode != "train":
+        x = _last_pos_head(x)
     logits = basic.unembed(params["embed"], x, cdt, cfg.logit_softcap,
                            vocab=cfg.vocab_size)
     if mode == "prefill":

@@ -1,10 +1,10 @@
-"""Model API of the port: dense GQA decoders (prefill, decode), rwkv6 and
-hymba (the train-mode forward and its loss, prefill and decode).
+"""Model API of the port: dense GQA decoders, rwkv6 and hymba (the
+train-mode forward and its loss, prefill and decode).
 
 ``build_model(cfg, device=None)`` returns a ``Model`` whose members are
 plain functions on tensors, with the JAX package's signatures:
 
-  init(seed)                                       -> params
+  init(seed, dtype=None)                           -> params
   loss(params, batch)                              -> (scalar loss, aux)
   prefill(params, batch, max_len)                  -> (logits [B,Vpad], cache)
   decode(params, cache, tokens, pos, bt=None)      -> (logits [B,Vpad], cache)
@@ -16,7 +16,12 @@ plain functions on tensors, with the JAX package's signatures:
 ``decode`` runs over the paged pool when given block tables, else over the
 dense slot cache (with rwkv6's and hymba's recurrent state); both are
 updated in place.  hymba's prefill prepends its meta tokens, so its
-decode positions start at ``meta_tokens + S``.  A member whose mode the
+decode positions start at ``meta_tokens + S``.  ``init``'s matrices are
+stored in the compute dtype unless ``dtype`` says otherwise (training
+holds f32 master weights, ``cfg.param_dtype``; the layers cast them at
+every use, as the reference does).  ``loss`` is the mean cross entropy
+over every position, differentiable for the dense family (its attention
+kernel has a backward).  A member whose mode the
 family does not run yet (``transformer.supported_modes``) raises
 ``NotImplementedError`` when called, and so does ``init_paged_cache`` for
 the recurrent families.  ``wkv_fn``/``ssm_fn`` (``loss``) reach the
@@ -124,16 +129,16 @@ def _init_layer(gen, cfg, device, dtype):
     return lp
 
 
-def init_params(cfg, seed, device):
+def init_params(cfg, seed, device, dtype=None):
     """Seeded random parameters with ``init_lm``'s distributions (uniform
     +-fan_in^-0.5 projections, normal * 0.02 embedding, unembedding and
     meta tokens, the norms' and recurrences' constants), drawn in f32 on
     ``device`` one tensor at a time from a ``torch.Generator``.  Matrices
-    are then stored in the compute dtype (JAX casts them at every use);
-    1-D leaves and the leaves the reference uses in f32 (``a_log``,
-    ``u_bonus``) stay f32."""
+    are then stored in ``dtype`` (default the compute dtype; JAX casts
+    them at every use); 1-D leaves and the leaves the reference uses in
+    f32 (``a_log``, ``u_bonus``) stay f32."""
     lm_mod.check_supported(cfg)
-    dtype = getattr(torch, cfg.compute_dtype)
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
     # on ``meta`` (shapes only, see ``count_params``) nothing is drawn and
     # a meta generator does not exist: a CPU one stands in
     device = torch.device(device)
@@ -160,8 +165,8 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
     lm_mod.check_supported(cfg)
     dev = resolve_device(device)
 
-    def init(seed=0):
-        return init_params(cfg, seed, dev)
+    def init(seed=0, dtype=None):
+        return init_params(cfg, seed, dev, dtype)
 
     def prefill(params, batch, max_len=None, flash_fn=None):
         logits, cache = lm_mod.lm_apply(params, cfg, tokens=batch["tokens"],
@@ -185,8 +190,9 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
 
     def loss(params, batch, wkv_fn=None, ssm_fn=None):
         """Mean next-token cross entropy of ``batch`` ({'tokens',
-        'labels'}: [B,S] int tensors on the model's device) through the
-        train-mode forward; ``wkv_fn``/``ssm_fn`` as in ``lm_apply``."""
+        'labels'}: [B,S] int tensors on the model's device) over every
+        position of the train-mode forward (``remat`` on, as the
+        reference's); ``wkv_fn``/``ssm_fn`` as in ``lm_apply``."""
         logits, _ = lm_mod.lm_apply(params, cfg, tokens=batch["tokens"],
                                     mode="train", wkv_fn=wkv_fn,
                                     ssm_fn=ssm_fn)

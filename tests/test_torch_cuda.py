@@ -859,3 +859,37 @@ def test_sim_scenarios_on_card_equal_cpu(dev):
         got = chip_smoke.telemetry_scenarios(dev)
     assert chip_smoke.scenario_gate(got, want) == []
     assert got["drift"]["n_events"] == 1 and got["overload"]["slo_held"]
+
+
+# -- the flash backward and dense training ----------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("window,softcap,H,KH,D", [
+    (None, 50.0, 8, 4, 256), (128, 50.0, 8, 4, 256), (None, None, 4, 1, 64),
+    (7, None, 6, 2, 16)])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
+                                        KH, D):
+    """The backward kernels against ``flash_attention_bwd_plain``, each
+    gradient within ``chip_smoke.FLASH_BWD_TOL`` of its max|want|, on a
+    ragged length (S=300); one launch counted."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    c = dict(B=2, H=H, KH=KH, D=D, window=window, softcap=softcap)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(torch, g, dev, c,
+                                                         dtype, S=300)
+    before = flash_attention.bwd_launches
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    got = flash_attention_bwd(q, k, v, out, dout.transpose(1, 2)
+                              .contiguous().transpose(1, 2), **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 1
+    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    assert max(chip_smoke.flash_bwd_ratios(got, want)) < tol
+
+
+def test_train_reduced_on_card_matches_cpu(dev):
+    """``chip_smoke.py``'s phase train (b): reduced f32 gemma2 trained on
+    the card and on the CPU from one init, and a restart, with remat's
+    launch counts."""
+    line, failed = chip_smoke.train_reduced(torch, 0)
+    assert failed == [], line

@@ -17,9 +17,8 @@ prefill of S0=12 tokens, then T=3 teacher-forced decode steps at
 * At the default dtype (bf16), the reference's gate: the largest logit
   error over the prefill's last position and the T steps under 0.05 x
   max(max|teacher|, 1).  The teacher is the train-mode forward of all
-  S0+T tokens for rwkv6 and hymba; the dense port has no train mode, so
-  for the dense archs it is a prefill of S0+t+1 tokens, whose last logits
-  are position S0+t's.
+  S0+T tokens, as the reference's gate takes it, for every arch (the
+  dense archs have a train mode too).
 """
 import jax
 import jax.numpy as jnp
@@ -95,14 +94,10 @@ def test_decode_matches_full_forward(arch):
     assert cfg.compute_dtype == "bfloat16"
     V, pfx = cfg.vocab_size, cfg.meta_tokens
     toks = torch.from_numpy(toks)
+    assert "train" in tlm.supported_modes(cfg)
     with torch.no_grad():
-        if "train" in tlm.supported_modes(cfg):
-            full, _ = tlm.lm_apply(tparams, cfg, tokens=toks, mode="train")
-            full = full[..., :V].float()
-        else:
-            full = torch.stack([tm.prefill(tparams, {"tokens": toks[:, :n]})
-                                [0][:, :V].float()
-                                for n in range(1, S0 + T + 1)], dim=1)
+        full, _ = tlm.lm_apply(tparams, cfg, tokens=toks, mode="train")
+        full = full[..., :V].float()
         scale = max(full.abs().max().item(), 1.0)
         lg, cache = tm.prefill(tparams, {"tokens": toks[:, :S0]},
                                max_len=S0 + T + pfx)

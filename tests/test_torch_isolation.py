@@ -67,7 +67,9 @@ def test_port_imports_without_jax_or_repro():
                 "serve.chaos", "serve.chaos.faults",
                 "serve.chaos.supervise", "serve.chaos.drill",
                 "distributed", "distributed.fault_tolerance", "sharding",
-                "sharding.plans", "sharding.cli", "sharding.__main__"):
+                "sharding.plans", "sharding.cli", "sharding.__main__",
+                "train.optim", "train.loop", "train.tree", "checkpoint",
+                "checkpoint.manager", "launch.train"):
         assert f"repro_torch.{mod}" in names
     assert leaked.strip() == "[]"
 

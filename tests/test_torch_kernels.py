@@ -8,7 +8,23 @@ kernel (staged lowering).  Inputs are numpy arrays from a seed,
 handed to both packages.  Tolerance: f32 atol 1e-5 (the two differ only in
 summation order).  The CUDA kernel itself is tested on the card by
 ``tests/test_torch_cuda.py``.
+
+The flash backward: ``ref.flash_attention_bwd_plain`` (the arithmetic of
+``csrc/flash_attention_bwd.cu``) against ``torch.autograd.grad`` of
+``flash_attention_plain`` in f64 and f32 over causal x window 8 at 24
+tokens x softcap 50 x GQA groups 1, 2, 4 x D 16, 32, each gradient within
+1e-5 of its max|want| (the same f32 function in another order); against
+``jax.grad`` of the reference's flash oracle at one windowed, softcapped
+GQA shape (1e-5), beside its interpret-mode kernel's forward; ``chip_smoke.py``'s
+``FLASH_BWD_MUST_CATCH`` faults each failing that gate; the wiring of
+``FlashAttentionFn`` on the CPU (saved tensors, ``needs_input_grad``, a
+strided cotangent, bf16) and the no-backward guards of the other kernels.
 """
+import importlib.util
+import itertools
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +34,15 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels.paged_attention import (CHUNK_TOKENS, CHUNKS,
                                                  chunk_grid, paged_attention)
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 def _case(B, H, KH, D, bs, ctxs, n_pages, seed=0, hole=None):
@@ -222,3 +245,169 @@ def test_chunk_grid_comes_from_the_table_width():
     arrs = _torch(*_case(2, 4, 2, 16, 4, (3, 5), n_pages=8))
     with pytest.raises(ValueError):
         paged_attention(*arrs, chunk_tokens=16)
+
+
+# -- the flash backward ------------------------------------------------------
+
+BWD_TOL = 1e-5      # of each gradient's max|want|
+
+
+def _bwd_inputs(B, S, H, KH, D, dtype, seed=0, q_mul=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, D)) * q_mul
+    k, v = (rng.normal(size=(B, S, KH, D)) for _ in range(2))
+    dout = rng.normal(size=(B, S, H, D))
+    return [torch.from_numpy(a).to(dtype) for a in (q, k, v, dout)]
+
+
+def _ratios(got, want):
+    return [((g.double() - w.double()).abs().max()
+             / w.double().abs().max()).item() for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("causal,window,softcap,G,D", list(itertools.product(
+    (True, False), (None, 8), (None, 50.0), (1, 2, 4), (16, 32))))
+def test_flash_bwd_plain_matches_autograd(causal, window, softcap, G, D,
+                                          dtype):
+    q, k, v, dout = _bwd_inputs(2, 24, 2 * G, 2, D, dtype,
+                                q_mul=8.0 if softcap else 1.0)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=D ** -0.5)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tref.flash_attention_plain(*xs, block_q=8, block_k=8, **kw)
+    want = torch.autograd.grad(out, xs, dout)
+    got = tref.flash_attention_bwd_plain(q, k, v, out.detach(), dout, **kw)
+    assert [t.dtype for t in got] == [dtype] * 3
+    assert max(_ratios(got, want)) < BWD_TOL
+
+
+def test_flash_bwd_plain_matches_jax_grad_of_the_reference():
+    """``jax.grad`` of the reference's flash oracle
+    ``repro.kernels.ref.flash_attention_ref`` (the function its Pallas
+    kernel is held to) at a windowed, softcapped GQA shape, and the
+    interpret-mode Pallas forward equal to the port's.  ``jax.grad``
+    through the interpret-mode kernel itself stops in Pallas
+    (``program_id`` outside a grid context, with or without a window);
+    ``tests/test_pallas_integration.py``'s grad test never reaches the
+    kernel for gemma2 (a traced layer flag with a window keeps
+    ``use_pallas`` off)."""
+    q, k, v, dout = _bwd_inputs(2, 24, 4, 2, 16, torch.float32, q_mul=8.0)
+    kw = dict(causal=True, window=8, softcap=50.0, scale=0.25)
+    jq, jk, jv = _jax(q.numpy(), k.numpy(), v.numpy())
+
+    def f(q_, k_, v_):
+        return jnp.vdot(jref.flash_attention_ref(q_, k_, v_, **kw),
+                        jnp.asarray(dout.numpy()))
+    want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    out = tref.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(jops.flash_attention(
+            jq, jk, jv, interpret=True, block_q=8, block_k=8, **kw)),
+        atol=1e-5)
+    got = tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    assert max(_ratios(got, [torch.from_numpy(np.asarray(w))
+                             for w in want])) < BWD_TOL
+
+
+@pytest.mark.parametrize("name", chip_smoke.FLASH_BWD_MUST_CATCH)
+def test_flash_bwd_faults_fail_the_gate(name):
+    """Each of ``chip_smoke.py``'s faults, on its control case cut to 64
+    tokens and a window of 16, fails the f32 gates (the card's 1e-4 and
+    this file's 1e-5)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(
+        torch, g, "cpu", chip_smoke.FLASH_BWD_CONTROL_CASE, torch.float32,
+        S=64)
+    kw["window"] = 16
+    want = tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    sound = chip_smoke.flash_bwd_ratios(
+        tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw), want)
+    assert max(sound) == 0.0
+    controls = chip_smoke.flash_bwd_controls(torch, tref, q, k, v, out,
+                                             dout, kw, want)
+    assert controls[name]["caught"]
+    assert max(controls[name]["ratios"]) > BWD_TOL
+
+
+@pytest.mark.parametrize("needs", [(True, True, True), (True, False, False),
+                                   (False, True, True), (False, False, True)])
+def test_flash_attention_fn_wiring(needs):
+    """Through ``ops.flash_attention`` with grad on: a ``FlashAttentionFn``
+    node whose gradients are the plain backward's at the saved tensors,
+    None where an input needs none, from a strided cotangent."""
+    q, k, v, _ = _bwd_inputs(2, 20, 4, 2, 16, torch.float32)
+    xs = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), needs)]
+    kw = dict(causal=True, window=8, softcap=50.0)
+    out = tops.flash_attention(*xs, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    # a cotangent laid out [B,H,S,D] and transposed: not contiguous
+    dout = torch.randn(2, 4, 20, 16).transpose(1, 2)
+    assert not dout.is_contiguous()
+    out.backward(dout)
+    want = tref.flash_attention_bwd_plain(q, k, v, out.detach(), dout,
+                                          scale=0.25, **kw)
+    for x, n, w in zip(xs, needs, want):
+        if n:
+            torch.testing.assert_close(x.grad, w, rtol=0, atol=0)
+        else:
+            assert x.grad is None
+
+
+def test_flash_attention_fn_bf16_and_no_grad_paths():
+    """bf16 gradients come back in bf16; with grad off, or with no input
+    needing it, the forward runs alone (no autograd node)."""
+    q, k, v, dout = _bwd_inputs(1, 16, 2, 1, 16, torch.bfloat16)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*xs)
+    grads = torch.autograd.grad(out, xs, dout)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    with torch.no_grad():
+        assert tfa.flash_attention(*xs).grad_fn is None
+    assert tfa.flash_attention(q, k, v).grad_fn is None
+    assert tfa.flash_attention.bwd_launches == 0   # the CPU launches nothing
+
+
+@pytest.mark.parametrize("name", ["wkv6", "ssm_scan", "paged_attention"])
+def test_kernels_without_a_backward_refuse_grad(name):
+    """``wkv6``, ``ssm_scan`` and ``paged_attention`` raise, naming
+    themselves, on inputs that require grad (on the CPU as on the card:
+    ``chip_smoke.guards_raise``), and run under ``torch.no_grad()``."""
+    assert chip_smoke.guards_raise(torch, "cpu")[name]
+    with torch.no_grad():
+        assert not chip_smoke.guards_raise(torch, "cpu")[name]
+
+
+def test_build_waits_for_a_running_build_of_the_same_library(tmp_path,
+                                                            monkeypatch):
+    """``_build.build`` called while another thread compiles the same
+    library waits for that compile instead of starting nvcc again (so
+    ``chip_smoke.py``'s phases may load kernels while the card phase's
+    builds run), and then loads the library as cached."""
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    calls = []
+
+    def compile_(name, source, text, out):
+        calls.append(name)
+        time.sleep(0.2)
+        out.write_bytes(b"lib")
+        _build.BUILD_LOG[name] = {"cached": False, "seconds": 0.2, "log": ""}
+        return out
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    monkeypatch.setattr(_build, "_compile", compile_)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        _build.build("wkv6"))) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert calls == ["wkv6"] and len(set(got)) == 1 and got[0].exists()
+    assert _build.BUILD_LOG["wkv6"]["cached"] is False   # the compile's log
+    assert _build._RUNNING == {}
