@@ -305,34 +305,50 @@ exits non-zero):
    the fused and legacy engines, rows reused, on the card and the CPU:
    tokens equal to the port's teacher-forced greedy decode on the card.
 
-23. flash_bwd_kernel: the flash backward (``flash_attention_bwd``, the
-   two kernels of ``csrc/flash_attention_bwd.cu``) against
-   ``flash_attention_bwd_plain`` at the train path's shapes
-   (``FLASH_BWD_CASES``, 512 tokens: gemma2-2b's B=4, H=8, KH=4, D=256
-   with softcap 50 and window None or 128, and with both off; gemma3-1b's
-   H=4, KH=1, D=256; internlm2-20b's B=2, H=48, KH=8, D=128), each in
-   bf16 and in f32 at B=1, every gradient within ``FLASH_BWD_TOL`` (f32
-   1e-4, bf16 3e-2) of its max|want|; ``ms`` and ``stream_ms`` as the
-   flash kernels', the plain version's time, SDPA's backward alone
-   (``torch.autograd.grad`` through ``F.scaled_dot_product_attention``,
-   causal, GQA) where window and softcap are off, and the bound
-   (``_flash_bound_ms(backward=True)``: 5 products of 2 D a kept pair
-   and query head against 8 tensors moved once); the controls of
-   ``FLASH_BWD_MUST_CATCH`` on an f32 case where the softcap binds; and
-   ``wkv6``, ``ssm_scan`` and ``paged_attention`` refusing inputs that
-   require grad on the card (``guards_raise``).
+23. flash_bwd_kernel: the flash backward (``flash_attention_bwd``) at
+   the train path's shapes (``FLASH_BWD_CASES``, 512 tokens: gemma2-2b's
+   B=4, H=8, KH=4, D=256 with softcap 50 and window None or 128, and with
+   both off; gemma3-1b's H=4, KH=1, D=256; internlm2-20b's B=2, H=48,
+   KH=8, D=128), each in bf16 and in f32 at B=1.  Each case's line names
+   the backward that ran (``kernel``): bf16 must take the tensor-core
+   kernels of ``csrc/flash_attention_bwd_mma.cu``, fed the forward's row
+   log-sum-exp (``flash_attention_with_lse``, whose O must equal the
+   plain forward call's bit for bit and whose L must have the +inf rows
+   of ``flash_lse_plain`` of the f64 scores and its finite rows within
+   ``FLASH_LSE_TOL``), and is held against
+   ``flash_attention_bwd_mma_plain`` (P and dS rounded to bf16) fed that
+   plain L; f32 must
+   take the CUDA-core kernels of ``csrc/flash_attention_bwd.cu``, held
+   against ``flash_attention_bwd_plain``; every gradient within
+   ``FLASH_BWD_TOL`` (f32 1e-4, bf16 3e-2) of its max|want|.  ``ms`` and
+   ``stream_ms`` as the flash kernels', the plain version's time, SDPA's
+   backward alone (``torch.autograd.grad`` through
+   ``F.scaled_dot_product_attention``, causal, GQA) where window and
+   softcap are off, and the bound (``_flash_bound_ms(backward=True)``: 5
+   products of 2 D a kept pair and query head against 8 tensors moved
+   once); the controls of ``FLASH_BWD_MUST_CATCH`` on an f32 case where
+   the softcap binds and of ``FLASH_BWD_MMA_MUST_CATCH`` (the rounded
+   plain version with L one row off, the diagonal tiles dropped from dQ,
+   a head missing from a group's dK and dV) on the bf16 case with both,
+   each caught by its dtype's gate, and of ``FLASH_LSE_MUST_CATCH`` (L a
+   row off, a head off, the softcap left out) on that case's L, each
+   caught by the L gate; and ``wkv6``, ``ssm_scan`` and
+   ``paged_attention`` refusing inputs that require grad on the card
+   (``guards_raise``).
 24. train: (a) full-width gemma2-2b (26 layers, d_model 2304, vocab
    256,000; f32 params, bf16 compute, AdamW) through ``train()``,
    ``TRAIN_FULL`` (3 steps of 8 x 512 tokens, accum 2), priced by the
    committed H100 table, no checkpoint: losses and grad norms finite,
    the params moved, and each step's flash launches exactly remat's,
-   2 x 26 x 2 forward and 26 x 2 backward (``train_launch_gate``);
+   2 x 26 x 2 forward and 26 x 2 backward, every backward on the tensor
+   cores (``train_launch_gate``);
    readings the losses, the median step of steps 2-3 (host wall around
    a step that ends in a synchronize), tokens/s, the predicted step and
    peak memory.  (b) reduced f32 gemma2 (``TRAIN_REDUCED``, 8 steps) on
    the card and on the CPU from one init, losses within
-   ``TRAIN_LOSS_RTOL``; then a run of 4 steps with a checkpoint and a
-   restarted run to 8, its losses the uninterrupted run's.
+   ``TRAIN_LOSS_RTOL``, its backward the CUDA-core kernels; then a run of
+   4 steps with a checkpoint and a restarted run to 8, its losses the
+   uninterrupted run's.
 
 Run order: the card phase starts every build and returns; phases 2-8
 then run, each waiting for the kernels it launches, then phases 17 and
@@ -950,16 +966,20 @@ def reset_launches():
         f.launches = 0
     wrappers["flash_attention"].mma_launches = 0
     wrappers["flash_attention"].bwd_launches = 0
+    wrappers["flash_attention"].bwd_mma_launches = 0
 
 
 def launch_counts():
     """Each wrapper's launches; ``flash_attention`` counts both flash
     forward kernels, ``flash_attention_mma`` the tensor-core one alone,
-    ``flash_attention_bwd`` the backward's launches."""
+    ``flash_attention_bwd`` both backwards' launches,
+    ``flash_attention_bwd_mma`` the tensor-core backward's."""
     wrappers = _wrappers()
     counts = {name: f.launches for name, f in wrappers.items()}
     counts["flash_attention_mma"] = wrappers["flash_attention"].mma_launches
     counts["flash_attention_bwd"] = wrappers["flash_attention"].bwd_launches
+    counts["flash_attention_bwd_mma"] = \
+        wrappers["flash_attention"].bwd_mma_launches
     return counts
 
 
@@ -4956,6 +4976,21 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # wider, and the D term (dO.O) left out of dS
 FLASH_BWD_MUST_CATCH = ("softcap_factor_dropped", "gqa_first_head",
                         "window_one_off", "delta_dropped")
+# the tensor-core backward's own faults, in its rounded plain version,
+# which the bf16 gate must catch on the bf16 case with window and softcap:
+# L read from the next query row, the 64 x 64 tiles on the diagonal
+# dropped from dQ (each query tile's dS against its own key tile), and the
+# last query head of every GQA group missing from dK and dV
+FLASH_BWD_MMA_MUST_CATCH = ("lse_next_row", "diagonal_dropped_from_dq",
+                            "gqa_head_missing")
+FLASH_BWD_MMA_CONTROL_CASE = FLASH_BWD_CASES[1]
+# the forward's L for the backward against ``flash_lse_plain`` of the f64
+# scores: the same +inf rows and each finite row within FLASH_LSE_TOL; the
+# faults the L gate must catch on the bf16 control case: L one query row
+# off, one head off, and the softcap left out of the scores
+FLASH_LSE_TOL = 1e-5
+FLASH_LSE_MUST_CATCH = ("row_off_by_one", "head_off_by_one",
+                        "softcap_ignored")
 
 
 def flash_bwd_fault(torch, ref, name, q, k, v, out, dout, kw):
@@ -4995,6 +5030,35 @@ def flash_bwd_fault(torch, ref, name, q, k, v, out, dout, kw):
             dv.to(v.dtype))
 
 
+def flash_bwd_mma_fault(torch, ref, name, q, k, v, out, dout, lse, kw):
+    """The tensor-core backward's plain version on these inputs with fault
+    ``name`` (``FLASH_BWD_MMA_MUST_CATCH``)."""
+    sound = ref.flash_attention_bwd_mma_plain
+    if name == "lse_next_row":
+        lse = torch.cat([lse[..., 1:], lse[..., -1:]], dim=-1)
+        return sound(q, k, v, out, dout, lse, **kw)
+    dq, dk, dv = sound(q, k, v, out, dout, lse, **kw)
+    if name == "gqa_head_missing":
+        # a head whose cotangent is 0 adds nothing to dK or dV (dS = P (0 -
+        # 0) there): the group's sums without its last head
+        G = q.shape[2] // k.shape[2]
+        d_cut = dout.clone()
+        d_cut[:, :, G - 1::G] = 0
+        _, dk, dv = sound(q, k, v, out, d_cut, lse, **kw)
+        return dq, dk, dv
+    # diagonal_dropped_from_dq: a query tile against its own key tile
+    # alone (positions shift together, so the mask is the same), taken
+    # out of dQ
+    T = 64
+    dq = dq.float()
+    for i in range(-(-q.shape[1] // T)):
+        sl = slice(i * T, (i + 1) * T)
+        dq[:, sl] -= sound(q[:, sl], k[:, sl], v[:, sl], out[:, sl],
+                           dout[:, sl], lse[..., sl].contiguous(),
+                           **kw)[0].float()
+    return dq.to(q.dtype), dk, dv
+
+
 def flash_bwd_ratios(got, want):
     """Each gradient's max |got - want| over its max|want|."""
     return [((g.float() - w.float()).abs().max()
@@ -5030,6 +5094,62 @@ def flash_bwd_controls(torch, ref, q, k, v, out, dout, kw, want):
     return controls
 
 
+def flash_bwd_mma_controls(torch, ref, q, k, v, out, dout, lse, kw, want):
+    """``FLASH_BWD_MMA_MUST_CATCH`` on one bf16 case: each fault's ratios
+    and whether the bf16 gate catches it."""
+    controls = {}
+    for name in FLASH_BWD_MMA_MUST_CATCH:
+        r = flash_bwd_ratios(flash_bwd_mma_fault(
+            torch, ref, name, q, k, v, out, dout, lse, kw), want)
+        controls[name] = {"ratios": r,
+                          "caught": max(r) > FLASH_BWD_TOL["bfloat16"]}
+    return controls
+
+
+def flash_bwd_lse(torch, q, k, v, out, kw):
+    """The forward's row log-sum-exp for the backward
+    (``flash_attention_with_lse``; None where the CUDA-core forward runs)
+    and whether its O equals ``out``, the forward called without it, bit
+    for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    with torch.no_grad():
+        o, lse = flash_attention_with_lse(q, k, v, **kw)
+    return lse, bool(torch.equal(o, out))
+
+
+def flash_lse_want(torch, ref, q, k, kw):
+    """The forward's L by its plain version, from the f64 scores."""
+    return ref.flash_lse_plain(q.double(), k.double(), **kw)
+
+
+def flash_lse_err(torch, got, want):
+    """The forward's L against its plain version: the largest |got - want|
+    over the finite rows, inf where the +inf rows differ or ``got`` holds a
+    NaN."""
+    if (not torch.equal(torch.isinf(got), torch.isinf(want))
+            or bool(torch.isnan(got).any())):
+        return float("inf")
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0
+    return (got.double()[fin] - want[fin]).abs().max().item()
+
+
+def flash_lse_controls(torch, ref, q, k, lse, want, kw):
+    """``FLASH_LSE_MUST_CATCH`` on one case: each faulty L's error against
+    the plain L and whether the L gate catches it."""
+    faults = {
+        "row_off_by_one": torch.cat([lse[..., 1:], lse[..., -1:]], dim=-1),
+        "head_off_by_one": torch.roll(lse, 1, dims=1),
+        "softcap_ignored": flash_lse_want(torch, ref, q, k,
+                                          {**kw, "softcap": None})}
+    controls = {}
+    for name in FLASH_LSE_MUST_CATCH:
+        err = flash_lse_err(torch, faults[name], want)
+        controls[name] = {"err": err, "caught": not err <= FLASH_LSE_TOL}
+    return controls
+
+
 def guards_raise(torch, dev):
     """The kernels with no backward refuse grad-requiring inputs on
     ``dev``: each name mapped to whether its wrapper raised
@@ -5062,45 +5182,84 @@ def guards_raise(torch, dev):
 
 
 def phase_flash_bwd_kernel(torch, dev, seed):
-    """The flash backward kernels against ``flash_attention_bwd_plain`` at
-    the train path's shapes, bf16 and f32, timed beside the plain version,
-    SDPA's backward where it computes the same function and the bound;
-    the controls of ``FLASH_BWD_MUST_CATCH``; the no-backward guards."""
+    """The flash backward kernels against their plain versions at the train
+    path's shapes, bf16 (the tensor-core kernels, fed the forward's L) and
+    f32 (the CUDA-core kernels), timed beside the plain version, SDPA's
+    backward where it computes the same function and the bound; the
+    controls of ``FLASH_BWD_MUST_CATCH`` and ``FLASH_BWD_MMA_MUST_CATCH``;
+    the no-backward guards.  The forward's L, which the tensor-core
+    backward reads, is held against its plain version (``FLASH_LSE_TOL``,
+    ``FLASH_LSE_MUST_CATCH``), and the plain backward reads the plain L, so
+    the comparison covers the forward's hand-off.  Returns the cases and
+    each backward kernel's largest absolute error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (BWD, BWD_MMA,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
 
     torch.cuda.empty_cache()        # what earlier phases left cached
     g = torch.Generator(device=dev).manual_seed(seed)
     cases = [(c, dt) for c in FLASH_BWD_CASES
              for dt in (torch.bfloat16, torch.float32)]
     cases.append((FLASH_BWD_CONTROL_CASE, torch.float32))
-    out_cases, failed, controls = [], [], None
-    max_err = 0.0
+    out_cases, failed, controls, mma_controls = [], [], None, None
+    lse_controls = None
+    max_err = {BWD: 0.0, BWD_MMA: 0.0}
     for c, dt in cases:
         dname = str(dt).split(".")[-1]
         c = {**c, "B": c["B"] if dt == torch.bfloat16 else 1}
         q, k, v, out, dout, kw = flash_bwd_inputs(torch, g, dev, c, dt)
-        got = flash_attention_bwd(q, k, v, out, dout, **kw)
+        name = (f"{c['arch']} {dname} window={c['window']} "
+                f"softcap={c['softcap']}")
+        lse, o_same = flash_bwd_lse(torch, q, k, v, out, kw)
+        lse_plain = lse_err = None
+        if lse is not None:
+            lse_want = flash_lse_want(torch, ref, q, k, kw)
+            lse_err = flash_lse_err(torch, lse, lse_want)
+            if not lse_err <= FLASH_LSE_TOL:
+                failed.append(f"{name}: L off by {lse_err}")
+            if c == FLASH_BWD_MMA_CONTROL_CASE:
+                lse_controls = flash_lse_controls(torch, ref, q, k, lse,
+                                                  lse_want, kw)
+            lse_plain = lse_want.float()
+            del lse_want
+        before = flash_attention.bwd_mma_launches
+        got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
         torch.cuda.synchronize()
-        want = ref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+        kernel = BWD_MMA if flash_attention.bwd_mma_launches > before else BWD
+        want_kernel = BWD_MMA if dt == torch.bfloat16 else BWD
+        if dt == torch.bfloat16:
+            def plain():
+                return ref.flash_attention_bwd_mma_plain(q, k, v, out, dout,
+                                                         lse_plain, **kw)
+        else:
+            def plain():
+                return ref.flash_attention_bwd_plain(q, k, v, out, dout,
+                                                     **kw)
+        want = plain()
         ratios = flash_bwd_ratios(got, want)
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got, want))
-        max_err = max(max_err, err)
+        max_err[kernel] = max(max_err[kernel], err)
         if max(ratios) > FLASH_BWD_TOL[dname]:
-            failed.append(f"{c['arch']} {dname} window={c['window']} "
-                          f"softcap={c['softcap']}: {ratios}")
+            failed.append(f"{name}: {ratios}")
+        if kernel != want_kernel:
+            failed.append(f"{name}: ran {kernel}, not {want_kernel}")
+        if not o_same:
+            failed.append(f"{name}: O differs with the lse buffer")
         if "q_mul" in c:
             controls = flash_bwd_controls(torch, ref, q, k, v, out, dout,
                                           kw, want)
+        if dt == torch.bfloat16 and c == FLASH_BWD_MMA_CONTROL_CASE:
+            mma_controls = flash_bwd_mma_controls(torch, ref, q, k, v, out,
+                                                  dout, lse_plain, kw, want)
 
         def call():
-            return flash_attention_bwd(q, k, v, out, dout, **kw)
+            return flash_attention_bwd(q, k, v, out, dout, lse, **kw)
         ms, s_ms = gpu_ms(torch, call, 20), stream_ms(torch, call)
-        plain_ms = gpu_ms(torch, lambda: ref.flash_attention_bwd_plain(
-            q, k, v, out, dout, **kw), 3)
+        plain_ms = gpu_ms(torch, plain, 3)
         lib_ms = lib_s_ms = None
         if c["window"] is None and c["softcap"] is None:
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -5122,23 +5281,29 @@ def phase_flash_bwd_kernel(torch, dev, seed):
             c["window"], elem,
             BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S,
             backward=True)
-        case = {"arch": c["arch"], "dtype": dname, "B": c["B"],
-                "S": FLASH_BWD_S, "H": c["H"], "KH": c["KH"], "D": c["D"],
-                "window": c["window"], "softcap": c["softcap"],
+        case = {"arch": c["arch"], "dtype": dname, "kernel": kernel,
+                "B": c["B"], "S": FLASH_BWD_S, "H": c["H"], "KH": c["KH"],
+                "D": c["D"], "window": c["window"], "softcap": c["softcap"],
                 "q_mul": c.get("q_mul", 1.0), "ratios": ratios,
-                "max_abs_err": err, "ms": ms, "stream_ms": s_ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "o_same_with_lse": o_same, "lse_max_abs_err": lse_err,
+                "max_abs_err": err, "ms": ms,
+                "stream_ms": s_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "library_stream_ms": lib_s_ms, "bound_ms": bound,
                 "bound_by": bound_by}
         out_cases.append(case)
         emit({"phase": "flash_bwd_kernel", "name": "flash_attention_bwd",
               **case})
-        del q, k, v, out, dout, got, want
+        del q, k, v, out, dout, got, want, lse, lse_plain
     guards = guards_raise(torch, dev)
     emit({"phase": "flash_bwd_kernel", "controls": controls,
+          "mma_controls": mma_controls, "lse_controls": lse_controls,
           "guards_raise": guards})
     failed += [f"control {n} not caught" for n in FLASH_BWD_MUST_CATCH
                if not controls[n]["caught"]]
+    failed += [f"control {n} not caught" for n in FLASH_BWD_MMA_MUST_CATCH
+               if not mma_controls[n]["caught"]]
+    failed += [f"L control {n} not caught" for n in FLASH_LSE_MUST_CATCH
+               if not lse_controls[n]["caught"]]
     failed += [f"{n} takes grad-requiring inputs" for n, ok in
                guards.items() if not ok]
     if failed:
@@ -5157,12 +5322,18 @@ TRAIN_RESTART_AT = 4
 TRAIN_LOSS_RTOL = 1e-4
 
 
-def train_launch_gate(per_step, cfg, accum):
-    """Each step's flash launches must be remat's: the forward kernel twice
-    a layer a micro-batch (the forward and its recomputation in the
-    backward), the backward kernel once."""
-    want = {"flash_attention": 2 * cfg.n_layers * accum,
-            "flash_attention_bwd": cfg.n_layers * accum}
+def train_want_per_step(cfg, accum, mma):
+    """Remat's flash launches a step: the forward kernel twice a layer a
+    micro-batch (the forward and its recomputation in the backward), the
+    backward kernel once, on the tensor cores (``mma``) or not."""
+    n = cfg.n_layers * accum
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n,
+            "flash_attention_bwd_mma": n if mma else 0}
+
+
+def train_launch_gate(per_step, cfg, accum, mma):
+    """Each step's flash launches must be ``train_want_per_step``'s."""
+    want = train_want_per_step(cfg, accum, mma)
     return [f"step {i}: {got} launches, want {want}"
             for i, got in enumerate(per_step) if got != want]
 
@@ -5171,11 +5342,13 @@ def train_counting_hook(per_step):
     """A train() hook appending each step's flash launches (the counts
     since the previous step's hook)."""
     from repro_torch.kernels.flash_attention import flash_attention
-    last = {"flash_attention": 0, "flash_attention_bwd": 0}
+    last = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_mma": 0}
 
     def hook(step, metrics):
         now = {"flash_attention": flash_attention.launches,
-               "flash_attention_bwd": flash_attention.bwd_launches}
+               "flash_attention_bwd": flash_attention.bwd_launches,
+               "flash_attention_bwd_mma": flash_attention.bwd_mma_launches}
         per_step.append({k: now[k] - last[k] for k in now})
         last.update(now)
     return hook
@@ -5223,7 +5396,9 @@ def train_reduced(torch, seed):
             "restart_losses": first.losses + rest.losses,
             "restart_vs_full": rel(first.losses + rest.losses,
                                    on_card.losses),
-            "launches_per_step": per_step[0] if per_step else None}
+            "launches_per_step": per_step[0] if per_step else None,
+            "card_launches": sum(s["flash_attention_bwd"] - s[
+                "flash_attention_bwd_mma"] for s in per_step)}
     failed = []
     if line["card_vs_cpu"] > TRAIN_LOSS_RTOL:
         failed.append(f"card losses vs CPU {line['card_vs_cpu']}")
@@ -5232,7 +5407,7 @@ def train_reduced(torch, seed):
     if line["restart_vs_full"] > TRAIN_LOSS_RTOL:
         failed.append(f"restart losses vs full {line['restart_vs_full']}")
     failed += train_launch_gate(per_step, cfg, accum_steps_for(
-        cfg, kw["global_batch"], 1))
+        cfg, kw["global_batch"], 1), mma=False)
     return line, failed
 
 
@@ -5284,12 +5459,11 @@ def train_full(torch, seed):
             "measured_step_s": [m["measured_step_s"] for m in metrics],
             "peak_gib": peak, "moved": moved,
             "launches_per_step": per_step,
-            "want_per_step": {"flash_attention": 2 * cfg.n_layers * accum,
-                              "flash_attention_bwd": cfg.n_layers * accum}}
+            "want_per_step": train_want_per_step(cfg, accum, mma=True)}
     failed = [f"{k} not finite" for k in ("losses", "grad_norms")
               if not all(math.isfinite(x) for x in line[k])]
     failed += [f"{k} did not move" for k, d in moved.items() if not d > 0]
-    failed += train_launch_gate(per_step, cfg, accum)
+    failed += train_launch_gate(per_step, cfg, accum, mma=True)
     if len(res.losses) != TRAIN_FULL["num_steps"]:
         failed.append(f"{len(res.losses)} steps run")
     del model, params, res
@@ -5299,7 +5473,9 @@ def train_full(torch, seed):
 
 def phase_train(torch, seed):
     """Dense training on the card: full-width gemma2-2b through the loop
-    (a), reduced f32 gemma2 card == CPU and a checkpoint restart (b)."""
+    (a), reduced f32 gemma2 card == CPU and a checkpoint restart (b).
+    Returns the tensor-core backward's launches in (a) and the CUDA-core
+    backward's in (b)'s card run."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -5310,7 +5486,9 @@ def phase_train(torch, seed):
     failed += [f"reduced: {b}" for b in bad]
     if failed:
         raise AssertionError(f"train: {failed}")
-    return sum(s["flash_attention_bwd"] for s in full["launches_per_step"])
+    return (sum(s["flash_attention_bwd_mma"]
+                for s in full["launches_per_step"]),
+            red["card_launches"])
 
 
 def main(argv=None) -> int:
@@ -5399,7 +5577,7 @@ def main(argv=None) -> int:
     lap("recurrent_serve")
     bwd_cases, bwd_err = phase_flash_bwd_kernel(torch, dev, args.seed)
     lap("flash_bwd_kernel")
-    bwd_launches = phase_train(torch, args.seed)
+    bwd_mma_launches, bwd_launches = phase_train(torch, args.seed)
     lap("train")
     emit({"phase": "timing", "seconds": seconds,
           "total_s": sum(seconds.values())})
@@ -5419,12 +5597,15 @@ def main(argv=None) -> int:
              and c["softcap"] is None and c["q_mul"] == 1.0
              and c["acc_dtype"] == "f32")
         for dtype in ("bfloat16", "float32"))
-    # the flash backward at the train path's shape (gemma2-2b, B=4, 512
-    # tokens, bf16) with softcap and window off, where SDPA's backward
-    # computes the same function
-    bwd_case = next(c for c in bwd_cases if c["arch"] == "gemma2-2b"
-                    and c["dtype"] == "bfloat16" and c["window"] is None
-                    and c["softcap"] is None)
+    # the flash backward at the train path's shape (gemma2-2b, 512 tokens)
+    # with softcap and window off, where SDPA's backward computes the same
+    # function: the tensor-core kernels in bf16 (B=4, the main path's), the
+    # CUDA-core ones in f32 (B=1, the reduced f32 training's path)
+    bwd_mma_case, bwd_case = (
+        next(c for c in bwd_cases if c["arch"] == "gemma2-2b"
+             and c["dtype"] == dtype and c["window"] is None
+             and c["softcap"] is None)
+        for dtype in ("bfloat16", "float32"))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     fa_keys = keys + ("stream_ms", "library_stream_ms")
     emit({"kernels": [
@@ -5446,10 +5627,17 @@ def main(argv=None) -> int:
          "launches": fa_f32_launches,
          "max_abs_err": fa_err["flash_attention"],
          **{k: fa_f32_case[k] for k in fa_keys}},
+        {"name": "flash_attention_bwd_mma", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_mma.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:80",
+         "launches": bwd_mma_launches,
+         "max_abs_err": bwd_err["flash_attention_bwd_mma"],
+         **{k: bwd_mma_case[k] for k in fa_keys}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:80",
-         "launches": bwd_launches, "max_abs_err": bwd_err,
+         "launches": bwd_launches,
+         "max_abs_err": bwd_err["flash_attention_bwd"],
          **{k: bwd_case[k] for k in fa_keys}}] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

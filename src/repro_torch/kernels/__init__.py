@@ -6,8 +6,10 @@ path; ``flash_attention`` (``kernels/flash_attention.py``) is the
 uncached forward attention of the slot engine's prefill: bf16 with an f32
 accumulator runs the tensor-core kernel ``csrc/flash_attention_mma.cu``,
 f32 and the bf16 accumulator ``csrc/flash_attention.cu``; its gradient
-(``FlashAttentionFn``, the dense family's training) runs the backward
-kernels of ``csrc/flash_attention_bwd.cu``.  ``wkv6`` and ``ssm_scan`` (``kernels/<name>.py``,
+(``FlashAttentionFn``, the dense family's training) follows the same
+rule: the tensor-core backward ``csrc/flash_attention_bwd_mma.cu`` where
+the forward ran on the tensor cores, else the CUDA-core
+``csrc/flash_attention_bwd.cu``.  ``wkv6`` and ``ssm_scan`` (``kernels/<name>.py``,
 ``csrc/<name>.cu``) are the recurrences of rwkv6's and hymba's train-mode
 forward.  The paper's probes ``alu_chain``, ``pointer_chase`` and
 ``mxu_probe`` (``kernels/<name>.py``, ``csrc/<name>.cu``) are the kernels

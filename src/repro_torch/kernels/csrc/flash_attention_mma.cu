@@ -20,7 +20,11 @@
 // slower in a design run) applies before the mask; the mask drops keys
 // past Skv, above the diagonal (causal) and with q_pos - k_pos >= window
 // (window > 0).  Online softmax over KV tiles; out = acc / max(l, 1e-30).
-// Query head h reads KV head h / (H/KH).
+// Query head h reads KV head h / (H/KH).  With a non-null `lse` [B,H,Sq]
+// (f32) it also writes each row's log-sum-exp L = m + log(l) of the merged
+// (m, l), +inf for a row with no kept key (the backward's convention: P =
+// exp(S - L) = 0 there), for csrc/flash_attention_bwd_mma.cu; O is the
+// same bits either way, and the serving path passes null.
 //
 // Bound: at the serving prefill shape (B=1, Sq=Skv=900, H=8, KH=4, D=256,
 // causal) the work is 4*D*H*(valid pairs) = 3.3 GFLOP, 3.36 us at 989
@@ -78,6 +82,7 @@
 // KV range over more blocks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -181,9 +186,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                           int H, int KH, int D, float scale, int causal,
-                           int window, float softcap) {
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Skv, int H,
+                           int KH, int D, float scale, int causal, int window,
+                           float softcap) {
   constexpr int NS = kSlots;
   static_assert(NS >= 2 && (NS & (NS - 1)) == 0, "a ring of 2^n slots");
   constexpr int kLd = Tile<DP>::kLd;
@@ -386,10 +392,16 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const float mm0 = fmaxf(m0, pm0), mm1 = fmaxf(m1, pm1);
   const float ca0 = expf(m0 - mm0), cb0 = expf(pm0 - mm0);
   const float ca1 = expf(m1 - mm1), cb1 = expf(pm1 - mm1);
-  const float r0 =
-      1.f / fmaxf(l0 * ca0 + sML[(wr * 4 + 2) * 32 + lane] * cb0, 1e-30f);
-  const float r1 =
-      1.f / fmaxf(l1 * ca1 + sML[(wr * 4 + 3) * 32 + lane] * cb1, 1e-30f);
+  const float ls0 = l0 * ca0 + sML[(wr * 4 + 2) * 32 + lane] * cb0;
+  const float ls1 = l1 * ca1 + sML[(wr * 4 + 3) * 32 + lane] * cb1;
+  const float r0 = 1.f / fmaxf(ls0, 1e-30f);
+  const float r1 = 1.f / fmaxf(ls1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // a row whose max never left kNegInf kept no key
+    float* lb = lse + ((size_t)b * H + h) * Sq;
+    if (qp0 < Sq) lb[qp0] = mm0 > kNegInf ? mm0 + logf(ls0) : INFINITY;
+    if (qp1 < Sq) lb[qp1] = mm1 > kNegInf ? mm1 + logf(ls1) : INFINITY;
+  }
   __nv_bfloat16* o0 = out + (((size_t)b * Sq + qp0) * H + h) * D;
   __nv_bfloat16* o1 = out + (((size_t)b * Sq + qp1) * H + h) * D;
 #pragma unroll
@@ -410,9 +422,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int KH, int D, float scale, int causal,
-           int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+           float scale, int causal, int window, float softcap,
+           cudaStream_t stream) {
   auto kern = flash_attention_mma_kernel<DP>;
   const size_t smem = Tile<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -423,7 +436,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, KH, D, scale, causal, window, softcap);
+      lse, Sq, Skv, H, KH, D, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,9 +444,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Returns 0 on success, -1 for a shape the kernel does not take, else the
 // cudaError_t of setting the shared-memory attribute or of the launch.
-// q/k/v/out are bf16; D % 16 == 0 and D <= 256; any GQA group H / KH.
+// q/k/v/out are bf16; D % 16 == 0 and D <= 256; any GQA group H / KH;
+// lse is null or f32 [B, H, Sq].
 extern "C" int flash_attention_mma_launch(const void* q, const void* k,
-                                          const void* v, void* out, int B,
+                                          const void* v, void* out,
+                                          void* lse, int B,
                                           int Sq, int Skv, int H, int KH,
                                           int D, float scale, int causal,
                                           int window, float softcap,
@@ -443,8 +458,8 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k,
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_MMA_LAUNCH(DP)                                                  \
-  return launch<DP>(q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal,     \
-                    window, softcap, s)
+  return launch<DP>(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, \
+                    KH, D, scale, causal, window, softcap, s)
   if (D <= 16) FA_MMA_LAUNCH(16);
   if (D <= 32) FA_MMA_LAUNCH(32);
   if (D <= 64) FA_MMA_LAUNCH(64);

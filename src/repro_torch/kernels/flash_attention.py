@@ -35,19 +35,33 @@ merges, the CPU's rehearsal of the kernel's split.
 
 The gradient (``FlashAttentionFn``, a ``torch.autograd.Function``):
 ``flash_attention`` takes it whenever grad mode is on and q, k or v
-requires grad.  Its forward is the forward above, unchanged; it saves q,
-k, v and the output, and its backward (``flash_attention_bwd``) launches
-the CUDA-core kernels of ``csrc/flash_attention_bwd.cu`` on CUDA tensors
-(bf16 or f32, D <= 256, f32 sums; a dq kernel that also writes the row
-log-sum-exp and dO.O to an f32 scratch, then a dk/dv kernel) and calls
-``ref.flash_attention_bwd_plain`` on CPU tensors.  A CUDA tensor the
-kernel does not take raises.  The JAX package has no hand-written
-backward: JAX differentiates the Pallas kernel's body.
+requires grad.  Its forward is the forward above; it saves q, k, v, the
+output and, where the tensor-core kernel ran, the row log-sum-exp L that
+kernel writes beside O (``flash_attention_with_lse``; O is the same bits
+with and without it).  Its backward (``flash_attention_bwd``) follows the
+forward's rule (``bwd_kernel_for``):
+
+* bf16 with ``acc_dtype="f32"`` and D % 16 == 0, D <= 256 launches the
+  tensor-core kernels of ``csrc/flash_attention_bwd_mma.cu`` (a dq kernel
+  that also writes dO.O, then a dk/dv kernel over ``bwd_split`` parts of
+  each GQA group, a cluster of blocks adding their f32 partials where
+  there are several), fed the forward's L; its plain version is
+  ``ref.flash_attention_bwd_mma_plain`` (P and dS rounded to bf16);
+* everything else launches the CUDA-core kernels of
+  ``csrc/flash_attention_bwd.cu`` (f32 sums; a dq kernel that recomputes L
+  and writes it and dO.O to an f32 scratch, then a dk/dv kernel); its
+  plain version is ``ref.flash_attention_bwd_plain``.
+
+CPU tensors take the plain version of the kernel the rule picks.  A CUDA
+tensor the kernel does not take raises.  The JAX package has no
+hand-written backward: JAX differentiates the Pallas kernel's body.
 
 ``flash_attention.launches`` counts the launches of both forward kernels,
-``flash_attention.mma_launches`` those of the tensor-core kernel and
-``flash_attention.bwd_launches`` those of the backward (plain integers;
-reset them to 0 before a run to prove which kernel it took).
+``flash_attention.mma_launches`` those of the tensor-core kernel,
+``flash_attention.bwd_launches`` those of either backward and
+``flash_attention.bwd_mma_launches`` those of the tensor-core backward
+(plain integers; reset them to 0 before a run to prove which kernel it
+took).
 """
 from __future__ import annotations
 
@@ -59,12 +73,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ACC_DTYPES, NEG_INF,
+                                     flash_attention_bwd_mma_plain,
                                      flash_attention_bwd_plain,
-                                     flash_attention_plain)
+                                     flash_attention_plain, flash_lse_plain)
 
 SIMT = "flash_attention"          # the CUDA-core kernel (csrc name)
 MMA = "flash_attention_mma"       # the tensor-core kernel (csrc name)
-BWD = "flash_attention_bwd"       # the backward's kernels (csrc name)
+BWD = "flash_attention_bwd"       # the CUDA-core backward (csrc name)
+BWD_MMA = "flash_attention_bwd_mma"   # the tensor-core backward (csrc name)
 ROWS = 64                 # query rows per block (csrc: kRows, kBM)
 SUB = 64                  # KV tile of the f32 accumulator (csrc: kSub, kBN)
 SMEM_LIMIT = 232448       # shared memory a Hopper block may use (227 KB)
@@ -79,6 +95,10 @@ SMS, ITEMS_PER_SM = 132, 2
 # runs at the next one, its extra columns zero
 MMA_DIMS = (16, 32, 64, 128, 256)
 MMA_SLOTS = 2             # slots of its K/V ring (csrc: kSlots)
+# the split of a GQA group over dk/dv blocks aims at this many blocks an
+# SM, in at most BWD_MAX_PARTS parts (csrc: kMaxCluster, a cluster's blocks)
+BWD_BLOCKS_PER_SM = 1
+BWD_MAX_PARTS = 8
 _fns = {}
 
 
@@ -88,7 +108,9 @@ def _launcher(name):
         fn = getattr(_build.load(name), f"{name}_launch")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == MMA:
-            fn.argtypes = [P, P, P, P, I, I, I, I, I, I, F, I, I, F, P]
+            fn.argtypes = [P] * 5 + [I] * 6 + [F, I, I, F, P]
+        elif name == BWD_MMA:
+            fn.argtypes = [P] * 10 + [I] * 7 + [F, I, I, F, P]
         elif name == BWD:
             fn.argtypes = [P] * 9 + [I] * 7 + [F, I, I, F, P]
         else:
@@ -106,6 +128,29 @@ def kernel_for(dtype, acc_dtype: str, D: int) -> str:
             and 0 < D <= MMA_DIMS[-1]):
         return MMA
     return SIMT
+
+
+def bwd_kernel_for(dtype, acc_dtype: str, D: int) -> str:
+    """The backward's rule, the forward's: ``BWD_MMA`` (the tensor-core
+    backward) exactly where ``kernel_for`` picks ``MMA``, else ``BWD``."""
+    return BWD_MMA if kernel_for(dtype, acc_dtype, D) == MMA else BWD
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_split(B: int, Skv: int, H: int, KH: int) -> int:
+    """Parts of each GQA group over the tensor-core dk/dv kernel's blocks
+    (csrc ``ns``): the least divisor ``ns`` of G = H / KH, at most
+    ``BWD_MAX_PARTS``, that gives ``BWD_BLOCKS_PER_SM`` blocks for each of
+    the H100's ``SMS`` SMs (``B * KH * ceil(Skv / 64) * ns``), else the
+    largest such divisor; a function of the shapes alone.  With ns > 1 a
+    key tile's parts run as one thread-block cluster and add their f32
+    partials in order.  Cached: a call at seen shapes costs the host
+    nothing."""
+    G = H // KH
+    base = B * KH * -(-Skv // SUB)
+    parts = [d for d in range(1, min(G, BWD_MAX_PARTS) + 1) if G % d == 0]
+    return next((d for d in parts if base * d >= BWD_BLOCKS_PER_SM * SMS),
+                parts[-1])
 
 
 def smem_bytes(D: int, lk: int, kernel: str = SIMT, elem: int = 4) -> int:
@@ -330,36 +375,57 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                       scale, block_q, block_k, acc_dtype)
     return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
                     scale=scale, block_q=block_q, block_k=block_k,
-                    acc_dtype=acc_dtype)
+                    acc_dtype=acc_dtype)[0]
+
+
+def flash_attention_with_lse(q, k, v, *, causal=True, window=None,
+                             softcap=None, scale=None, block_q=128,
+                             block_k=128, acc_dtype="f32"):
+    """``flash_attention``'s forward (no autograd node) with the row
+    log-sum-exp the backward takes: ``(out, lse)``, lse [B,H,Sq] f32 (+inf
+    for a row with no kept key) where ``kernel_for`` picks the tensor-core
+    kernel, which writes it beside the same O; None for the CUDA-core
+    kernel's inputs.  On the CPU lse is ``ref.flash_lse_plain``."""
+    _check_args(q, k, v, window, softcap, acc_dtype)
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale, block_q=block_q, block_k=block_k,
+                    acc_dtype=acc_dtype, with_lse=True)
 
 
 def _forward(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
-             acc_dtype):
+             acc_dtype, with_lse=False):
     """The forward kernels (or, on the CPU, the plain version), arguments
-    checked and ``scale`` resolved."""
+    checked and ``scale`` resolved: ``(out, lse)``, lse None unless
+    ``with_lse`` and the tensor-core kernel's rule holds."""
     D = q.shape[-1]
+    kernel = kernel_for(q.dtype, acc_dtype, D)
+    with_lse = with_lse and kernel == MMA
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, block_q=block_q,
-                                     block_k=block_k, acc_dtype=acc_dtype,
-                                     **kw)
+        out = flash_attention_plain(q, k, v, block_q=block_q,
+                                    block_k=block_k, acc_dtype=acc_dtype,
+                                    **kw)
+        return out, flash_lse_plain(q, k, **kw) if with_lse else None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
     _check_cuda(q, k, v)
     B, Sq, H, _ = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    kernel = kernel_for(q.dtype, acc_dtype, D)
     nc, bq, lk = kernel_tiles(H, KH, D, Skv, block_k, acc_dtype, q.dtype)
     if kernel == MMA and (B > 65535 or -(-Sq // ROWS) > 65535):
         raise ValueError(f"flash_attention_mma: a grid of B={B} x "
                          f"{-(-Sq // ROWS)} query tiles exceeds 65535")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     tail = (int(bool(causal)), int(window) if window else 0,
             float(softcap) if softcap else 0.0,
             torch.cuda.current_stream(q.device).cuda_stream)
     if kernel == MMA:
-        rc = _launcher(MMA)(*ptrs, B, Sq, Skv, H, KH, D, scale, *tail)
+        rc = _launcher(MMA)(*ptrs, lse.data_ptr() if with_lse else None, B,
+                            Sq, Skv, H, KH, D, scale, *tail)
     else:
         sp = work_split(B, Sq, Skv, H, KH, causal=bool(causal),
                         window=int(window) if window else None,
@@ -380,53 +446,69 @@ def _forward(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
     flash_attention.launches += 1
     if kernel == MMA:
         flash_attention.mma_launches += 1
-    return out
+    return out, lse
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward kernels, then
-    ``flash_attention_bwd`` on the saved q, k, v and output.  Arguments
-    after v are ``flash_attention``'s keywords in order (``scale``
-    resolved); they get no gradient."""
+    ``flash_attention_bwd`` on the saved q, k, v, output and (tensor-core
+    forward) row log-sum-exp.  Arguments after v are ``flash_attention``'s
+    keywords in order (``scale`` resolved); they get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, block_q,
                 block_k, acc_dtype):
-        out = _forward(q, k, v, causal=causal, window=window,
-                       softcap=softcap, scale=scale, block_q=block_q,
-                       block_k=block_k, acc_dtype=acc_dtype)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal=causal, window=window,
+                            softcap=softcap, scale=scale, block_q=block_q,
+                            block_k=block_k, acc_dtype=acc_dtype,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                      scale=scale)
+                      scale=scale, acc_dtype=acc_dtype)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, out = ctx.saved_tensors
-        grads = flash_attention_bwd(q, k, v, out, d_out, **ctx.kw)
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, out, d_out, lse, **ctx.kw)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad)) \
             + (None,) * 7
 
 
-def flash_attention_bwd(q, k, v, out, d_out, *, causal=True, window=None,
-                        softcap=None, scale=None):
-    """(dq, dk, dv) of ``flash_attention(q, k, v, ...)`` at the output
-    ``out`` and its cotangent ``d_out`` (cast to q's dtype and made
-    contiguous, as autograd may hand it over strided), in q's dtype.  On
-    CUDA tensors the two kernels of ``csrc/flash_attention_bwd.cu`` (bf16
-    or f32, D <= 256; one launch counted in
-    ``flash_attention.bwd_launches``); on CPU tensors
-    ``ref.flash_attention_bwd_plain``."""
-    _check_args(q, k, v, window, softcap, "f32")
+def flash_attention_bwd(q, k, v, out, d_out, lse=None, *, causal=True,
+                        window=None, softcap=None, scale=None,
+                        acc_dtype="f32"):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, ..., acc_dtype=...)`` at
+    the output ``out``, its row log-sum-exp ``lse`` and the cotangent
+    ``d_out`` (cast to q's dtype and made contiguous, as autograd may hand
+    it over strided), in q's dtype.  ``bwd_kernel_for`` picks the kernel:
+    ``BWD_MMA`` (bf16, f32 accumulator, D % 16 == 0) takes ``lse``
+    [B,H,Sq] f32 from ``flash_attention_with_lse`` and raises without it;
+    ``BWD`` recomputes L and ignores ``lse``.  On CUDA tensors the kernels
+    (one launch counted in ``flash_attention.bwd_launches``, and in
+    ``bwd_mma_launches`` for the tensor-core one); on CPU tensors their
+    plain versions."""
+    _check_args(q, k, v, window, softcap, acc_dtype)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if out.shape != q.shape or d_out.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and d_out "
                          f"{tuple(d_out.shape)} must be q's shape "
                          f"{tuple(q.shape)}")
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    kernel = bwd_kernel_for(q.dtype, acc_dtype, D)
+    if kernel == BWD_MMA and (lse is None or lse.shape != (B, H, Sq)
+                              or lse.dtype != torch.float32):
+        raise ValueError(f"{BWD_MMA} takes the forward's lse, f32 "
+                         f"[{B}, {H}, {Sq}]; got "
+                         f"{None if lse is None else (lse.dtype, tuple(lse.shape))}")
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     d_out = d_out.to(q.dtype).contiguous()
     if q.device.type == "cpu":
+        if kernel == BWD_MMA:
+            return flash_attention_bwd_mma_plain(q, k, v, out, d_out, lse,
+                                                 **kw)
         return flash_attention_bwd_plain(q, k, v, out, d_out, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on CUDA or CPU, not "
@@ -434,27 +516,46 @@ def flash_attention_bwd(q, k, v, out, d_out, *, causal=True, window=None,
     _check_cuda(q, k, v)
     if out.dtype != q.dtype or not out.is_contiguous():
         raise ValueError("out must be contiguous in q's dtype")
-    B, Sq, H, D = q.shape
-    Skv, KH = k.shape[1], k.shape[2]
-    if D > 256 or B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention_bwd takes head_dim <= 256 and "
-                         f"B, H <= 65535; got {tuple(q.shape)}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention_bwd takes B, H <= 65535; got "
+                         f"{tuple(q.shape)}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    scratch = torch.empty(2 * B * H * Sq, dtype=torch.float32,
-                          device=q.device)
-    rc = _launcher(BWD)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        scratch.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv, H,
-        KH, D, scale, int(bool(causal)), int(window) if window else 0,
-        float(softcap) if softcap else 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (scale, int(bool(causal)), int(window) if window else 0,
+            float(softcap) if softcap else 0.0, stream)
+    if kernel == BWD_MMA:
+        for name, t in (("out", out), ("d_out", d_out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+        if lse.device != q.device or not lse.is_contiguous():
+            raise ValueError("lse must be contiguous on q's device")
+        delta = torch.empty((B, H, Sq), dtype=torch.float32,
+                            device=q.device)
+        rc = _launcher(BWD_MMA)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, KH, D,
+            bwd_split(B, Skv, H, KH), *tail)
+    else:
+        if D > 256:
+            raise ValueError(f"flash_attention_bwd takes head_dim <= 256; "
+                             f"got {tuple(q.shape)}")
+        scratch = torch.empty(2 * B * H * Sq, dtype=torch.float32,
+                              device=q.device)
+        rc = _launcher(BWD)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv,
+            H, KH, D, *tail)
     if rc != 0:
-        raise RuntimeError(f"{BWD} kernel launch failed (rc={rc})")
+        raise RuntimeError(f"{kernel} kernel launch failed (rc={rc})")
     flash_attention.bwd_launches += 1
+    if kernel == BWD_MMA:
+        flash_attention.bwd_mma_launches += 1
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.mma_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.bwd_mma_launches = 0

@@ -8,7 +8,10 @@ CPU.
 * flash attention: ``flash_attention_ref`` (full softmax, a port of
   ``repro.kernels.ref.flash_attention_ref``) and ``flash_attention_plain``
   (the blocked online softmax of ``repro.kernels.flash_attention``, with
-  its rounding points);
+  its rounding points); its gradient in the two backward kernels'
+  arithmetic, ``flash_attention_bwd_plain`` (CUDA-core, f32) and
+  ``flash_attention_bwd_mma_plain`` (tensor cores: L from the forward,
+  ``flash_lse_plain``, P and dS rounded to bf16);
 * the recurrences: ``wkv6_plain`` and ``ssm_scan_plain`` (ports of
   ``repro.kernels.ref``'s scans, with the dtypes of the Pallas kernels
   ``repro.kernels.wkv6`` and ``repro.kernels.ssm_scan``), each the zero
@@ -253,29 +256,17 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     return out[:, :Sq].to(q.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, out, d_out, *, causal=True,
-                              window=None, softcap=None, scale=None):
-    """The gradients of the flash forward, in the backward kernel's own
-    arithmetic (``csrc/flash_attention_bwd.cu``), written out rather than
-    taken by autograd.  q, out, d_out [B,Sq,H,D]; k,v [B,Skv,KH,D] ->
-    (dq [B,Sq,H,D], dk, dv [B,Skv,KH,D]) in the inputs' dtype, every sum
-    in f32 (f64 inputs stay f64).
-
-    With S the capped score ``cap * tanh(scale q.k / cap)`` (the raw one
-    without a softcap) under the forward's mask: the row log-sum-exp L is
-    recomputed from Q and K, P = exp(S - L) (0 where masked), D_i =
-    sum_d dO.O, dV = P^T dO, dP = dO V^T, dS = P (dP - D), times
-    1 - (S / cap)^2 with a softcap, dQ = scale dS K, dK = scale dS^T Q;
-    dK and dV sum over the query heads of each GQA group."""
+def _flash_scores(q, k, *, causal, window, softcap, scale):
+    """The flash backward's scores in f32 (f64 inputs stay f64): S [B, KH,
+    G, Sq, Skv] (capped), tanh of the capped argument (None without a
+    softcap) and the mask [Sq, Skv]; query head h = kh * G + g reads KV
+    head kh."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    G = H // KH
-    scale = scale if scale is not None else D ** -0.5
     acc = torch.promote_types(q.dtype, torch.float32)
-    # [B, Sq, KH, G, D]: query head h = kh * G + g reads KV head kh
-    qf, of, gf = (t.to(acc).reshape(B, Sq, KH, G, D) for t in (q, out, d_out))
-    kf, vf = k.to(acc), v.to(acc)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    qf = q.to(acc).reshape(B, Sq, KH, H // KH, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(acc)) * scale
+    t = None
     if softcap is not None:
         t = torch.tanh(s / softcap)
         s = softcap * t
@@ -286,18 +277,91 @@ def flash_attention_bwd_plain(q, k, v, out, d_out, *, causal=True,
         keep &= ki <= qi
     if window is not None:
         keep &= (qi - ki) < window
+    return s, t, keep
+
+
+def flash_lse_plain(q, k, *, causal=True, window=None, softcap=None,
+                    scale=None):
+    """The forward's row log-sum-exp, as ``csrc/flash_attention_mma.cu``
+    writes it for the backward: L [B, H, Sq] in f32 (f64 stays f64) of the
+    masked, capped scores, +inf for a row with no kept key (so that P =
+    exp(S - L) = 0 there)."""
+    B, Sq, H, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    s, _, keep = _flash_scores(q, k, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
     lse = torch.logsumexp(torch.where(keep, s, -torch.inf), dim=-1)
+    lse = torch.where(keep.any(dim=-1), lse, torch.inf)
+    return lse.reshape(B, H, Sq)
+
+
+def _flash_bwd(q, k, v, out, d_out, lse, rnd, *, causal, window, softcap,
+               scale):
+    """The flash backward's arithmetic: L recomputed when ``lse`` is None,
+    P and dS rounded to ``rnd`` before the products that read them when it
+    is not None."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    # [B, Sq, KH, G, D]: query head h = kh * G + g reads KV head kh
+    qf, of, gf = (t.to(acc).reshape(B, Sq, KH, G, D) for t in (q, out, d_out))
+    kf, vf = k.to(acc), v.to(acc)
+    s, t, keep = _flash_scores(q, k, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+    if lse is None:
+        lse = torch.logsumexp(torch.where(keep, s, -torch.inf), dim=-1)
+    else:
+        lse = lse.to(acc).reshape(B, KH, G, Sq)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+
+    def r(x):
+        return x if rnd is None else x.to(rnd).to(acc)
     delta = torch.einsum("bqkgd,bqkgd->bkgq", gf, of)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, gf)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", r(p), gf)
     dp = torch.einsum("bqkgd,bskd->bkgqs", gf, vf)
     ds = p * (dp - delta[..., None])
     if softcap is not None:
         ds = ds * (1.0 - t * t)
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", r(ds), kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", r(ds), qf) * scale
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_bwd_plain(q, k, v, out, d_out, *, causal=True,
+                              window=None, softcap=None, scale=None):
+    """The gradients of the flash forward, in the CUDA-core backward
+    kernel's own arithmetic (``csrc/flash_attention_bwd.cu``), written out
+    rather than taken by autograd.  q, out, d_out [B,Sq,H,D]; k,v
+    [B,Skv,KH,D] -> (dq [B,Sq,H,D], dk, dv [B,Skv,KH,D]) in the inputs'
+    dtype, every sum in f32 (f64 inputs stay f64).
+
+    With S the capped score ``cap * tanh(scale q.k / cap)`` (the raw one
+    without a softcap) under the forward's mask: the row log-sum-exp L is
+    recomputed from Q and K, P = exp(S - L) (0 where masked), D_i =
+    sum_d dO.O, dV = P^T dO, dP = dO V^T, dS = P (dP - D), times
+    1 - (S / cap)^2 with a softcap, dQ = scale dS K, dK = scale dS^T Q;
+    dK and dV sum over the query heads of each GQA group."""
+    return _flash_bwd(q, k, v, out, d_out, None, None, causal=causal,
+                      window=window, softcap=softcap, scale=scale)
+
+
+def flash_attention_bwd_mma_plain(q, k, v, out, d_out, lse, *, causal=True,
+                                  window=None, softcap=None, scale=None):
+    """The tensor-core backward kernel's arithmetic
+    (``csrc/flash_attention_bwd_mma.cu``): ``flash_attention_bwd_plain``'s
+    function with L taken from the forward (``lse`` [B,H,Sq], as
+    ``flash_lse_plain`` gives it) and P and dS rounded to the inputs' dtype
+    before the three products that read them (dV = P^T dO, dQ = scale dS
+    K, dK = scale dS^T Q; the tensor cores' bf16 A operands), every sum
+    in f32.  In f32 nothing rounds: it is ``flash_attention_bwd_plain``
+    with L given."""
+    return _flash_bwd(q, k, v, out, d_out, lse,
+                      None if q.dtype in (torch.float32, torch.float64)
+                      else q.dtype, causal=causal, window=window,
+                      softcap=softcap, scale=scale)
 
 
 # --- the recurrences -------------------------------------------------------

@@ -870,21 +870,118 @@ def test_sim_scenarios_on_card_equal_cpu(dev):
     (7, None, 6, 2, 16)])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
                                         KH, D):
-    """The backward kernels against ``flash_attention_bwd_plain``, each
-    gradient within ``chip_smoke.FLASH_BWD_TOL`` of its max|want|, on a
-    ragged length (S=300); one launch counted."""
+    """The backward kernels against their plain versions, each gradient
+    within ``chip_smoke.FLASH_BWD_TOL`` of its max|want|, on a ragged
+    length (S=300) from a strided cotangent; one launch counted.  bf16
+    takes the tensor-core kernels, fed the forward's L, against
+    ``flash_attention_bwd_mma_plain``; f32 the CUDA-core kernels, against
+    ``flash_attention_bwd_plain``."""
     g = torch.Generator(device=dev).manual_seed(0)
     c = dict(B=2, H=H, KH=KH, D=D, window=window, softcap=softcap)
     q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(torch, g, dev, c,
                                                          dtype, S=300)
-    before = flash_attention.bwd_launches
+    lse, o_same = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
+    assert o_same and (lse is None) == (dtype == torch.float32)
+    before = (flash_attention.bwd_launches, flash_attention.bwd_mma_launches)
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     got = flash_attention_bwd(q, k, v, out, dout.transpose(1, 2)
-                              .contiguous().transpose(1, 2), **kw)
+                              .contiguous().transpose(1, 2), lse, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.bwd_launches == before + 1
-    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    mma = int(dtype == torch.bfloat16)
+    assert (flash_attention.bwd_launches,
+            flash_attention.bwd_mma_launches) == (before[0] + 1,
+                                                  before[1] + mma)
+    if mma:
+        want = ref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse,
+                                                 **kw)
+    else:
+        want = ref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
     assert max(chip_smoke.flash_bwd_ratios(got, want)) < tol
+
+
+@pytest.mark.parametrize("case", chip_smoke.FLASH_BWD_CASES,
+                         ids=lambda c: f"{c['arch']}-w{c['window']}"
+                                       f"-cap{c['softcap']}")
+def test_flash_bwd_mma_kernel_at_train_shapes(dev, case):
+    """The tensor-core backward at every ``FLASH_BWD_CASES`` shape in bf16
+    (512 tokens) fed the forward's L, against its rounded plain version
+    fed the plain L within the bf16 gate, the forward's L within
+    ``FLASH_LSE_TOL`` of the plain L, one tensor-core launch counted, the
+    same bits on a second call (no atomics)."""
+    _flash_bwd_mma_at(dev, case)
+
+
+def _flash_bwd_mma_at(dev, case):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(
+        torch, g, dev, case, torch.bfloat16)
+    lse, o_same = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
+    assert o_same
+    lse_want = chip_smoke.flash_lse_want(torch, ref, q, k, kw)
+    assert chip_smoke.flash_lse_err(torch, lse, lse_want) <= \
+        chip_smoke.FLASH_LSE_TOL
+    before = flash_attention.bwd_mma_launches
+    got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_mma_launches == before + 1
+    want = ref.flash_attention_bwd_mma_plain(q, k, v, out, dout,
+                                             lse_want.float(), **kw)
+    assert max(chip_smoke.flash_bwd_ratios(
+        got, want)) < chip_smoke.FLASH_BWD_TOL["bfloat16"]
+    again = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_bwd_mma_kernel_at_the_widest_split(dev):
+    """The dk/dv kernel at the most parts ``bwd_split`` gives (an 8-block
+    cluster of one-SM blocks: 16 query heads over one KV head, D 256,
+    512 tokens, B 1), as at the train shapes."""
+    from repro_torch.kernels.flash_attention import BWD_MAX_PARTS, bwd_split
+    case = dict(arch="split-8", B=1, H=16, KH=1, D=256, window=None,
+                softcap=None)
+    assert bwd_split(1, chip_smoke.FLASH_BWD_S, 16, 1) == BWD_MAX_PARTS == 8
+    _flash_bwd_mma_at(dev, case)
+
+
+@pytest.mark.parametrize("B,S,Skv,H,KH,D,window,softcap", [
+    (2, 300, 300, 8, 4, 256, None, 50.0), (1, 512, 512, 4, 1, 128, 64, None),
+    (2, 77, 77, 2, 2, 48, None, None), (1, 40, 12, 2, 1, 16, 4, None)])
+def test_flash_forward_lse_leaves_o_unchanged(dev, B, S, Skv, H, KH, D,
+                                              window, softcap):
+    """The tensor-core forward writes the same O with and without its lse
+    buffer, and L within 1e-5 of the log-sum-exp of the plain scores
+    (f64; unit-scale inputs), +inf where a row keeps no key (the last
+    case: 40 queries over 12 keys under a window of 4)."""
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, Skv, KH, D), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap, scale=D ** -0.5)
+    out = flash_attention(q, k, v, **kw)
+    got, lse = flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    want = ref.flash_lse_plain(q.double(), k.double(), **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert (lse.double()[fin] - want[fin]).abs().max().item() < 1e-5
+
+
+def test_flash_bwd_mma_refuses_what_it_does_not_take(dev):
+    """The tensor-core class without the forward's L raises; with an f32
+    L of the wrong shape too; there is no fallback."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    g = torch.Generator(device=dev).manual_seed(3)
+    c = dict(B=1, H=2, KH=1, D=32, window=None, softcap=None)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(
+        torch, g, dev, c, torch.bfloat16, S=64)
+    lse, _ = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, dout, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, out, dout, lse[:, :1], **kw)
 
 
 def test_train_reduced_on_card_matches_cpu(dev):

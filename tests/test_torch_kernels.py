@@ -19,6 +19,16 @@ GQA shape (1e-5), beside its interpret-mode kernel's forward; ``chip_smoke.py``'
 ``FLASH_BWD_MUST_CATCH`` faults each failing that gate; the wiring of
 ``FlashAttentionFn`` on the CPU (saved tensors, ``needs_input_grad``, a
 strided cotangent, bf16) and the no-backward guards of the other kernels.
+
+The tensor-core backward's plain version ``ref.flash_attention_bwd_mma_plain``
+(L from the forward, P and dS rounded to bf16): in bf16 against
+``jax.grad`` of the reference's flash oracle on the same bf16 values
+(1.5e-2 of each gradient's max|want|: O, P, dS and the gradients are each
+rounded to bf16, 2^-9 relative apiece; sound runs read 2e-3 to 7e-3), in
+f32 against ``flash_attention_bwd_plain`` with L from ``flash_lse_plain``
+(1e-5: nothing rounds in f32, only the order of sums differs); the
+backward's dispatch rule and split; ``chip_smoke.py``'s
+``FLASH_BWD_MMA_MUST_CATCH`` faults each failing the card's bf16 gate.
 """
 import importlib.util
 import itertools
@@ -330,6 +340,195 @@ def test_flash_bwd_faults_fail_the_gate(name):
     assert max(controls[name]["ratios"]) > BWD_TOL
 
 
+# the bf16 gate of the rounded plain version against the JAX oracle's f32
+# gradient of the same bf16 values (see the module docstring)
+BWD_MMA_BF16_TOL = 1.5e-2
+BWD_MMA_SHAPES = [
+    ((2, 40, 4, 2, 32), dict(causal=True, window=8, softcap=50.0), 8.0),
+    ((2, 40, 4, 1, 16), dict(causal=True, window=None, softcap=None), 1.0),
+    ((1, 33, 2, 2, 64), dict(causal=False, window=None, softcap=None), 1.0),
+    ((1, 130, 2, 1, 32), dict(causal=True, window=None, softcap=None), 1.0)]
+
+
+@pytest.mark.parametrize("shape,kw,q_mul", BWD_MMA_SHAPES)
+def test_flash_bwd_mma_plain_matches_jax_grad_in_bf16(shape, kw, q_mul):
+    """The tensor-core backward's arithmetic in bf16 against ``jax.grad``
+    of ``repro.kernels.ref.flash_attention_ref`` at the same bf16 values
+    (taken in f32), with L from ``flash_lse_plain``; the wrapper's CPU
+    path (``flash_attention_bwd`` with that L) is the same function."""
+    B, S, H, KH, D = shape
+    q, k, v, dout = _bwd_inputs(B, S, H, KH, D, torch.bfloat16, q_mul=q_mul)
+    kw = dict(kw, scale=D ** -0.5)
+    jq, jk, jv = _jax(*(t.float().numpy() for t in (q, k, v)))
+
+    def f(q_, k_, v_):
+        return jnp.vdot(jref.flash_attention_ref(q_, k_, v_, **kw),
+                        jnp.asarray(dout.float().numpy()))
+    want = [torch.from_numpy(np.array(w))
+            for w in jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)]
+    out = tref.flash_attention_plain(q, k, v, **kw)
+    lse = tref.flash_lse_plain(q, k, **kw)
+    got = tref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse, **kw)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3
+    assert max(_ratios(got, want)) < BWD_MMA_BF16_TOL
+    for a, b in zip(tfa.flash_attention_bwd(q, k, v, out, dout, lse, **kw),
+                    got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,kw,q_mul", BWD_MMA_SHAPES + [
+    ((1, 24, 2, 2, 16), dict(causal=True, window=30, softcap=None), 1.0)])
+def test_flash_bwd_mma_plain_is_the_f32_backward_with_lse_given(shape, kw,
+                                                                q_mul):
+    """In f32 nothing rounds: the tensor-core arithmetic with L from
+    ``flash_lse_plain`` is ``flash_attention_bwd_plain`` (1e-5 of each
+    max|want|).  In bf16 its rounding of P and dS moves the gradients
+    (but not past the card's gate)."""
+    B, S, H, KH, D = shape
+    kw = dict(kw, scale=D ** -0.5)
+    q, k, v, dout = _bwd_inputs(B, S, H, KH, D, torch.float32, q_mul=q_mul)
+    out = tref.flash_attention_plain(q, k, v, **kw)
+    lse = tref.flash_lse_plain(q, k, **kw)
+    want = tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    got = tref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse, **kw)
+    assert max(_ratios(got, want)) < BWD_TOL
+    qb, kb, vb, ob, gb = (t.bfloat16() for t in (q, k, v, out, dout))
+    rounded = tref.flash_attention_bwd_mma_plain(qb, kb, vb, ob, gb, lse,
+                                                 **kw)
+    unrounded = tref.flash_attention_bwd_plain(qb, kb, vb, ob, gb, **kw)
+    r = _ratios(rounded, unrounded)
+    assert 0 < max(r) < chip_smoke.FLASH_BWD_TOL["bfloat16"]
+
+
+def test_flash_lse_plain_gives_inf_to_a_row_with_no_key():
+    """L is each row's log-sum-exp of its kept scores, and +inf where the
+    mask keeps no key (causal with more queries than keys and a window),
+    so that P = exp(S - L) = 0 there."""
+    q, k, _, _ = _bwd_inputs(1, 12, 2, 1, 16, torch.float32)
+    k = k[:, :5]
+    kw = dict(causal=True, window=3, softcap=None, scale=0.25)
+    lse = tref.flash_lse_plain(q, k, **kw)
+    assert lse.shape == (1, 2, 12) and lse.dtype == torch.float32
+    assert torch.isinf(lse[..., 7:]).all() and (lse[..., 7:] > 0).all()
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, :7] * 0.25,
+                     k.expand(1, 5, 2, 16))
+    qi, ki = torch.arange(7)[:, None], torch.arange(5)[None, :]
+    s = torch.where((ki <= qi) & (qi - ki < 3), s, -torch.inf)
+    torch.testing.assert_close(lse[..., :7], torch.logsumexp(s, dim=-1))
+
+
+@pytest.mark.parametrize("dtype,acc_dtype,D,want", [
+    (torch.bfloat16, "f32", 16, tfa.BWD_MMA),
+    (torch.bfloat16, "f32", 256, tfa.BWD_MMA),
+    (torch.bfloat16, "f32", 48, tfa.BWD_MMA),
+    (torch.bfloat16, "f32", 24, tfa.BWD),
+    (torch.bfloat16, "f32", 264, tfa.BWD),
+    (torch.bfloat16, "bf16", 64, tfa.BWD),
+    (torch.float32, "f32", 64, tfa.BWD),
+    (torch.float32, "bf16", 256, tfa.BWD)])
+def test_flash_bwd_dispatch_follows_the_forward(dtype, acc_dtype, D, want):
+    """The backward takes the tensor-core kernel exactly where the forward
+    does, and on the CPU the plain version of the kernel it picks: the
+    tensor-core class needs the forward's L (``flash_attention_with_lse``
+    gives it, None for the other class) and raises without it."""
+    assert tfa.bwd_kernel_for(dtype, acc_dtype, D) == want
+    assert (want == tfa.BWD_MMA) == (tfa.kernel_for(dtype, acc_dtype, D)
+                                     == tfa.MMA)
+    if D > 64:
+        return
+    q, k, v, dout = _bwd_inputs(1, 20, 2, 1, D, dtype)
+    kw = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    out, lse = tfa.flash_attention_with_lse(q, k, v, acc_dtype=acc_dtype,
+                                            **kw)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, acc_dtype=acc_dtype,
+                                                **kw))
+    got = tfa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                  acc_dtype=acc_dtype, **kw)
+    if want == tfa.BWD:
+        assert lse is None
+        plain = tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    else:
+        plain = tref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse,
+                                                   **kw)
+        with pytest.raises(ValueError, match="lse"):
+            tfa.flash_attention_bwd(q, k, v, out, dout, acc_dtype=acc_dtype,
+                                    **kw)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,ns", [
+    ((4, 512, 8, 4), 2),      # gemma2-2b's train shape: 128 blocks unsplit
+    ((4, 512, 4, 1), 4),      # gemma3-1b: a single KV head, 32 unsplit
+    ((2, 512, 48, 8), 2),     # internlm2-20b: 2 of its group of 6 -> 256
+    ((1, 512, 16, 1), 8),     # 8 tiles x 8 parts < 132: the most, 8 of 16
+    ((64, 4096, 8, 4), 1),    # enough blocks without a split
+    ((1, 64, 6, 6), 1)])      # no group to split
+def test_flash_bwd_split_rule(shape, ns):
+    assert tfa.bwd_split(*shape) == ns
+
+
+@pytest.mark.parametrize("name", chip_smoke.FLASH_BWD_MMA_MUST_CATCH)
+def test_flash_bwd_mma_faults_fail_the_bf16_gate(name):
+    """Each of ``chip_smoke.py``'s tensor-core faults, on its control case
+    cut to 128 tokens (two 64-row tiles), 4 heads over 2, D 32 and a window
+    of 32, fails the card's bf16 gate; the sound version passes it."""
+    g = torch.Generator().manual_seed(0)
+    c = dict(chip_smoke.FLASH_BWD_MMA_CONTROL_CASE, B=1, H=4, KH=2, D=32,
+             window=32)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(
+        torch, g, "cpu", c, torch.bfloat16, S=128)
+    lse, o_same = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
+    assert o_same
+    want = tref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse, **kw)
+    controls = chip_smoke.flash_bwd_mma_controls(torch, tref, q, k, v, out,
+                                                 dout, lse, kw, want)
+    assert controls[name]["caught"]
+    assert max(controls[name]["ratios"]) > chip_smoke.FLASH_BWD_TOL[
+        "bfloat16"]
+
+
+@pytest.mark.parametrize("name", chip_smoke.FLASH_LSE_MUST_CATCH)
+def test_flash_lse_faults_fail_the_lse_gate(name):
+    """Each of ``chip_smoke.py``'s faults of the forward's L, on its bf16
+    control case cut to 128 tokens, 4 heads over 2 and D 32, fails the L
+    gate (``FLASH_LSE_TOL`` against the f64 plain L); the forward's own L
+    (on the CPU, ``flash_lse_plain`` of the bf16 inputs in f32) passes."""
+    g = torch.Generator().manual_seed(0)
+    c = dict(chip_smoke.FLASH_BWD_MMA_CONTROL_CASE, B=1, H=4, KH=2, D=32,
+             window=32)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(
+        torch, g, "cpu", c, torch.bfloat16, S=128)
+    lse, _ = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
+    want = chip_smoke.flash_lse_want(torch, tref, q, k, kw)
+    assert chip_smoke.flash_lse_err(torch, lse, want) <= \
+        chip_smoke.FLASH_LSE_TOL
+    controls = chip_smoke.flash_lse_controls(torch, tref, q, k, lse, want,
+                                             kw)
+    assert controls[name]["caught"]
+    assert controls[name]["err"] > chip_smoke.FLASH_LSE_TOL
+
+
+def test_flash_lse_err_refuses_inf_rows_and_nan():
+    """The L gate's error is inf where a row's +inf differs from the plain
+    L's or L holds a NaN, and 0 where every row is +inf in both."""
+    q = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 40, 2, 16))).float()
+    k = q[:, :12, :1]
+    kw = dict(causal=True, window=4, softcap=None, scale=0.25)
+    want = chip_smoke.flash_lse_want(torch, tref, q, k, kw)
+    got = tref.flash_lse_plain(q, k, **kw)
+    assert torch.isinf(want).any()
+    assert chip_smoke.flash_lse_err(torch, got, want) < 1e-5
+    finite = torch.where(torch.isinf(got), 0.0, got)
+    nan = got.clone()
+    nan[0, 0, 0] = torch.nan
+    for bad in (finite, nan):
+        assert chip_smoke.flash_lse_err(torch, bad, want) == float("inf")
+    inf = torch.full_like(got, torch.inf)
+    assert chip_smoke.flash_lse_err(torch, inf, inf.double()) == 0.0
+
+
 @pytest.mark.parametrize("needs", [(True, True, True), (True, False, False),
                                    (False, True, True), (False, False, True)])
 def test_flash_attention_fn_wiring(needs):
@@ -362,10 +561,16 @@ def test_flash_attention_fn_bf16_and_no_grad_paths():
     out = tfa.flash_attention(*xs)
     grads = torch.autograd.grad(out, xs, dout)
     assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    # the tensor-core class: the plain version of that backward, at L
+    lse = tref.flash_lse_plain(q, k, scale=0.25)
+    for g, w in zip(grads, tref.flash_attention_bwd_mma_plain(
+            q, k, v, out.detach(), dout, lse, scale=0.25)):
+        assert torch.equal(g, w)
     with torch.no_grad():
         assert tfa.flash_attention(*xs).grad_fn is None
     assert tfa.flash_attention(q, k, v).grad_fn is None
     assert tfa.flash_attention.bwd_launches == 0   # the CPU launches nothing
+    assert tfa.flash_attention.bwd_mma_launches == 0
 
 
 @pytest.mark.parametrize("name", ["wkv6", "ssm_scan", "paged_attention"])
