@@ -310,29 +310,33 @@ exits non-zero):
    B=4, H=8, KH=4, D=256 with softcap 50 and window None or 128, and with
    both off; gemma3-1b's H=4, KH=1, D=256; internlm2-20b's B=2, H=48,
    KH=8, D=128), each in bf16 and in f32 at B=1.  Each case's line names
-   the backward that ran (``kernel``): bf16 must take the tensor-core
-   kernels of ``csrc/flash_attention_bwd_mma.cu``, fed the forward's row
-   log-sum-exp (``flash_attention_with_lse``, whose O must equal the
-   plain forward call's bit for bit and whose L must have the +inf rows
-   of ``flash_lse_plain`` of the f64 scores and its finite rows within
-   ``FLASH_LSE_TOL``), and is held against
+   the backward that ran (``kernel``), fed the forward's row log-sum-exp
+   (``flash_attention_with_lse``, from ``csrc/flash_attention_mma.cu``
+   in bf16 and ``csrc/flash_attention.cu`` in f32, whose O must equal
+   the plain forward call's bit for bit and whose L must have the +inf
+   rows of ``flash_lse_plain`` of the f64 scores and its finite rows
+   within ``FLASH_LSE_TOL``): bf16 must take the tensor-core kernels of
+   ``csrc/flash_attention_bwd_mma.cu``, held against
    ``flash_attention_bwd_mma_plain`` (P and dS rounded to bf16) fed that
-   plain L; f32 must
-   take the CUDA-core kernels of ``csrc/flash_attention_bwd.cu``, held
-   against ``flash_attention_bwd_plain``; every gradient within
-   ``FLASH_BWD_TOL`` (f32 1e-4, bf16 3e-2) of its max|want|.  ``ms`` and
+   plain L; f32 must take the CUDA-core kernels of
+   ``csrc/flash_attention_bwd.cu``, held against
+   ``flash_attention_bwd_plain`` fed that plain L; every gradient within
+   ``FLASH_BWD_TOL`` (f32 1e-4, bf16 3e-2) of its max|want|, a second
+   call the same bits.  ``ms`` and
    ``stream_ms`` as the flash kernels', the plain version's time, SDPA's
    backward alone (``torch.autograd.grad`` through
    ``F.scaled_dot_product_attention``, causal, GQA) where window and
    softcap are off, and the bound (``_flash_bound_ms(backward=True)``: 5
    products of 2 D a kept pair and query head against 8 tensors moved
    once); the controls of ``FLASH_BWD_MUST_CATCH`` on an f32 case where
-   the softcap binds and of ``FLASH_BWD_MMA_MUST_CATCH`` (the rounded
-   plain version with L one row off, the diagonal tiles dropped from dQ,
-   a head missing from a group's dK and dV) on the bf16 case with both,
-   each caught by its dtype's gate, and of ``FLASH_LSE_MUST_CATCH`` (L a
-   row off, a head off, the softcap left out) on that case's L, each
-   caught by the L gate; and ``wkv6``, ``ssm_scan`` and
+   the softcap binds (among them the CUDA-core split's: a part's partial
+   dropped, L one row off, the 32 x 32 diagonal tiles dropped from dQ)
+   and of ``FLASH_BWD_MMA_MUST_CATCH`` (the rounded plain version with L
+   one row off, the diagonal tiles dropped from dQ, a head missing from a
+   group's dK and dV) on the bf16 case with both, each caught by its
+   dtype's gate, and of ``FLASH_LSE_MUST_CATCH`` (L a row off, a head
+   off, the softcap left out) on those two cases' L, each caught by the L
+   gate; and ``wkv6``, ``ssm_scan`` and
    ``paged_attention`` refusing inputs that require grad on the card
    (``guards_raise``).
 24. train: (a) full-width gemma2-2b (26 layers, d_model 2304, vocab
@@ -4973,9 +4977,14 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the plain backward with one fault, which the f32 gate must catch on the
 # control case: the softcap's chain-rule factor dropped, each GQA group's
 # dK and dV taken from its first query head alone, the window one key
-# wider, and the D term (dO.O) left out of dS
+# wider, the D term (dO.O) left out of dS; and the CUDA-core kernels' own:
+# the last block's partial of every tile that several blocks share dropped
+# from its fold (``ref.flash_attention_bwd_split_plain``), L read from the
+# next query row, and the 32 x 32 tiles on the diagonal dropped from dQ
 FLASH_BWD_MUST_CATCH = ("softcap_factor_dropped", "gqa_first_head",
-                        "window_one_off", "delta_dropped")
+                        "window_one_off", "delta_dropped",
+                        "split_part_dropped", "lse_next_row",
+                        "diagonal_dropped_from_dq")
 # the tensor-core backward's own faults, in its rounded plain version,
 # which the bf16 gate must catch on the bf16 case with window and softcap:
 # L read from the next query row, the 64 x 64 tiles on the diagonal
@@ -4993,8 +5002,30 @@ FLASH_LSE_MUST_CATCH = ("row_off_by_one", "head_off_by_one",
                         "softcap_ignored")
 
 
-def flash_bwd_fault(torch, ref, name, q, k, v, out, dout, kw):
-    """The plain backward on these inputs with fault ``name``."""
+def flash_bwd_fault(torch, ref, name, q, k, v, out, dout, lse, kw):
+    """The plain backward on these inputs, fed the forward's L ``lse``,
+    with fault ``name`` (``FLASH_BWD_MUST_CATCH``)."""
+    from repro_torch.kernels.flash_attention import BWD_T, bwd_work
+    sound = ref.flash_attention_bwd_plain
+    if name == "split_part_dropped":
+        work = bwd_work(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                        k.shape[2], q.shape[3], causal=kw["causal"],
+                        window=kw["window"])
+        return ref.flash_attention_bwd_split_plain(
+            q, k, v, out, dout, lse, work, **kw,
+            fold=lambda parts: sum(parts[1:-1], parts[0]))
+    if name == "lse_next_row":
+        lse = torch.cat([lse[..., 1:], lse[..., -1:]], dim=-1)
+        return sound(q, k, v, out, dout, lse, **kw)
+    if name == "diagonal_dropped_from_dq":
+        dq, dk, dv = sound(q, k, v, out, dout, lse, **kw)
+        dq = dq.float()
+        for i in range(-(-q.shape[1] // BWD_T)):
+            sl = slice(i * BWD_T, (i + 1) * BWD_T)
+            dq[:, sl] -= sound(q[:, sl], k[:, sl], v[:, sl], out[:, sl],
+                               dout[:, sl], lse[..., sl].contiguous(),
+                               **kw)[0].float()
+        return dq.to(q.dtype), dk, dv
     if name == "window_one_off":
         return ref.flash_attention_bwd_plain(
             q, k, v, out, dout, **{**kw, "window": kw["window"] + 1})
@@ -5082,13 +5113,13 @@ def flash_bwd_inputs(torch, g, dev, c, dtype, S=FLASH_BWD_S):
     return q, k, v, out, dout, kw
 
 
-def flash_bwd_controls(torch, ref, q, k, v, out, dout, kw, want):
-    """``FLASH_BWD_MUST_CATCH`` on one f32 case: each fault's ratios and
-    whether the f32 gate catches it."""
+def flash_bwd_controls(torch, ref, q, k, v, out, dout, lse, kw, want):
+    """``FLASH_BWD_MUST_CATCH`` on one f32 case (``lse`` the plain L): each
+    fault's ratios and whether the f32 gate catches it."""
     controls = {}
     for name in FLASH_BWD_MUST_CATCH:
         r = flash_bwd_ratios(flash_bwd_fault(torch, ref, name, q, k, v, out,
-                                             dout, kw), want)
+                                             dout, lse, kw), want)
         controls[name] = {"ratios": r,
                           "caught": max(r) > FLASH_BWD_TOL["float32"]}
     return controls
@@ -5108,9 +5139,8 @@ def flash_bwd_mma_controls(torch, ref, q, k, v, out, dout, lse, kw, want):
 
 def flash_bwd_lse(torch, q, k, v, out, kw):
     """The forward's row log-sum-exp for the backward
-    (``flash_attention_with_lse``; None where the CUDA-core forward runs)
-    and whether its O equals ``out``, the forward called without it, bit
-    for bit."""
+    (``flash_attention_with_lse``, from either forward kernel) and whether
+    its O equals ``out``, the forward called without it, bit for bit."""
     from repro_torch.kernels.flash_attention import flash_attention_with_lse
     with torch.no_grad():
         o, lse = flash_attention_with_lse(q, k, v, **kw)
@@ -5183,15 +5213,16 @@ def guards_raise(torch, dev):
 
 def phase_flash_bwd_kernel(torch, dev, seed):
     """The flash backward kernels against their plain versions at the train
-    path's shapes, bf16 (the tensor-core kernels, fed the forward's L) and
-    f32 (the CUDA-core kernels), timed beside the plain version, SDPA's
-    backward where it computes the same function and the bound; the
-    controls of ``FLASH_BWD_MUST_CATCH`` and ``FLASH_BWD_MMA_MUST_CATCH``;
-    the no-backward guards.  The forward's L, which the tensor-core
-    backward reads, is held against its plain version (``FLASH_LSE_TOL``,
-    ``FLASH_LSE_MUST_CATCH``), and the plain backward reads the plain L, so
-    the comparison covers the forward's hand-off.  Returns the cases and
-    each backward kernel's largest absolute error."""
+    path's shapes, bf16 (the tensor-core kernels) and f32 (the CUDA-core
+    kernels), each fed its forward's L, timed beside the plain version,
+    SDPA's backward where it computes the same function and the bound,
+    a second call the same bits; the controls of ``FLASH_BWD_MUST_CATCH``
+    and ``FLASH_BWD_MMA_MUST_CATCH``; the no-backward guards.  The
+    forward's L is held against its plain version on every case
+    (``FLASH_LSE_TOL``; ``FLASH_LSE_MUST_CATCH`` on the bf16 and the f32
+    control case), and the plain backward reads the plain L, so the
+    comparison covers the forward's hand-off.  Returns the cases and each
+    backward kernel's largest absolute error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -5205,7 +5236,7 @@ def phase_flash_bwd_kernel(torch, dev, seed):
              for dt in (torch.bfloat16, torch.float32)]
     cases.append((FLASH_BWD_CONTROL_CASE, torch.float32))
     out_cases, failed, controls, mma_controls = [], [], None, None
-    lse_controls = None
+    lse_controls = lse_controls_f32 = None
     max_err = {BWD: 0.0, BWD_MMA: 0.0}
     for c, dt in cases:
         dname = str(dt).split(".")[-1]
@@ -5214,17 +5245,18 @@ def phase_flash_bwd_kernel(torch, dev, seed):
         name = (f"{c['arch']} {dname} window={c['window']} "
                 f"softcap={c['softcap']}")
         lse, o_same = flash_bwd_lse(torch, q, k, v, out, kw)
-        lse_plain = lse_err = None
-        if lse is not None:
-            lse_want = flash_lse_want(torch, ref, q, k, kw)
-            lse_err = flash_lse_err(torch, lse, lse_want)
-            if not lse_err <= FLASH_LSE_TOL:
-                failed.append(f"{name}: L off by {lse_err}")
-            if c == FLASH_BWD_MMA_CONTROL_CASE:
-                lse_controls = flash_lse_controls(torch, ref, q, k, lse,
+        lse_want = flash_lse_want(torch, ref, q, k, kw)
+        lse_err = flash_lse_err(torch, lse, lse_want)
+        if not lse_err <= FLASH_LSE_TOL:
+            failed.append(f"{name}: L off by {lse_err}")
+        if dt == torch.bfloat16 and c == FLASH_BWD_MMA_CONTROL_CASE:
+            lse_controls = flash_lse_controls(torch, ref, q, k, lse,
+                                              lse_want, kw)
+        if "q_mul" in c:
+            lse_controls_f32 = flash_lse_controls(torch, ref, q, k, lse,
                                                   lse_want, kw)
-            lse_plain = lse_want.float()
-            del lse_want
+        lse_plain = lse_want.float()
+        del lse_want
         before = flash_attention.bwd_mma_launches
         got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
         torch.cuda.synchronize()
@@ -5237,7 +5269,7 @@ def phase_flash_bwd_kernel(torch, dev, seed):
         else:
             def plain():
                 return ref.flash_attention_bwd_plain(q, k, v, out, dout,
-                                                     **kw)
+                                                     lse_plain, **kw)
         want = plain()
         ratios = flash_bwd_ratios(got, want)
         err = max((a.float() - b.float()).abs().max().item()
@@ -5249,9 +5281,13 @@ def phase_flash_bwd_kernel(torch, dev, seed):
             failed.append(f"{name}: ran {kernel}, not {want_kernel}")
         if not o_same:
             failed.append(f"{name}: O differs with the lse buffer")
+        same_bits = all(torch.equal(a, b) for a, b in zip(
+            got, flash_attention_bwd(q, k, v, out, dout, lse, **kw)))
+        if not same_bits:
+            failed.append(f"{name}: a second call differs")
         if "q_mul" in c:
             controls = flash_bwd_controls(torch, ref, q, k, v, out, dout,
-                                          kw, want)
+                                          lse_plain, kw, want)
         if dt == torch.bfloat16 and c == FLASH_BWD_MMA_CONTROL_CASE:
             mma_controls = flash_bwd_mma_controls(torch, ref, q, k, v, out,
                                                   dout, lse_plain, kw, want)
@@ -5286,6 +5322,7 @@ def phase_flash_bwd_kernel(torch, dev, seed):
                 "D": c["D"], "window": c["window"], "softcap": c["softcap"],
                 "q_mul": c.get("q_mul", 1.0), "ratios": ratios,
                 "o_same_with_lse": o_same, "lse_max_abs_err": lse_err,
+                "same_bits": same_bits,
                 "max_abs_err": err, "ms": ms,
                 "stream_ms": s_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "library_stream_ms": lib_s_ms, "bound_ms": bound,
@@ -5297,13 +5334,15 @@ def phase_flash_bwd_kernel(torch, dev, seed):
     guards = guards_raise(torch, dev)
     emit({"phase": "flash_bwd_kernel", "controls": controls,
           "mma_controls": mma_controls, "lse_controls": lse_controls,
-          "guards_raise": guards})
+          "lse_controls_f32": lse_controls_f32, "guards_raise": guards})
     failed += [f"control {n} not caught" for n in FLASH_BWD_MUST_CATCH
                if not controls[n]["caught"]]
     failed += [f"control {n} not caught" for n in FLASH_BWD_MMA_MUST_CATCH
                if not mma_controls[n]["caught"]]
-    failed += [f"L control {n} not caught" for n in FLASH_LSE_MUST_CATCH
-               if not lse_controls[n]["caught"]]
+    failed += [f"L control {n} not caught ({dn})"
+               for dn, lc in (("bf16", lse_controls),
+                              ("f32", lse_controls_f32))
+               for n in FLASH_LSE_MUST_CATCH if not lc[n]["caught"]]
     failed += [f"{n} takes grad-requiring inputs" for n, ok in
                guards.items() if not ok]
     if failed:

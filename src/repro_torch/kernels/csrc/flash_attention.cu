@@ -80,11 +80,19 @@
 //   0, and a row with no valid key at all folds its items with weight 1,
 //   as one unsplit walk would.  The bf16 accumulator rounds after every
 //   tile in order from the first, so it is never split.
+// - The row log-sum-exp L for the backward (csrc/flash_attention_bwd.cu),
+//   into an optional f32 `lse` [B,H,Sq]: m + log l of an unsplit tile's
+//   rows, the merge kernel's folded m* + log(sum w l) of a split one, +inf
+//   for a row with no kept key.  With the bf16 accumulator l is rounded
+//   after every tile, so an f32 sum of the same exponentials, never
+//   rounded, is kept beside it for L.  O is the same bits with and
+//   without the buffer.
 //
 // The launcher returns -1 for a shape it does not take, else the
 // cudaError_t of the shared-memory attribute or of the launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -108,6 +116,7 @@ struct Params {
   const void* v;
   void* out;
   float* ws;   // split partials: m, l [items][kRows]; acc [items][kRows][D]
+  float* lse;  // the rows' log-sum-exp [B, H, Sq], or null
   int B, Sq, Skv, H, KH, D;
   int BQ, LK, nsub;   // positions a block, keys a KV tile, sub-tiles a tile
   int nq, nt, T, smax;
@@ -391,10 +400,11 @@ flash_attention_kernel(const Params p) {
   };
 
   float m_run[2], l_run[2];              // score layout rows
+  float l32[2];                          // l unrounded (bf16 acc, for L)
 #pragma unroll
   for (int jj = 0; jj < 2; ++jj) {
     m_run[jj] = acc_round<BF16ACC>(kNegInf);
-    l_run[jj] = 0.f;
+    l_run[jj] = l32[jj] = 0.f;
   }
   float acc[4][4 * NC];                  // P @ V layout
 #pragma unroll
@@ -481,6 +491,7 @@ flash_attention_kernel(const Params p) {
       const float m_new = fmaxf(m_run[jj], acc_round<BF16ACC>(mx));
       alpha[jj] = acc_round<BF16ACC>(
           expf(acc_round<BF16ACC>(m_run[jj] - m_new)));
+      if constexpr (BF16ACC) l32[jj] *= expf(m_run[jj] - m_new);
       m_run[jj] = m_new;
       psum[jj] = 0.f;
     }
@@ -516,6 +527,7 @@ flash_attention_kernel(const Params p) {
       const float sm = sRedSum[srow + jj] + sRedSum[kRows + srow + jj];
       l_run[jj] = acc_round<BF16ACC>(acc_round<BF16ACC>(l_run[jj] * alpha[jj]) +
                                      acc_round<BF16ACC>(sm));
+      if constexpr (BF16ACC) l32[jj] += sm;
     }
     // 3. acc = acc * alpha + P @ V, V in slabs of kSlabV keys
     const float4 a4 = *reinterpret_cast<const float4*>(&sAlpha[4 * prg]);
@@ -569,12 +581,21 @@ flash_attention_kernel(const Params p) {
     }
   }
 
-  // the rows' (m, l) to shared memory, for the P @ V layout
+  // the rows' (m, l) to shared memory, for the P @ V layout; an unsplit
+  // tile's L
   if (row_writer && (warp & 1) == 0) {
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       sL[srow + jj] = l_run[jj];
       sM[srow + jj] = m_run[jj];
+      const int r = srow + jj, qp = q0 + r % p.BQ;
+      if (p.lse && ns == 1 && r < R && qp < p.Sq) {
+        const float l = BF16ACC ? l32[jj] : l_run[jj];
+        p.lse[((size_t)b * p.H + kh * G + r / p.BQ) * p.Sq + qp] =
+            m_run[jj] > acc_round<BF16ACC>(kNegInf) && l > 0.f
+                ? m_run[jj] + logf(l)
+                : INFINITY;
+      }
     }
   }
   __syncthreads();
@@ -660,6 +681,9 @@ flash_attention_merge_kernel(const Params p) {
       a.z = fmaf(v.z, w, a.z);
       a.w = fmaf(v.w, w, a.w);
     }
+    if (p.lse && c == 0)
+      p.lse[((size_t)b * p.H + kh * G + g) * p.Sq + qp] =
+          m_star > kNegInf && l > 0.f ? m_star + logf(l) : INFINITY;
     l = fmaxf(l, 1e-30f);
     store4(og + (((size_t)b * p.Sq + qp) * p.H + kh * G + g) * D + c,
            make_float4(a.x / l, a.y / l, a.z / l, a.w / l));
@@ -712,9 +736,11 @@ int dispatch(int nc, int bf16_acc, const Params& p, cudaStream_t s) {
 // a work item walks and `smax` the most items of one query tile: the
 // wrapper's `work_split`, which this launcher recomputes and refuses if
 // they differ.  `ws` holds B * KH * ceil(Sq / bq) * smax * 64 * (D + 2)
-// floats where smax > 1.
+// floats where smax > 1.  `lse`, f32 [B, H, Sq] or null, takes the rows'
+// log-sum-exp.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, float* ws,
+    float* lse,
     int is_bf16, int B, int Sq, int Skv, int H, int KH, int D, int nc, int bq,
     int lk, int T, int smax, int bf16_acc, float scale, int causal,
     int window, float softcap, void* stream) {
@@ -724,8 +750,8 @@ extern "C" int flash_attention_launch(
     return -1;
   const int nq = (Sq + bq - 1) / bq;
   const int nsub = (lk + kSub - 1) / kSub, nt = (Skv + lk - 1) / lk;
-  Params p{q, k, v, out, ws, B, Sq, Skv, H, KH, D, bq, lk, nsub, nq, nt, T,
-           smax, scale, causal, window, softcap};
+  Params p{q, k, v, out, ws, lse, B, Sq, Skv, H, KH, D, bq, lk, nsub, nq,
+           nt, T, smax, scale, causal, window, softcap};
   int most = 1;
   for (int i = 0; i < nq; ++i) {
     int lo, hi;

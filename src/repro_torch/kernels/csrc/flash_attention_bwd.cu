@@ -5,53 +5,118 @@
 //
 // Replaces the gradient of the TPU Pallas kernel `flash_attention` of
 // repro/kernels/flash_attention.py:80, which JAX derives from the kernel's
-// body under jax.grad; the port has no such derivation, so the backward is
-// a kernel of its own.
+// body under jax.grad, on every route the tensor-core backward
+// (csrc/flash_attention_bwd_mma.cu) does not take: f32 inputs, the bf16
+// accumulator and bf16 at D % 16 == 8.  f32 stays full f32: the tensor
+// cores would round it to tf32, and the reduced f32 model trained on the
+// card must give the CPU's losses.
 //
-// What it computes, as ref.flash_attention_bwd_plain: from q, out, d_out
-// [B,Sq,H,D] and k, v [B,Skv,KH,D] (one dtype), dq [B,Sq,H,D] and dk, dv
-// [B,Skv,KH,D] of the forward of csrc/flash_attention_mma.cu and
-// csrc/flash_attention.cu: query row i at position i, key j at position j,
-// the mask keeping j < Skv, j <= i (causal) and i - j < window (window >
-// 0); the score S = scale q.k, capped to cap * tanh(S / cap) when softcap
-// > 0; query head h reads KV head h / (H/KH).  With L the row log-sum-exp
-// and D_i = dO_i . O_i:
+// What it computes, as ref.flash_attention_bwd_plain with L given: from q,
+// out, d_out [B,Sq,H,D], k, v [B,Skv,KH,D] (one dtype) and the forward's
+// row log-sum-exp lse [B,H,Sq] (f32, +inf for a row with no kept key;
+// csrc/flash_attention.cu writes it beside O), dq [B,Sq,H,D] and dk, dv
+// [B,Skv,KH,D]: query row i at position i, key j at position j, the mask
+// keeping j < Skv, j <= i (causal) and i - j < window (window > 0); the
+// score S = scale q.k, capped to cap * tanh(S / cap) when softcap > 0;
+// query head h reads KV head h / (H/KH).  With D_i = dO_i . O_i:
 //   P = exp(S - L) (0 where masked), dP = dO V^T, dS = P (dP - D),
 //   times 1 - (S / cap)^2 with a softcap (the capped score's chain rule),
 //   dV = P^T dO, dQ = scale dS K, dK = scale dS^T Q,
-// dK and dV summed over each GQA group's query heads.
-//
-// Design (simple and deterministic first; speed is later work):
-// - Two kernels on the caller's stream, no atomics, so every run gives
-//   the same bits.  `fa_bwd_dq`: one block per (query tile of 32 rows,
-//   query head, batch row).  Pass 1 streams the KV tiles the mask allows
-//   and keeps each row's running max and sum, giving L; D_i comes from dO
-//   and O; both go to an f32 scratch [B,H,Sq] each.  Pass 2 streams the
-//   tiles again, rebuilds P from L, forms dS and accumulates dQ in
-//   registers.  `fa_bwd_dkdv`: one block per (key tile of 32 keys, KV
-//   head, batch row); it holds its K and V tiles, loops over the G query
-//   heads of its group and over the query tiles the mask allows, rebuilds
-//   P from Q, K and the scratch's L, and accumulates dV += P^T dO and
-//   dK += dS^T Q in registers.
-// - 256 threads a block, 8 to a tile row: in the score tile each thread
-//   takes 4 entries of one row (columns lane8 + 8 i) and sums the two dot
-//   products of each over D in f32 FFMA; the 8 threads of a row reduce
-//   their max and sum through __shfl_xor_sync.  In the accumulation each
-//   thread owns columns lane8 + 8 j of one output row (NJ = ceil(D / 8)
-//   f32 registers; 32 at D = 256, 64 for dK and dV together).
-// - Tiles are staged in shared memory as f32 (bf16 converted on load),
-//   rows padded to D + 1 words so the 8 rows a warp reads fall in
-//   distinct banks: 4 tiles of 32 x (D + 1), the two 32 x 33 score tiles
-//   and L, D of the query tile; 140,288 bytes at D = 256, so the launcher
-//   opts in above 48 KB (cudaFuncSetAttribute) and returns its error.
+// dK and dV summed over each GQA group's query heads.  Every product and
+// sum is an f32 FFMA or FADD.
 //
 // Bound: the 5 products of 2 D operations a kept (query, key) pair and
-// query head (S, dP, dV, dQ, dK) at the type's peak, against q, k, v, o,
-// dO read once and dq, dk, dv written once.  This design computes S and
-// dP twice (once in each kernel), re-reads every operand from shared
-// memory for each FFMA (about 1.25 shared loads a FFMA) and skips no
-// masked entry inside a kept tile; the tensor-core redesign (mma on bf16
-// tiles, as csrc/flash_attention_mma.cu) is queued in ROADMAP.md.
+// query head at 67 TFLOP/s (f32 outside the tensor cores): at gemma2-2b's
+// f32 train shape (B=1, Sq=Skv=512, H=8, KH=4, D=256, causal) 2.69 GFLOP,
+// 40.1 us, against 21 MB of q, k, v, o, dO read once and dq, dk, dv
+// written once, 6.3 us at 3.35 TB/s: bound by operations.  This design
+// computes S and dP in both kernels (7 products a pair, not 5) and whole
+// 32 x 32 tile pairs on the causal diagonal (6% more pairs at 512 tokens).
+//
+// Design (the register blocking and the cp.async ring of
+// csrc/flash_attention.cu, its header's micro-tiles):
+// - The forward writes L, so no pass recomputes it.  Three kernels on the
+//   caller's stream, no atomics, every run the same bits: `fa_bwd_dq`
+//   (dQ, and D_i once a row), `fa_bwd_dkdv` (dK, dV) and `fa_bwd_fold`.
+// - Tiles of 32 rows everywhere, 256 threads (8 warps) a block.
+//   `fa_bwd_dq`'s unit is a 32-row query tile of one head, its steps the
+//   key tiles the mask lets it see.  A segment (a run of a unit's steps)
+//   loads Q and dO (f32 in shared memory for the segment's life), reads L
+//   and computes D_i = dO_i . O_i (8 lanes a row, f32, a fixed order),
+//   which the unit's first segment writes to the f32 `delta` buffer for
+//   the dk/dv kernel; then for each key tile: S = Q K^T and dP = dO V^T,
+//   P and dS in registers, dS^T to shared memory (key-major), dQ += dS K.
+//   `fa_bwd_dkdv`'s unit is a 32-key tile of one KV head, its steps the
+//   (query head of the GQA group, 32-row query tile) pairs the mask lets
+//   see its keys, head-major.  K and V stay in shared memory for the
+//   segment; per step S^T = K Q^T, dP^T = V dO^T, P^T and dS^T to shared
+//   memory (query-major), dV += P^T dO, dK += dS^T Q.
+// - Register-blocked products with 16-byte shared loads.  S (and dP, S^T,
+//   dP^T): warp w owns rows 4w .. 4w+3 of the 32 x 32 tile; a thread
+//   owns 4 rows x 8 columns (its lane / 8 picks the 8 columns) over an
+//   eighth of the head dim (16-byte chunks lane % 8 + 8 m), per chunk 4 +
+//   8 float4 loads for 128 FFMA (2.67 FFMA a 32-bit word); the 8 lanes of
+//   a quarter-warp read 8 consecutive chunks of one row, so no two share a
+//   bank.  Three xor-shuffle rounds (reduce-scatter) sum the eighths and
+//   leave a thread 4 rows x 1 column, which it stores as one float4 into
+//   the transposed shared tile (rows of 32 + 4 floats: the 8 lanes of a
+//   quarter-warp hit 8 distinct bank groups).  dQ += dS K (and dV, dK):
+//   a thread owns 4 rows x 8 columns (16-byte chunks c and c + DP / 8) and,
+//   below DP = 256, every (256 / DP)-th key (query) of the tile; per key
+//   one float4 of the transposed tile (broadcast) and 2 of K for 32 FFMA
+//   (2.67 a word); the key classes add by xor shuffles once at the end.
+//   Columns past D are zero in shared memory and never stored.
+// - A cp.async ring of 2 slots carries the streamed tiles (K and V in
+//   `fa_bwd_dq`; Q, dO, L and D in `fa_bwd_dkdv`) in the inputs' dtype,
+//   bf16 widened on read, zero-filled past the sequence and past D: tile
+//   n + 1 lands while tile n computes.  Two barriers a tile: one publishes
+//   the tile that landed and frees the slot it refills, one publishes the
+//   transposed P / dS tile.  With f32 inputs the resident tiles load by
+//   cp.async too, bf16 ones are widened once.
+// - Work on every SM without atomics (stream-K; the wrapper's `bwd_work`,
+//   a function of the shapes alone, so a call reads no device value and
+//   can be captured in a CUDA graph).  Each kernel's units in order
+//   (`fa_bwd_dq`: query tiles last-first, the longest under a causal
+//   mask; `fa_bwd_dkdv`: key tiles first-first; each for every (batch
+//   row, head)) cost kSegmentCost + kStepCost a step; the total is cut
+//   into nb equal parts, each cut moved to the nearest step, one span a
+//   block, nb one block an SM (`fa_bwd_dq` two at DP <= 128).  A block
+//   walks its span unit by unit (one thread finds each unit, the block
+//   reads it from shared memory): a unit inside the span it writes whole;
+//   a unit that several spans share gets an f32 partial from each, in the
+//   block's slot 0 (the span's first segment) or 1 (its last).  The
+//   blocks write their span starts and first units into a plan in the
+//   workspace, and `fa_bwd_fold` (16 blocks a block boundary, 4 rows
+//   each) reads it: where block f is the last of a unit's blocks, it adds
+//   their partials in block order, then scales and rounds.  So no SM
+//   idles while another walks a long causal tile.  Equal spans of steps
+//   put the many one-step units at the end of the causal order into a
+//   few blocks, each paying a prologue a unit (gemma2-2b's dq kernel 116
+//   us against 80 with costs); splitting each tile into parts of at most
+//   T steps, one a block (the first design), left SMs idle or paid a
+//   prologue a part, and its best T moved with the shape (PERF.md, PR 32).
+// - Shared memory at DP = 256 (f32): the two resident tiles (32 x 260
+//   f32 each), 2 slots of two streamed tiles (32 x 260 in the inputs'
+//   type), the transposed tiles (32 x 36 f32; two in `fa_bwd_dkdv`) and
+//   the row vectors: 204,544 bytes (`fa_bwd_dq`) and 209,408
+//   (`fa_bwd_dkdv`), so one 8-warp block an SM: 8 of 64 warp slots
+//   (ptxas: 214 and 248 registers, no spill), the FFMA fed by the ILP of
+//   32 independent accumulators.  At DP <= 128 `fa_bwd_dq` runs two
+//   blocks an SM (106 KB; ptxas held to 128 registers spills 92 bytes at
+//   DP = 128, still faster than one block); `fa_bwd_dkdv` holds 64
+//   accumulators (dK and dV; 254 registers) and stays at one.
+// - What bounds it (tools/flash_attention_bwd_f32_design.py, PERF.md):
+//   at gemma2-2b f32 B 1 the kernels take 4.5x the bound.  The 16-byte
+//   loads that feed the products: each product costs about its
+//   shared-memory pipe time (2.67 FFMA a word, where 4 would break even),
+//   S and dP in both kernels (7 products, not 5), and a third of each
+//   kernel outside the products (segment prologues, the score
+//   reductions' 28 shuffles a product a tile, two barriers a tile).
+// - Head dims: D % 8 == 0, D <= 256, instantiated at DP in {32, 64, 128,
+//   256}; a D in between runs at the next DP with zero-filled columns.
+//
+// The launcher returns -1 for arguments it does not take, else the
+// cudaError_t of an attribute or a launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,11 +124,16 @@
 
 namespace {
 
-constexpr int kBQ = 32;                  // query rows a tile
-constexpr int kBK = 32;                  // keys a tile
-constexpr int kThreads = 256;            // 8 threads a tile row
-constexpr int kEnt = kBK / 8;            // score entries a thread (= kBQ / 8)
-constexpr int kLdS = kBQ + 1;            // row stride of the score tiles
+constexpr int kThreads = 256;         // 8 warps
+constexpr int kT = 32;                // rows of every tile (queries or keys)
+constexpr int kLdS = kT + 4;          // row stride of the transposed tiles
+constexpr int kFoldThreads = 256;
+constexpr int kFoldRows = 4;          // rows of a unit a fold block adds
+constexpr int kMaxDevices = 64;
+// the spans' costs: a tile step, and a segment's own (its prologue's
+// loads, D, the partial out and back), in the same units
+constexpr int kStepCost = 5;
+constexpr int kSegmentCost = 3;
 
 struct Args {
   const void* q;
@@ -71,45 +141,358 @@ struct Args {
   const void* v;
   const void* o;
   const void* dout;
+  const float* lse;   // [B, H, Sq], the forward's
   void* dq;
   void* dk;
   void* dv;
-  float* lse;      // [B, H, Sq]
-  float* delta;    // [B, H, Sq]
+  float* delta;       // [B, H, Sq], written by fa_bwd_dq
+  float* wsq;         // dQ partials [nbq][2][kT][D]
+  float* wsk;         // dK, dV partials [nbk][2][2][kT][D]
+  int* planq;         // span starts [nbq + 1], first units [nbq][5]
+  int* plank;         // the same for fa_bwd_dkdv
   int B, Sq, Skv, H, KH, D;
+  int nq, nk;         // query tiles, key tiles
+  long long Wq, Wk;   // tile steps of fa_bwd_dq and of fa_bwd_dkdv
+  long long Cq, Ck;   // their costs (kStepCost a step, kSegmentCost a unit)
+  int nbq, nbk;       // their blocks
   float scale, softcap, inv_cap;
   int causal, window;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__host__ __device__ __forceinline__ int imin(int x, int y) {
+  return x < y ? x : y;
+}
+__host__ __device__ __forceinline__ int imax(int x, int y) {
+  return x > y ? x : y;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// the key tiles [lo, hi) holding a key the mask keeps for a row of query
+// tile i (a mirror of the wrapper's `bwd_work`)
+__host__ __device__ __forceinline__ void key_range(const Args& a, int i,
+                                                   int& lo, int& hi) {
+  const int q0 = i * kT;
+  const int q_last = imin(q0 + kT, a.Sq) - 1;
+  hi = a.causal ? imin(q_last / kT + 1, a.nk) : a.nk;
+  lo = a.window > 0 ? imax(q0 - a.window + 1, 0) / kT : 0;
+  if (hi < lo) hi = lo;
 }
 
-// rows [row0, row0 + n) of head `head` of a [B, S, NH, D] tensor into an
-// f32 tile of row stride D + 1; rows past S read as zero
-template <typename T>
-__device__ void load_tile(float* dst, const T* src, int b, int row0, int n,
-                          int S, int NH, int head, int D) {
-  const int ld = D + 1;
-  for (int i = threadIdx.x; i < n * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const int s = row0 + r;
-    float x = 0.f;
-    if (s < S) x = to_f32(src[(((size_t)b * S + s) * NH + head) * D + c]);
-    dst[r * ld + c] = x;
+// the query tiles [lo, hi) holding a row the mask lets see a key of key
+// tile j
+__host__ __device__ __forceinline__ void query_range(const Args& a, int j,
+                                                     int& lo, int& hi) {
+  const int k0 = j * kT;
+  const int k_last = imin(k0 + kT, a.Skv) - 1;
+  lo = a.causal ? j : 0;
+  int q_hi = a.Sq - 1;
+  if (a.window > 0) q_hi = imin(k_last + a.window - 1, q_hi);
+  hi = q_hi / kT + 1;
+  if (hi < lo) hi = lo;
+}
+
+// the steps of query tile i (its key tiles) and of key tile j (its query
+// head x query tile pairs)
+__host__ __device__ __forceinline__ int q_steps(const Args& a, int i) {
+  int lo, hi;
+  key_range(a, i, lo, hi);
+  return hi - lo;
+}
+__host__ __device__ __forceinline__ int k_steps(const Args& a, int j) {
+  int lo, hi;
+  query_range(a, j, lo, hi);
+  return (a.H / a.KH) * (hi - lo);
+}
+
+// a tile of one head in a kernel's step order, and its steps [u0, u0 + n)
+struct Unit {
+  int tile, b, head, u0, n;
+};
+
+// a kernel's units in step order (DQ: fa_bwd_dq's query tiles last-first,
+// the longest under a causal mask, each for every (batch row, query
+// head); else fa_bwd_dkdv's key tiles first-first, each for every (batch
+// row, KV head)): the tiles and the steps of their r-th
+template <bool DQ>
+__host__ __device__ __forceinline__ int n_tiles(const Args& a) {
+  return DQ ? a.nq : a.nk;
+}
+template <bool DQ>
+__host__ __device__ __forceinline__ int tile_at(const Args& a, int r) {
+  return DQ ? a.nq - 1 - r : r;
+}
+template <bool DQ>
+__host__ __device__ __forceinline__ int tile_steps(const Args& a, int r) {
+  return DQ ? q_steps(a, tile_at<DQ>(a, r)) : k_steps(a, r);
+}
+template <bool DQ>
+__host__ __device__ __forceinline__ int n_heads(const Args& a) {
+  return DQ ? a.H : a.KH;
+}
+
+// the unit holding step u
+template <bool DQ>
+__host__ __device__ inline Unit unit_of(const Args& a, int u) {
+  int first = 0;
+  const int heads = n_heads<DQ>(a);
+  for (int r = 0; r < n_tiles<DQ>(a); ++r) {
+    const int n = tile_steps<DQ>(a, r);
+    const int group = a.B * heads * n;
+    if (u < first + group) {
+      const int x = (u - first) / n;
+      return Unit{tile_at<DQ>(a, r), x / heads, x % heads, first + x * n, n};
+    }
+    first += group;
   }
+  return Unit{-1, 0, 0, first, 0};
+}
+
+// the first step of block b's span: the spans cut the kernel's cost C into
+// nb equal parts, a unit costing kSegmentCost + kStepCost n (its own cost
+// first), each cut moved to the nearest step; block nb starts at W
+template <bool DQ>
+__host__ __device__ inline int span_start(const Args& a, int b) {
+  const int nb = DQ ? a.nbq : a.nbk, heads = n_heads<DQ>(a);
+  const long long C = DQ ? a.Cq : a.Ck;
+  const long long x = C * b / nb;
+  long long cost = 0, step = 0;
+  for (int r = 0; r < n_tiles<DQ>(a); ++r) {
+    const int n = tile_steps<DQ>(a, r);
+    if (n == 0) continue;
+    const long long uc = kSegmentCost + (long long)kStepCost * n;
+    const long long units = (long long)a.B * heads;
+    if (x < cost + units * uc) {
+      const long long idx = (x - cost) / uc;
+      const long long o = x - cost - idx * uc - kSegmentCost;
+      const long long k = o <= 0 ? 0 : (o + kStepCost / 2) / kStepCost;
+      return (int)(step + idx * n + (k < n ? k : n));
+    }
+    cost += units * uc;
+    step += units * n;
+  }
+  return (int)(DQ ? a.Wq : a.Wk);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !pred (nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// four elements as f32: from shared memory or, read-only, from global
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 x = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 y = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(x.x, x.y, y.x, y.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ float4 scale4(float4 x, float m) {
+  return make_float4(x.x * m, x.y * m, x.z * m, x.w * m);
+}
+
+// the row strides of the shared tiles: f32 resident tiles and tiles in the
+// inputs' type, both padded by 16 bytes
+template <int DP>
+struct Ld {
+  static constexpr int kF = DP + 4;
+};
+template <typename T, int DP>
+struct Ring {
+  static constexpr int kVec = 16 / (int)sizeof(T);   // elements a chunk
+  static constexpr int kLd = DP + kVec;
+  static constexpr int kTile = kT * kLd;            // elements a tile
+};
+
+// rows [row0, row0 + kT) of head `head` of a [B, S, NH, D] tensor into a
+// shared tile of DP columns (stride Ring<T, DP>::kLd) by cp.async; rows past
+// S and columns past D are zero
+template <typename T, int DP>
+__device__ __forceinline__ void issue_tile(T* dst, const T* src, int b,
+                                           int row0, int S, int NH, int head,
+                                           int D) {
+  constexpr int kVec = Ring<T, DP>::kVec, kLd = Ring<T, DP>::kLd;
+  constexpr int kCpr = DP / kVec;                   // chunks a row
+#pragma unroll
+  for (int it = 0; it < (kT * kCpr + kThreads - 1) / kThreads; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    if (kT * kCpr % kThreads == 0 || idx < kT * kCpr) {
+      const int r = idx / kCpr, c = (idx % kCpr) * kVec;
+      const int s = row0 + r;
+      const bool ok = s < S && c < D;
+      const T* g = ok ? src + (((size_t)b * S + s) * NH + head) * D + c : src;
+      cp_async16(dst + r * kLd + c, g, ok);
+    }
+  }
+}
+
+// the same rows widened to an f32 tile (stride Ld<DP>::kF): f32 by
+// cp.async, bf16 by loads the caller's wait does not cover (they complete
+// before the next barrier's reads)
+template <typename T, int DP>
+__device__ __forceinline__ void load_resident(float* dst, const T* src, int b,
+                                              int row0, int S, int NH,
+                                              int head, int D) {
+  if constexpr (sizeof(T) == 4) {
+    issue_tile<float, DP>(dst, reinterpret_cast<const float*>(src), b, row0,
+                          S, NH, head, D);
+  } else {
+    constexpr int kCpr = DP / 4, kLd = Ld<DP>::kF;
+#pragma unroll
+    for (int it = 0; it < (kT * kCpr + kThreads - 1) / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      if (kT * kCpr % kThreads == 0 || idx < kT * kCpr) {
+        const int r = idx / kCpr, c = (idx % kCpr) * 4;
+        const int s = row0 + r;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (s < S && c < D)
+          x = ld4(src + (((size_t)b * S + s) * NH + head) * D + c);
+        store4(dst + r * kLd + c, x);
+      }
+    }
+  }
+}
+
+// acc[j][i] += A[4 rg + j] . Bt[8 cg + i] over this thread's eighth of the
+// head dim (16-byte chunks ds + 8 m): A an f32 resident tile, Bt a ring tile
+template <typename T, int DP>
+__device__ __forceinline__ void score_tile(const float* A, const T* Bt,
+                                           int rg, int cg, int ds,
+                                           float (&acc)[4][8]) {
+  constexpr int kLa = Ld<DP>::kF, kLb = Ring<T, DP>::kLd;
+  const float* a = A + 4 * rg * kLa + 4 * ds;
+  const T* bt = Bt + 8 * cg * kLb + 4 * ds;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+  // fully unrolled at DP <= 128 (4 chunks or fewer), twice at 256
+#pragma unroll (DP <= 128 ? DP / 32 : 2)
+  for (int m = 0; m < DP / 32; ++m) {
+    float4 x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = ld4(a + j * kLa + 32 * m);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 y = ld4(bt + i * kLb + 32 * m);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[j][i];
+        s = fmaf(x[j].x, y.x, s);
+        s = fmaf(x[j].y, y.y, s);
+        s = fmaf(x[j].z, y.z, s);
+        acc[j][i] = fmaf(x[j].w, y.w, s);
+      }
+    }
+  }
+}
+
+// sums the 8 eighths (lanes differing in bits 0-2) and leaves this lane
+// column ds of its 8: out[j] = row 4 rg + j, column 8 cg + ds
+__device__ __forceinline__ void reduce_scatter(const float (&acc)[4][8],
+                                               int ds, float (&out)[4]) {
+  const bool b2 = ds & 4, b1 = ds & 2, b0 = ds & 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float h1[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float send = b2 ? acc[j][i] : acc[j][4 + i];
+      const float keep = b2 ? acc[j][4 + i] : acc[j][i];
+      h1[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+    }
+    float h2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float send = b1 ? h1[i] : h1[2 + i];
+      const float keep = b1 ? h1[2 + i] : h1[i];
+      h2[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+    const float send = b0 ? h2[0] : h2[1];
+    const float keep = b0 ? h2[1] : h2[0];
+    out[j] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+  }
+}
+
+// acc[j][4 u + e] += sum over rows r = ks + KS n of W[r][4 rg + j] *
+// Bt[r][4 (cc + DP / 8 u) + e]: W a transposed f32 tile (stride kLdS), Bt
+// a ring tile whose rows are the reduction index
+template <typename T, int DP>
+__device__ __forceinline__ void accum_tile(const float* W, const T* Bt,
+                                           int rg, int cc, int ks,
+                                           float (&acc)[4][8]) {
+  constexpr int kLb = Ring<T, DP>::kLd, kCC = DP / 8, kKS = 32 / kCC;
+  const float* w = W + ks * kLdS + 4 * rg;
+  const T* bt = Bt + ks * kLb + 4 * cc;
+#pragma unroll 4
+  for (int n = 0; n < kT / kKS; ++n) {
+    const float4 p = ld4(w + n * kKS * kLdS);
+    const float pw[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float4 y = ld4(bt + n * kKS * kLb + 4 * kCC * u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j][4 * u] = fmaf(pw[j], y.x, acc[j][4 * u]);
+        acc[j][4 * u + 1] = fmaf(pw[j], y.y, acc[j][4 * u + 1]);
+        acc[j][4 * u + 2] = fmaf(pw[j], y.z, acc[j][4 * u + 2]);
+        acc[j][4 * u + 3] = fmaf(pw[j], y.w, acc[j][4 * u + 3]);
+      }
+    }
+  }
+}
+
+// the key classes' sums (lanes differing in bits log2(DP / 8) .. 4), the
+// same bits in every lane of a class
+template <int DP>
+__device__ __forceinline__ void reduce_classes(float (&acc)[4][8]) {
+#pragma unroll
+  for (int off = DP / 8; off < 32; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[j][c] += __shfl_xor_sync(0xffffffffu, acc[j][c], off);
 }
 
 __device__ __forceinline__ bool kept(int qp, int kp, const Args& a) {
@@ -117,322 +500,491 @@ __device__ __forceinline__ bool kept(int qp, int kp, const Args& a) {
          (a.window <= 0 || qp - kp < a.window);
 }
 
-// the score of one kept pair from its raw dot product, and the chain-rule
-// factor of the softcap (1 without one)
-__device__ __forceinline__ float score(float dot, const Args& a,
-                                       float* dcap) {
-  const float s = dot * a.scale;
+// dS of one kept pair from its raw dot products q.k and dO.v, its row's L
+// and D; its P through *p
+__device__ __forceinline__ float grad_score(float qk, float dov, float L,
+                                            float dlt, const Args& a,
+                                            float* p) {
+  float s = qk * a.scale, dcap = 1.f;
   if (a.softcap > 0.f) {
     const float t = tanhf(s * a.inv_cap);
-    *dcap = 1.f - t * t;
-    return a.softcap * t;
+    dcap = 1.f - t * t;
+    s = a.softcap * t;
   }
-  *dcap = 1.f;
-  return s;
+  *p = expf(s - L);
+  return *p * (dov - dlt) * dcap;
 }
 
-// sums over the 8 threads of a tile row (consecutive lanes)
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x;
+template <typename T, int DP>
+struct DqSmem {
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * (size_t)kT * Ld<DP>::kF + kT * kLdS + 2 * kT) +
+      sizeof(T) * (size_t)4 * Ring<T, DP>::kTile;
+};
+
+template <typename T, int DP>
+struct DkdvSmem {
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * (size_t)kT * Ld<DP>::kF + 2 * kT * kLdS + 4 * kT) +
+      sizeof(T) * (size_t)4 * Ring<T, DP>::kTile;
+};
+
+// the partial slot of a segment [u, se) of a unit in block b's span
+// [start, end): -1 where it covers the whole unit (the block writes the
+// gradient), else 0 where it starts the span, 1 where it ends it
+__device__ __forceinline__ int segment_slot(const Unit& t, int u, int se,
+                                            int start) {
+  if (u == t.u0 && se == t.u0 + t.n) return -1;
+  return u == start ? 0 : 1;
 }
 
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return x;
-}
-
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads) fa_bwd_dq(Args a) {
-  extern __shared__ float smem[];
-  const int D = a.D, ld = D + 1;
-  float* sQ = smem;
-  float* sdO = sQ + kBQ * ld;
-  float* sK = sdO + kBQ * ld;
-  float* sV = sK + kBK * ld;
-  float* sS = sV + kBK * ld;               // dS [kBQ][kLdS]
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (a.H / a.KH);
-  const int r = threadIdx.x >> 3, lane8 = threadIdx.x & 7;
-  const int qp = q0 + r;
+// dQ of query tile i, head h, batch row b over key tiles [jb, je): into
+// dq where slot < 0, else the f32 partial into the block's slot; D of the
+// tile's rows into `delta` where `first` (the unit's first step)
+template <typename T, int DP>
+__device__ __forceinline__ void dq_segment(const Args& a, unsigned char* smem,
+                                           int i, int b, int h, int jb,
+                                           int je, bool first, int slot) {
+  constexpr int kLf = Ld<DP>::kF, kTile = Ring<T, DP>::kTile;
+  constexpr int kCC = DP / 8;
+  float* sQ = reinterpret_cast<float*>(smem);          // [kT][kLf]
+  float* sdO = sQ + kT * kLf;                          // [kT][kLf]
+  float* sdS = sdO + kT * kLf;                         // dS^T [keys][kLdS]
+  float* sL = sdS + kT * kLdS;                         // [kT]
+  float* sD = sL + kT;                                 // [kT]
+  T* ring = reinterpret_cast<T*>(sD + kT);             // 2 x (K, V)
+  const int kh = h / (a.H / a.KH), q0 = i * kT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* Q = static_cast<const T*>(a.q);
   const T* K = static_cast<const T*>(a.k);
   const T* V = static_cast<const T*>(a.v);
-  const T* O = static_cast<const T*>(a.o);
   const T* dO = static_cast<const T*>(a.dout);
 
-  load_tile(sQ, Q, b, q0, kBQ, a.Sq, a.H, h, D);
-  load_tile(sdO, dO, b, q0, kBQ, a.Sq, a.H, h, D);
+  auto issue = [&](int t, int slot_) {
+    T* dst = ring + slot_ * 2 * kTile;
+    issue_tile<T, DP>(dst, K, b, t * kT, a.Skv, a.KH, kh, a.D);
+    issue_tile<T, DP>(dst + kTile, V, b, t * kT, a.Skv, a.KH, kh, a.D);
+  };
+  if (jb < je) issue(jb, 0);
+  load_resident<T, DP>(sQ, Q, b, q0, a.Sq, a.H, h, a.D);
+  load_resident<T, DP>(sdO, dO, b, q0, a.Sq, a.H, h, a.D);
+  cp_async_commit();
+  if (tid < kT) {
+    const int qp = q0 + tid;
+    sL[tid] = qp < a.Sq ? a.lse[((size_t)b * a.H + h) * a.Sq + qp] : INFINITY;
+  }
+  cp_async_wait_all();
   __syncthreads();
-  // D_i = dO_i . O_i
-  float di = 0.f;
-  if (qp < a.Sq) {
-    const T* orow = O + (((size_t)b * a.Sq + qp) * a.H + h) * D;
-    for (int d = lane8; d < D; d += 8) di += sdO[r * ld + d] * to_f32(orow[d]);
-  }
-  di = row_sum(di);
-
-  // the KV tiles holding a key the mask keeps for some row of the tile
-  const int q_last = min(q0 + kBQ, a.Sq) - 1;
-  const int k_hi = a.causal ? min(q_last, a.Skv - 1) : a.Skv - 1;
-  const int k_lo = a.window > 0 ? max(q0 - a.window + 1, 0) : 0;
-  const int t0 = k_lo / kBK, t1 = k_hi < k_lo ? t0 - 1 : k_hi / kBK;
-  const float* qrow = sQ + r * ld;
-  const float* grow = sdO + r * ld;
-
-  // pass 1: the row log-sum-exp
-  float m = -INFINITY, l = 0.f;
-  for (int t = t0; t <= t1; ++t) {
-    __syncthreads();
-    load_tile(sK, K, b, t * kBK, kBK, a.Skv, a.KH, kh, D);
-    __syncthreads();
-    float s[kEnt];
-#pragma unroll
-    for (int i = 0; i < kEnt; ++i) s[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float x = qrow[d];
-#pragma unroll
-      for (int i = 0; i < kEnt; ++i) s[i] += x * sK[(lane8 + 8 * i) * ld + d];
-    }
-    float tm = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kEnt; ++i) {
-      float dcap;
-      s[i] = kept(qp, t * kBK + lane8 + 8 * i, a) ? score(s[i], a, &dcap)
-                                                 : -INFINITY;
-      tm = fmaxf(tm, s[i]);
-    }
-    const float mn = fmaxf(m, row_max(tm));
-    float ps = 0.f;
-    if (mn > -INFINITY) {
-#pragma unroll
-      for (int i = 0; i < kEnt; ++i)
-        ps += s[i] > -INFINITY ? expf(s[i] - mn) : 0.f;
-    }
-    ps = row_sum(ps);
-    if (mn > -INFINITY) {
-      l = l * expf(m - mn) + ps;
-      m = mn;
-    }
-  }
-  // a row with no kept key has P = 0 everywhere: L = +inf gives exp(S - L) = 0
-  const float L = l > 0.f ? m + logf(l) : INFINITY;
-  if (lane8 == 0 && qp < a.Sq) {
-    const size_t at = ((size_t)b * a.H + h) * a.Sq + qp;
-    a.lse[at] = L;
-    a.delta[at] = di;
-  }
-
-  // pass 2: dQ
-  float acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-  for (int t = t0; t <= t1; ++t) {
-    __syncthreads();
-    load_tile(sK, K, b, t * kBK, kBK, a.Skv, a.KH, kh, D);
-    load_tile(sV, V, b, t * kBK, kBK, a.Skv, a.KH, kh, D);
-    __syncthreads();
-    float s[kEnt], p[kEnt];
-#pragma unroll
-    for (int i = 0; i < kEnt; ++i) s[i] = p[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float x = qrow[d], g = grow[d];
-#pragma unroll
-      for (int i = 0; i < kEnt; ++i) {
-        const int at = (lane8 + 8 * i) * ld + d;
-        s[i] += x * sK[at];
-        p[i] += g * sV[at];
+  {  // D_i = dO_i . O_i: 8 lanes a row, every 8th chunk, then xor shuffles
+    const int r = tid >> 3, l8 = tid & 7, qp = q0 + r;
+    float d = 0.f;
+    if (qp < a.Sq) {
+      const T* orow = static_cast<const T*>(a.o) +
+                      (((size_t)b * a.Sq + qp) * a.H + h) * a.D;
+      for (int c = 4 * l8; c < a.D; c += 32) {
+        const float4 g = ld4(sdO + r * kLf + c), o = ld4(orow + c);
+        d = fmaf(g.x, o.x, d);
+        d = fmaf(g.y, o.y, d);
+        d = fmaf(g.z, o.z, d);
+        d = fmaf(g.w, o.w, d);
       }
     }
-#pragma unroll
-    for (int i = 0; i < kEnt; ++i) {
-      const int c = lane8 + 8 * i;
-      float ds = 0.f;
-      if (kept(qp, t * kBK + c, a)) {
-        float dcap;
-        const float sc = score(s[i], a, &dcap);
-        ds = expf(sc - L) * (p[i] - di) * dcap;
-      }
-      sS[r * kLdS + c] = ds;
-    }
-    __syncthreads();
-    for (int c = 0; c < kBK; ++c) {
-      const float w = sS[r * kLdS + c];
-      const float* krow = sK + c * ld;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane8 + 8 * j;
-        if (d < D) acc[j] += w * krow[d];
-      }
+    d += __shfl_xor_sync(0xffffffffu, d, 4);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (l8 == 0) {
+      sD[r] = d;
+      if (first && qp < a.Sq) a.delta[((size_t)b * a.H + h) * a.Sq + qp] = d;
     }
   }
-  if (qp < a.Sq) {
-    T* out = static_cast<T*>(a.dq) + (((size_t)b * a.Sq + qp) * a.H + h) * D;
+
+  // score layout: rows 4 warp + j, columns (keys) 8 cg + (eighth ds);
+  // after the reduction the key 8 cg + ds
+  const int ds = lane & 7, cg = lane >> 3;
+  // accumulation layout: rows 4 warp + j, chunks cc and cc + DP / 8, keys
+  // ks, ks + 32 / (DP / 8), ...
+  const int cc = lane % kCC, ks = lane / kCC;
+  float acc[4][8];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane8 + 8 * j;
-      if (d < D) out[d] = from_f32<T>(acc[j] * a.scale);
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = jb; t < je; ++t) {
+    const int rs = (t - jb) & 1;
+    // tile t landed (the prologue's wait covers the first); every thread
+    // is past tile t - 1, so its slot and sdS are free
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < je) issue(t + 1, rs ^ 1);
+    cp_async_commit();
+    const T* Kt = ring + rs * 2 * kTile;
+    const T* Vt = Kt + kTile;
+    float sacc[4][8], sv[4], pv[4];
+    score_tile<T, DP>(sQ, Kt, warp, cg, ds, sacc);
+    reduce_scatter(sacc, ds, sv);
+    score_tile<T, DP>(sdO, Vt, warp, cg, ds, sacc);
+    reduce_scatter(sacc, ds, pv);
+    const int kc = 8 * cg + ds, kp = t * kT + kc;
+    const float4 L4 = ld4(sL + 4 * warp), D4 = ld4(sD + 4 * warp);
+    const float Lr[4] = {L4.x, L4.y, L4.z, L4.w};
+    const float Dr[4] = {D4.x, D4.y, D4.z, D4.w};
+    float dsv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p;
+      dsv[j] = kept(q0 + 4 * warp + j, kp, a)
+                   ? grad_score(sv[j], pv[j], Lr[j], Dr[j], a, &p)
+                   : 0.f;
+    }
+    store4(sdS + kc * kLdS + 4 * warp,
+           make_float4(dsv[0], dsv[1], dsv[2], dsv[3]));
+    __syncthreads();
+    accum_tile<T, DP>(sdS, Kt, warp, cc, ks, acc);
+  }
+  reduce_classes<DP>(acc);
+  if (ks != 0) return;
+  float* w = a.wsq + ((size_t)blockIdx.x * 2 + (slot < 0 ? 0 : slot)) * kT * a.D;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 4 * warp + j, qp = q0 + r;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 4 * (cc + kCC * u);
+      if (c >= a.D) continue;
+      const float4 v4 = make_float4(acc[j][4 * u], acc[j][4 * u + 1],
+                                    acc[j][4 * u + 2], acc[j][4 * u + 3]);
+      if (slot < 0) {
+        if (qp < a.Sq)
+          store4(static_cast<T*>(a.dq) +
+                     (((size_t)b * a.Sq + qp) * a.H + h) * a.D + c,
+                 scale4(v4, a.scale));
+      } else {
+        store4(w + (size_t)r * a.D + c, v4);
+      }
     }
   }
 }
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads) fa_bwd_dkdv(Args a) {
-  extern __shared__ float smem[];
-  const int D = a.D, ld = D + 1;
-  float* sK = smem;
-  float* sV = sK + kBK * ld;
-  float* sQ = sV + kBK * ld;
-  float* sdO = sQ + kBQ * ld;
-  float* sP = sdO + kBQ * ld;              // P  [kBK][kLdS]
-  float* sS = sP + kBK * kLdS;             // dS [kBK][kLdS]
-  float* sL = sS + kBK * kLdS;             // L, D of the query tile
-  float* sD = sL + kBQ;
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+// dK and dV of key tile j, KV head kh, batch row b over its steps [ub,
+// ue) (query head kh G + u / nqt, query tile lo + u % nqt): into dk, dv
+// where slot < 0, else the f32 partials into the block's slot
+template <typename T, int DP>
+__device__ __forceinline__ void dkdv_segment(const Args& a,
+                                             unsigned char* smem, int j,
+                                             int b, int kh, int ub, int ue,
+                                             int slot) {
+  constexpr int kLf = Ld<DP>::kF, kTile = Ring<T, DP>::kTile;
+  constexpr int kCC = DP / 8;
+  float* sK = reinterpret_cast<float*>(smem);          // [kT][kLf]
+  float* sV = sK + kT * kLf;                           // [kT][kLf]
+  float* sP = sV + kT * kLf;                           // P [queries][kLdS]
+  float* sdS = sP + kT * kLdS;                         // dS [queries][kLdS]
+  float* sLD = sdS + kT * kLdS;                        // 2 x (L, D) [kT]
+  T* ring = reinterpret_cast<T*>(sLD + 4 * kT);        // 2 x (Q, dO)
   const int G = a.H / a.KH;
-  const int c = threadIdx.x >> 3, lane8 = threadIdx.x & 7;
-  const int kp = k0 + c;
+  int lo, hi;
+  query_range(a, j, lo, hi);
+  const int nqt = hi - lo, k0 = j * kT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* Q = static_cast<const T*>(a.q);
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
   const T* dO = static_cast<const T*>(a.dout);
 
-  load_tile(sK, K, b, k0, kBK, a.Skv, a.KH, kh, D);
-  load_tile(sV, V, b, k0, kBK, a.Skv, a.KH, kh, D);
-  // the query tiles holding a row the mask lets see some key of the tile
-  const int k_last = min(k0 + kBK, a.Skv) - 1;
-  const int q_lo = a.causal ? k0 : 0;
-  const int q_hi =
-      a.window > 0 ? min(k_last + a.window - 1, a.Sq - 1) : a.Sq - 1;
-  const int t0 = q_lo / kBQ, t1 = q_hi < q_lo ? t0 - 1 : q_hi / kBQ;
-  const float* krow = sK + c * ld;
-  const float* vrow = sV + c * ld;
-
-  float dk[NJ], dv[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) dk[j] = dv[j] = 0.f;
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    for (int t = t0; t <= t1; ++t) {
-      const int q0 = t * kBQ;
-      __syncthreads();
-      load_tile(sQ, Q, b, q0, kBQ, a.Sq, a.H, h, D);
-      load_tile(sdO, dO, b, q0, kBQ, a.Sq, a.H, h, D);
-      if (threadIdx.x < kBQ) {
-        const int qp = q0 + threadIdx.x;
-        const size_t at = ((size_t)b * a.H + h) * a.Sq + qp;
-        sL[threadIdx.x] = qp < a.Sq ? a.lse[at] : INFINITY;
-        sD[threadIdx.x] = qp < a.Sq ? a.delta[at] : 0.f;
-      }
-      __syncthreads();
-      float s[kEnt], p[kEnt];
-#pragma unroll
-      for (int i = 0; i < kEnt; ++i) s[i] = p[i] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float x = krow[d], y = vrow[d];
-#pragma unroll
-        for (int i = 0; i < kEnt; ++i) {
-          const int at = (lane8 + 8 * i) * ld + d;
-          s[i] += x * sQ[at];
-          p[i] += y * sdO[at];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kEnt; ++i) {
-        const int r = lane8 + 8 * i;
-        float pr = 0.f, ds = 0.f;
-        if (kept(q0 + r, kp, a)) {
-          float dcap;
-          const float sc = score(s[i], a, &dcap);
-          pr = expf(sc - sL[r]);
-          ds = pr * (p[i] - sD[r]) * dcap;
-        }
-        sP[c * kLdS + r] = pr;
-        sS[c * kLdS + r] = ds;
-      }
-      __syncthreads();
-      for (int r = 0; r < kBQ; ++r) {
-        const float pr = sP[c * kLdS + r], ds = sS[c * kLdS + r];
-        const float* qr = sQ + r * ld;
-        const float* gr = sdO + r * ld;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = lane8 + 8 * j;
-          if (d < D) {
-            dv[j] += pr * gr[d];
-            dk[j] += ds * qr[d];
-          }
-        }
-      }
+  auto issue = [&](int u, int slot_) {
+    const int h = kh * G + u / nqt, q0 = (lo + u % nqt) * kT;
+    T* dst = ring + slot_ * 2 * kTile;
+    issue_tile<T, DP>(dst, Q, b, q0, a.Sq, a.H, h, a.D);
+    issue_tile<T, DP>(dst + kTile, dO, b, q0, a.Sq, a.H, h, a.D);
+    if (tid < 2 * kT) {
+      const int r = tid & (kT - 1), qp = q0 + r;
+      const bool ok = qp < a.Sq;
+      const size_t at = ok ? ((size_t)b * a.H + h) * a.Sq + qp : 0;
+      cp_async4(sLD + slot_ * 2 * kT + tid, (tid < kT ? a.lse : a.delta) + at,
+                ok);
     }
-  }
-  if (kp < a.Skv) {
-    const size_t at = (((size_t)b * a.Skv + kp) * a.KH + kh) * D;
-    T* ok = static_cast<T*>(a.dk) + at;
-    T* ov = static_cast<T*>(a.dv) + at;
+  };
+  if (ub < ue) issue(ub, 0);
+  load_resident<T, DP>(sK, static_cast<const T*>(a.k), b, k0, a.Skv, a.KH,
+                       kh, a.D);
+  load_resident<T, DP>(sV, static_cast<const T*>(a.v), b, k0, a.Skv, a.KH,
+                       kh, a.D);
+  cp_async_commit();
+
+  const int ds = lane & 7, cg = lane >> 3;
+  const int cc = lane % kCC, ks = lane / kCC;
+  float dk[4][8], dv[4][8];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane8 + 8 * j;
-      if (d < D) {
-        ok[d] = from_f32<T>(dk[j] * a.scale);
-        ov[d] = from_f32<T>(dv[j]);
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) dk[r][c] = dv[r][c] = 0.f;
+
+#pragma unroll 1
+  for (int u = ub; u < ue; ++u) {
+    const int rs = (u - ub) & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (u + 1 < ue) issue(u + 1, rs ^ 1);
+    cp_async_commit();
+    const T* Qt = ring + rs * 2 * kTile;
+    const T* dOt = Qt + kTile;
+    const float* Lt = sLD + rs * 2 * kT;
+    const int q0 = (lo + u % nqt) * kT;
+    float sacc[4][8], sv[4], pv[4];
+    score_tile<T, DP>(sK, Qt, warp, cg, ds, sacc);
+    reduce_scatter(sacc, ds, sv);
+    score_tile<T, DP>(sV, dOt, warp, cg, ds, sacc);
+    reduce_scatter(sacc, ds, pv);
+    // rows: keys 4 warp + r; column: the query qc
+    const int qc = 8 * cg + ds, qp = q0 + qc;
+    const float L = Lt[qc], dlt = Lt[kT + qc];
+    float pr[4], dsv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pr[r] = dsv[r] = 0.f;
+      if (kept(qp, k0 + 4 * warp + r, a))
+        dsv[r] = grad_score(sv[r], pv[r], L, dlt, a, &pr[r]);
+    }
+    store4(sP + qc * kLdS + 4 * warp, make_float4(pr[0], pr[1], pr[2], pr[3]));
+    store4(sdS + qc * kLdS + 4 * warp,
+           make_float4(dsv[0], dsv[1], dsv[2], dsv[3]));
+    __syncthreads();
+    accum_tile<T, DP>(sP, dOt, warp, cc, ks, dv);
+    accum_tile<T, DP>(sdS, Qt, warp, cc, ks, dk);
+  }
+  reduce_classes<DP>(dk);
+  reduce_classes<DP>(dv);
+  if (ks != 0) return;
+  float* w =
+      a.wsk + ((size_t)blockIdx.x * 2 + (slot < 0 ? 0 : slot)) * 2 * kT * a.D;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * warp + r, kp = k0 + row;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = 4 * (cc + kCC * u);
+      if (c >= a.D) continue;
+      const float4 k4 = make_float4(dk[r][4 * u], dk[r][4 * u + 1],
+                                    dk[r][4 * u + 2], dk[r][4 * u + 3]);
+      const float4 v4 = make_float4(dv[r][4 * u], dv[r][4 * u + 1],
+                                    dv[r][4 * u + 2], dv[r][4 * u + 3]);
+      if (slot < 0) {
+        if (kp < a.Skv) {
+          const size_t at = (((size_t)b * a.Skv + kp) * a.KH + kh) * a.D + c;
+          store4(static_cast<T*>(a.dk) + at, scale4(k4, a.scale));
+          store4(static_cast<T*>(a.dv) + at, v4);
+        }
+      } else {
+        store4(w + (size_t)row * a.D + c, k4);
+        store4(w + (size_t)(kT + row) * a.D + c, v4);
       }
     }
   }
 }
 
-// dynamic shared memory of either kernel (the larger, dkdv's): four
-// 32-row f32 tiles of D + 1 words, the two score tiles, L and D
-size_t smem_bytes(int D) {
-  return sizeof(float) *
-         ((size_t)(2 * kBQ + 2 * kBK) * (D + 1) + 2 * kBK * kLdS + 2 * kBQ);
+// one block an equal span of the query tiles' steps (stream-K): each unit
+// (query tile x head) the span touches, whole or in part
+// the block's span [span[0], span[1]), into the plan for the fold too:
+// one thread computes, the block reads shared memory
+template <bool DQ>
+__device__ __forceinline__ void block_span(const Args& a, int* span) {
+  if (threadIdx.x == 0) {
+    const int nb = DQ ? a.nbq : a.nbk;
+    int* plan = DQ ? a.planq : a.plank;
+    span[0] = span_start<DQ>(a, blockIdx.x);
+    span[1] = span_start<DQ>(a, blockIdx.x + 1);
+    plan[blockIdx.x] = span[0];
+    if ((int)blockIdx.x == nb - 1) plan[nb] = span[1];
+  }
+  __syncthreads();
 }
 
-template <typename T, int NJ>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.D);
-  cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dq<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(fa_bwd_dkdv<T, NJ>,
+// the unit holding step u, found by one thread; the span's first (`first`)
+// goes into the plan
+template <bool DQ>
+__device__ __forceinline__ Unit next_unit(const Args& a, int u, bool first) {
+  __shared__ Unit s_unit;
+  if (threadIdx.x == 0) {
+    s_unit = unit_of<DQ>(a, u);
+    if (first) {
+      const int nb = DQ ? a.nbq : a.nbk;
+      int* d = (DQ ? a.planq : a.plank) + nb + 1 + 5 * blockIdx.x;
+      d[0] = s_unit.tile;
+      d[1] = s_unit.b;
+      d[2] = s_unit.head;
+      d[3] = s_unit.u0;
+      d[4] = s_unit.n;
+    }
+  }
+  __syncthreads();
+  return s_unit;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1)
+    fa_bwd_dq(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_span[2];
+  block_span<true>(a, s_span);
+  const int start = s_span[0], end = s_span[1];
+  for (int u = start; u < end;) {
+    const Unit t = next_unit<true>(a, u, u == start);
+    const int se = t.u0 + t.n < end ? t.u0 + t.n : end;
+    int lo, hi;
+    key_range(a, t.tile, lo, hi);
+    dq_segment<T, DP>(a, smem_raw, t.tile, t.b, t.head, lo + u - t.u0,
+                      lo + se - t.u0, u == t.u0,
+                      segment_slot(t, u, se, start));
+    u = se;
+    __syncthreads();   // the next segment reuses the shared tiles
+  }
+}
+
+// one block an equal span of the key tiles' steps (stream-K)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_span[2];
+  block_span<false>(a, s_span);
+  const int start = s_span[0], end = s_span[1];
+  for (int u = start; u < end;) {
+    const Unit t = next_unit<false>(a, u, u == start);
+    const int se = t.u0 + t.n < end ? t.u0 + t.n : end;
+    dkdv_segment<T, DP>(a, smem_raw, t.tile, t.b, t.head, u - t.u0,
+                        se - t.u0, segment_slot(t, u, se, start));
+    u = se;
+    __syncthreads();
+  }
+}
+
+// the unit that block f's span ends, where f is the last of several blocks
+// whose spans share it: rows [4 rg, 4 rg + 4) of its blocks' f32 partials
+// added in block order (empty spans skipped), scaled, rounded
+template <typename T, bool DQ>
+__device__ __forceinline__ void fold_rows(const Args& a, int f, int rg) {
+  const int nb = DQ ? a.nbq : a.nbk;
+  if (f >= nb) return;
+  // the plan the main kernel's blocks wrote: span starts, first units
+  const int* starts = DQ ? a.planq : a.plank;
+  const int s = starts[f], e = starts[f + 1];
+  if (s >= e) return;
+  const int* d = starts + nb + 1 + 5 * f;
+  const Unit t{d[0], d[1], d[2], d[3], d[4]};
+  if (t.u0 >= s || t.u0 + t.n > e) return;   // f is not a unit's last block
+  int b0 = f - 1;   // the unit's first block: the last whose start <= u0
+  while (starts[b0] > t.u0) --b0;
+  const int cpr = a.D / 4, S = DQ ? a.Sq : a.Skv;
+  const float* ws = DQ ? a.wsq : a.wsk;
+  const int stride = DQ ? 1 : 2;   // tiles a slot: dQ, or dK and dV
+  for (int idx = threadIdx.x; idx < kFoldRows * cpr; idx += kFoldThreads) {
+    const int r = kFoldRows * rg + idx / cpr, c = (idx % cpr) * 4;
+    const int pos = t.tile * kT + r;
+    if (pos >= S) continue;
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+    for (int bb = b0; bb <= f; ++bb) {
+      // slot 1 where the unit starts inside the first block's span; an
+      // empty span wrote nothing
+      if (starts[bb] == starts[bb + 1]) continue;
+      const int slot = bb == b0 && starts[bb] != t.u0 ? 1 : 0;
+      const float* w = ws + ((size_t)bb * 2 + slot) * stride * kT * a.D;
+      const float4 x = ld4(w + (size_t)r * a.D + c);
+      s0.x += x.x;
+      s0.y += x.y;
+      s0.z += x.z;
+      s0.w += x.w;
+      if (!DQ) {
+        const float4 y = ld4(w + (size_t)(kT + r) * a.D + c);
+        s1.x += y.x;
+        s1.y += y.y;
+        s1.z += y.z;
+        s1.w += y.w;
+      }
+    }
+    if (DQ) {
+      store4(static_cast<T*>(a.dq) +
+                 (((size_t)t.b * a.Sq + pos) * a.H + t.head) * a.D + c,
+             scale4(s0, a.scale));
+    } else {
+      const size_t at = (((size_t)t.b * a.Skv + pos) * a.KH + t.head) * a.D + c;
+      store4(static_cast<T*>(a.dk) + at, scale4(s0, a.scale));
+      store4(static_cast<T*>(a.dv) + at, s1);
+    }
+  }
+}
+
+// the units that several blocks share: block (f, y) folds rows 4 y of the
+// dQ unit that block f ends (y < 8), or rows 4 (y - 8) of its dK, dV unit
+template <typename T>
+__global__ void __launch_bounds__(kFoldThreads) fa_bwd_fold(const Args a) {
+  constexpr int kGroups = kT / kFoldRows;
+  if ((int)blockIdx.y < kGroups)
+    fold_rows<T, true>(a, blockIdx.x, blockIdx.y);
+  else
+    fold_rows<T, false>(a, blockIdx.x, blockIdx.y - kGroups);
+}
+
+// the kernels' dynamic shared memory attributes, set once a device
+template <typename T, int DP>
+cudaError_t set_smem_attributes() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(fa_bwd_dq<T, DP>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+                           (int)DqSmem<T, DP>::kBytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fa_bwd_dkdv<T, DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)DkdvSmem<T, DP>::kBytes);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return e;
+}
+
+template <typename T, int DP>
+int launch(const Args& a, cudaStream_t stream) {
+  cudaError_t e = set_smem_attributes<T, DP>();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dq<T, NJ><<<dim3((a.Sq + kBQ - 1) / kBQ, a.H, a.B), kThreads, smem,
-                     stream>>>(a);
+  // fa_bwd_dq writes D, which fa_bwd_dkdv reads: the same stream
+  fa_bwd_dq<T, DP><<<a.nbq, kThreads, DqSmem<T, DP>::kBytes, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkdv<T, NJ><<<dim3((a.Skv + kBK - 1) / kBK, a.KH, a.B), kThreads,
-                       smem, stream>>>(a);
+  fa_bwd_dkdv<T, DP><<<a.nbk, kThreads, DkdvSmem<T, DP>::kBytes, stream>>>(
+      a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  fa_bwd_fold<T><<<dim3(a.nbq > a.nbk ? a.nbq : a.nbk, 2 * kT / kFoldRows),
+                   kFoldThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dim(const Args& a, cudaStream_t stream) {
-  if (a.D <= 16) return launch<T, 2>(a, stream);
-  if (a.D <= 32) return launch<T, 4>(a, stream);
-  if (a.D <= 64) return launch<T, 8>(a, stream);
-  if (a.D <= 128) return launch<T, 16>(a, stream);
-  return launch<T, 32>(a, stream);
+int launch_dim(const Args& a, cudaStream_t s) {
+  if (a.D <= 32) return launch<T, 32>(a, s);
+  if (a.D <= 64) return launch<T, 64>(a, s);
+  if (a.D <= 128) return launch<T, 128>(a, s);
+  return launch<T, 256>(a, s);
 }
 
 }  // namespace
 
-// dq, dk, dv (the inputs' type) and the f32 scratch `lse_delta` (2 x
-// [B, H, Sq]: L, then D) are the caller's; returns 0, -1 for arguments the
-// kernels do not take, else the CUDA error of the attribute or a launch
+// q, k, v, out, dout, dq, dk, dv in the inputs' type (is_bf16); lse and
+// delta f32 [B, H, Sq]; nbq, nbk the blocks of the dq and the dk/dv kernel
+// (the wrapper's `bwd_work`: one, or two at D <= 128 for dq, an SM); ws
+// holds the partials, nbq * 2 * 32 * D floats (dQ) then nbk * 2 * 2 * 32 * D
+// (dK, dV), then the plans, 6 (nbq + nbk) + 2 ints.  Query or key tiles that no key or query reaches are not
+// written: the caller zeroes their rows.  Returns 0, -1 for arguments the
+// kernels do not take, else the CUDA error of an attribute or a launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, void* dq, void* dk, void* dv, void* lse_delta,
-    int is_bf16, int B, int Sq, int Skv, int H, int KH, int D, float scale,
-    int causal, int window, float softcap, void* stream) {
-  if (B <= 0 || B > 65535 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH ||
-      H > 65535 || D <= 0 || D > 256 || softcap < 0.f)
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, void* ws, int is_bf16, int B, int Sq, int Skv, int H,
+    int KH, int D, int nbq, int nbk, float scale, int causal, int window,
+    float softcap, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH || D <= 0 ||
+      D > 256 || D % 8 || softcap < 0.f || nbq <= 0 || nbk <= 0 || !lse ||
+      !delta || !ws)
     return -1;
   Args a;
   a.q = q;
@@ -440,22 +992,42 @@ extern "C" int flash_attention_bwd_launch(
   a.v = v;
   a.o = out;
   a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.lse = static_cast<float*>(lse_delta);
-  a.delta = a.lse + (size_t)B * H * Sq;
+  a.delta = static_cast<float*>(delta);
   a.B = B;
   a.Sq = Sq;
   a.Skv = Skv;
   a.H = H;
   a.KH = KH;
   a.D = D;
+  a.nq = (Sq + kT - 1) / kT;
+  a.nk = (Skv + kT - 1) / kT;
+  a.nbq = nbq;
+  a.nbk = nbk;
   a.scale = scale;
   a.softcap = softcap;
   a.inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   a.causal = causal;
   a.window = window;
+  a.Wq = a.Wk = a.Cq = a.Ck = 0;
+  for (int i = 0; i < a.nq; ++i) {
+    const int n = q_steps(a, i);
+    a.Wq += (long long)B * H * n;
+    if (n) a.Cq += (long long)B * H * (kSegmentCost + kStepCost * n);
+  }
+  for (int j = 0; j < a.nk; ++j) {
+    const int n = k_steps(a, j);
+    a.Wk += (long long)B * KH * n;
+    if (n) a.Ck += (long long)B * KH * (kSegmentCost + kStepCost * n);
+  }
+  if (a.Wq > 0x7fffffffLL || a.Wk > 0x7fffffffLL) return -1;
+  a.wsq = static_cast<float*>(ws);
+  a.wsk = a.wsq + (size_t)nbq * 2 * kT * D;
+  a.planq = reinterpret_cast<int*>(a.wsk + (size_t)nbk * 4 * kT * D);
+  a.plank = a.planq + 6 * nbq + 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_dim<__nv_bfloat16>(a, s) : launch_dim<float>(a, s);
 }

@@ -36,10 +36,11 @@ merges, the CPU's rehearsal of the kernel's split.
 The gradient (``FlashAttentionFn``, a ``torch.autograd.Function``):
 ``flash_attention`` takes it whenever grad mode is on and q, k or v
 requires grad.  Its forward is the forward above; it saves q, k, v, the
-output and, where the tensor-core kernel ran, the row log-sum-exp L that
-kernel writes beside O (``flash_attention_with_lse``; O is the same bits
-with and without it).  Its backward (``flash_attention_bwd``) follows the
-forward's rule (``bwd_kernel_for``):
+output and the row log-sum-exp L that either forward kernel writes beside
+O when given a buffer (``flash_attention_with_lse``; O is the same bits
+with and without it; on the CPU ``ref.flash_lse_plain``).  Its backward
+(``flash_attention_bwd``) takes that L and follows the forward's rule
+(``bwd_kernel_for``):
 
 * bf16 with ``acc_dtype="f32"`` and D % 16 == 0, D <= 256 launches the
   tensor-core kernels of ``csrc/flash_attention_bwd_mma.cu`` (a dq kernel
@@ -48,9 +49,13 @@ forward's rule (``bwd_kernel_for``):
   there are several), fed the forward's L; its plain version is
   ``ref.flash_attention_bwd_mma_plain`` (P and dS rounded to bf16);
 * everything else launches the CUDA-core kernels of
-  ``csrc/flash_attention_bwd.cu`` (f32 sums; a dq kernel that recomputes L
-  and writes it and dO.O to an f32 scratch, then a dk/dv kernel); its
-  plain version is ``ref.flash_attention_bwd_plain``.
+  ``csrc/flash_attention_bwd.cu`` (f32 FFMA, register-blocked: a dq kernel
+  that also writes dO.O, a dk/dv kernel, each with one block an SM
+  walking an equal span of its tile steps (``bwd_work``, stream-K), and a
+  fold kernel adding in block order the f32 partials of the tiles that
+  several spans share); its plain version is
+  ``ref.flash_attention_bwd_plain`` with L given, and
+  ``ref.flash_attention_bwd_split_plain`` rehearses the split.
 
 CPU tensors take the plain version of the kernel the rule picks.  A CUDA
 tensor the kernel does not take raises.  The JAX package has no
@@ -65,6 +70,7 @@ took).
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 from typing import List, NamedTuple, Tuple
@@ -99,6 +105,10 @@ MMA_SLOTS = 2             # slots of its K/V ring (csrc: kSlots)
 # SM, in at most BWD_MAX_PARTS parts (csrc: kMaxCluster, a cluster's blocks)
 BWD_BLOCKS_PER_SM = 1
 BWD_MAX_PARTS = 8
+BWD_T = 32                # rows of the CUDA-core backward's tiles (csrc kT)
+# its spans' costs: a tile step and a unit's own (csrc kStepCost,
+# kSegmentCost)
+BWD_STEP_COST, BWD_SEGMENT_COST = 5, 3
 _fns = {}
 
 
@@ -112,9 +122,9 @@ def _launcher(name):
         elif name == BWD_MMA:
             fn.argtypes = [P] * 10 + [I] * 7 + [F, I, I, F, P]
         elif name == BWD:
-            fn.argtypes = [P] * 9 + [I] * 7 + [F, I, I, F, P]
+            fn.argtypes = [P] * 11 + [I] * 9 + [F, I, I, F, P]
         else:
-            fn.argtypes = [P, P, P, P, P] + [I] * 13 + [F, I, I, F, P]
+            fn.argtypes = [P] * 6 + [I] * 13 + [F, I, I, F, P]
         fn.restype = I
         _fns[name] = fn
     return fn
@@ -151,6 +161,143 @@ def bwd_split(B: int, Skv: int, H: int, KH: int) -> int:
     parts = [d for d in range(1, min(G, BWD_MAX_PARTS) + 1) if G % d == 0]
     return next((d for d in parts if base * d >= BWD_BLOCKS_PER_SM * SMS),
                 parts[-1])
+
+
+def _query_range(j: int, T: int, Sq: int, Skv: int, causal: bool,
+                 window) -> Tuple[int, int]:
+    """The query tiles ``[lo, hi)`` of ``T`` rows holding a row the mask
+    lets see a key of key tile ``j`` (csrc ``query_range``)."""
+    k_last = min((j + 1) * T, Skv) - 1
+    q_hi = Sq - 1 if not window else min(k_last + window - 1, Sq - 1)
+    lo = j if causal else 0
+    return lo, max(q_hi // T + 1, lo)
+
+
+class BwdWork(NamedTuple):
+    """The CUDA-core backward's work split (stream-K): each kernel's tile
+    steps in one order (``dq_units``: 32-row query tiles last-first, each
+    for every batch row and query head, its key tiles in order;
+    ``dkdv_units``: 32-key tiles first-first, each for every batch row
+    and KV head, its (query head of the group, query tile) pairs,
+    head-major), cut into ``nbq`` (``nbk``) spans of equal cost, one a
+    block (``spans``).  A unit (a tile of one head) inside one span is
+    written by its block;
+    one that several spans share gets an f32 partial from each, which the
+    fold kernel adds in block order.  ``q_ranges``: each query tile's key
+    tiles; ``k_ranges``: each key tile's query tiles."""
+    B: int
+    H: int
+    KH: int
+    T: int
+    nq: int
+    nk: int
+    nbq: int
+    nbk: int
+    q_ranges: Tuple[Tuple[int, int], ...]
+    k_ranges: Tuple[Tuple[int, int], ...]
+
+    def dq_units(self) -> List[Tuple[int, int, int, int, int]]:
+        """``(query tile, batch row, head, first step, steps)`` of every
+        unit with a step, in step order (csrc ``dq_unit``)."""
+        return self._units([(i, hi - lo) for i, (lo, hi) in
+                            reversed(list(enumerate(self.q_ranges)))],
+                           self.H)
+
+    def dkdv_units(self) -> List[Tuple[int, int, int, int, int]]:
+        """``(key tile, batch row, KV head, first step, steps)``, the same
+        for the dk/dv kernel (csrc ``dkdv_unit``); step u of a unit is
+        query head ``kh * G + u // nqt`` and query tile ``lo + u % nqt``."""
+        G = self.H // self.KH
+        return self._units([(j, G * (hi - lo)) for j, (lo, hi) in
+                            enumerate(self.k_ranges)], self.KH)
+
+    def _units(self, tiles, heads):
+        out, first = [], 0
+        for tile, n in tiles:
+            if n == 0:
+                continue
+            for b in range(self.B):
+                for h in range(heads):
+                    out.append((tile, b, h, first, n))
+                    first += n
+        return out
+
+    @staticmethod
+    def spans(units, nb: int) -> List[int]:
+        """The first step of each of ``nb`` blocks' spans, and the steps'
+        end (csrc ``span_start``): the cut points of the units' cost (a
+        unit ``BWD_SEGMENT_COST + BWD_STEP_COST * n``, its own cost first)
+        into ``nb`` equal parts, each moved to the nearest step."""
+        cost = [0]
+        for *_, n in units:
+            cost.append(cost[-1] + BWD_SEGMENT_COST + BWD_STEP_COST * n)
+        out = []
+        for b in range(nb + 1):
+            x = cost[-1] * b // nb
+            k = bisect.bisect_right(cost, x) - 1
+            if k == len(units):
+                out.append(sum(u[4] for u in units))
+                continue
+            *_, u0, n = units[k]
+            o = x - cost[k] - BWD_SEGMENT_COST
+            out.append(u0 + (0 if o <= 0 else min(
+                n, (o + BWD_STEP_COST // 2) // BWD_STEP_COST)))
+        return out
+
+    @classmethod
+    def segments(cls, units, nb: int) -> List[List[Tuple[int, int, int,
+                                                         int]]]:
+        """Each unit's segments ``(first step, end, block, slot)`` over the
+        ``nb`` blocks' ``spans`` (csrc ``segment_slot``): slot -1 where
+        the block holds the whole unit, else 0 where the segment starts
+        the block's span and 1 where it ends it."""
+        starts = cls.spans(units, nb)
+        out = []
+        for *_, u0, n in units:
+            segs, u = [], u0
+            while u < u0 + n:
+                blk = bisect.bisect_right(starts, u) - 1
+                se = min(u0 + n, starts[blk + 1])
+                slot = (-1 if (u, se) == (u0, u0 + n)
+                        else 0 if u == starts[blk] else 1)
+                segs.append((u, se, blk, slot))
+                u = se
+            out.append(segs)
+        return out
+
+    def blocks(self) -> Tuple[int, int]:
+        """The grids of the dq and the dk/dv kernel."""
+        return self.nbq, self.nbk
+
+    def workspace(self, D: int) -> int:
+        """32-bit elements of the workspace (csrc ``ws``): the f32
+        partials, two slots a block (dQ, then dK and dV), then each
+        kernel's plan for the fold (its blocks' span starts and first
+        units)."""
+        return (self.T * D * (2 * self.nbq + 4 * self.nbk)
+                + 6 * (self.nbq + self.nbk) + 2)
+
+    def empty(self) -> Tuple[bool, bool]:
+        """Whether some query tile sees no key (its dq rows are not
+        written) and whether some key tile is seen by no query (dk, dv)."""
+        return (any(hi == lo for lo, hi in self.q_ranges),
+                any(hi == lo for lo, hi in self.k_ranges))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_work(B: int, Sq: int, Skv: int, H: int, KH: int, D: int, *,
+             causal=True, window=None) -> BwdWork:
+    """The CUDA-core backward's split, from the shapes alone (cached: a
+    call at seen shapes costs the host nothing): one block for each of the
+    H100's ``SMS`` SMs, the dq kernel two at D <= 128 (csrc: its launch
+    bounds), each a span of equal cost of its kernel's units."""
+    T = BWD_T
+    nq, nk = -(-Sq // T), -(-Skv // T)
+    return BwdWork(B, H, KH, T, nq, nk, SMS * (2 if D <= 128 else 1), SMS,
+                   tuple(tile_range(i, T, T, Sq, Skv, causal, window)
+                         for i in range(nq)),
+                   tuple(_query_range(j, T, Sq, Skv, causal, window)
+                         for j in range(nk)))
 
 
 def smem_bytes(D: int, lk: int, kernel: str = SIMT, elem: int = 4) -> int:
@@ -383,9 +530,9 @@ def flash_attention_with_lse(q, k, v, *, causal=True, window=None,
                              block_k=128, acc_dtype="f32"):
     """``flash_attention``'s forward (no autograd node) with the row
     log-sum-exp the backward takes: ``(out, lse)``, lse [B,H,Sq] f32 (+inf
-    for a row with no kept key) where ``kernel_for`` picks the tensor-core
-    kernel, which writes it beside the same O; None for the CUDA-core
-    kernel's inputs.  On the CPU lse is ``ref.flash_lse_plain``."""
+    for a row with no kept key), which either forward kernel writes beside
+    the same O (the bf16 accumulator's L from an unrounded f32 sum).  On
+    the CPU lse is ``ref.flash_lse_plain``."""
     _check_args(q, k, v, window, softcap, acc_dtype)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
@@ -397,10 +544,9 @@ def _forward(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
              acc_dtype, with_lse=False):
     """The forward kernels (or, on the CPU, the plain version), arguments
     checked and ``scale`` resolved: ``(out, lse)``, lse None unless
-    ``with_lse`` and the tensor-core kernel's rule holds."""
+    ``with_lse``."""
     D = q.shape[-1]
     kernel = kernel_for(q.dtype, acc_dtype, D)
-    with_lse = with_lse and kernel == MMA
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         out = flash_attention_plain(q, k, v, block_q=block_q,
@@ -438,6 +584,7 @@ def _forward(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
             ws = torch.empty(B * KH * sp.nq * sp.smax * ROWS * (D + 2),
                              dtype=torch.float32, device=q.device)
         rc = _launcher(SIMT)(*ptrs, ws.data_ptr() if ws is not None else None,
+                             lse.data_ptr() if with_lse else None,
                              int(q.dtype == torch.bfloat16), B, Sq, Skv, H,
                              KH, D, nc, bq, lk, sp.T, sp.smax,
                              int(acc_dtype == "bf16"), scale, *tail)
@@ -451,8 +598,8 @@ def _forward(q, k, v, *, causal, window, softcap, scale, block_q, block_k,
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward kernels, then
-    ``flash_attention_bwd`` on the saved q, k, v, output and (tensor-core
-    forward) row log-sum-exp.  Arguments after v are ``flash_attention``'s
+    ``flash_attention_bwd`` on the saved q, k, v, output and row
+    log-sum-exp.  Arguments after v are ``flash_attention``'s
     keywords in order (``scale`` resolved); they get no gradient."""
 
     @staticmethod
@@ -482,13 +629,12 @@ def flash_attention_bwd(q, k, v, out, d_out, lse=None, *, causal=True,
     """(dq, dk, dv) of ``flash_attention(q, k, v, ..., acc_dtype=...)`` at
     the output ``out``, its row log-sum-exp ``lse`` and the cotangent
     ``d_out`` (cast to q's dtype and made contiguous, as autograd may hand
-    it over strided), in q's dtype.  ``bwd_kernel_for`` picks the kernel:
-    ``BWD_MMA`` (bf16, f32 accumulator, D % 16 == 0) takes ``lse``
-    [B,H,Sq] f32 from ``flash_attention_with_lse`` and raises without it;
-    ``BWD`` recomputes L and ignores ``lse``.  On CUDA tensors the kernels
-    (one launch counted in ``flash_attention.bwd_launches``, and in
-    ``bwd_mma_launches`` for the tensor-core one); on CPU tensors their
-    plain versions."""
+    it over strided), in q's dtype.  ``bwd_kernel_for`` picks the kernel,
+    ``BWD_MMA`` (bf16, f32 accumulator, D % 16 == 0) or ``BWD``; both take
+    ``lse`` [B,H,Sq] f32 from ``flash_attention_with_lse`` and raise
+    without it.  On CUDA tensors the kernels (one launch counted in
+    ``flash_attention.bwd_launches``, and in ``bwd_mma_launches`` for the
+    tensor-core one); on CPU tensors their plain versions."""
     _check_args(q, k, v, window, softcap, acc_dtype)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if out.shape != q.shape or d_out.shape != q.shape:
@@ -498,9 +644,9 @@ def flash_attention_bwd(q, k, v, out, d_out, lse=None, *, causal=True,
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     kernel = bwd_kernel_for(q.dtype, acc_dtype, D)
-    if kernel == BWD_MMA and (lse is None or lse.shape != (B, H, Sq)
-                              or lse.dtype != torch.float32):
-        raise ValueError(f"{BWD_MMA} takes the forward's lse, f32 "
+    if (lse is None or lse.shape != (B, H, Sq)
+            or lse.dtype != torch.float32):
+        raise ValueError(f"{kernel} takes the forward's lse, f32 "
                          f"[{B}, {H}, {Sq}]; got "
                          f"{None if lse is None else (lse.dtype, tuple(lse.shape))}")
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
@@ -509,7 +655,7 @@ def flash_attention_bwd(q, k, v, out, d_out, lse=None, *, causal=True,
         if kernel == BWD_MMA:
             return flash_attention_bwd_mma_plain(q, k, v, out, d_out, lse,
                                                  **kw)
-        return flash_attention_bwd_plain(q, k, v, out, d_out, **kw)
+        return flash_attention_bwd_plain(q, k, v, out, d_out, lse, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on CUDA or CPU, not "
                          f"{q.device}")
@@ -523,30 +669,36 @@ def flash_attention_bwd(q, k, v, out, d_out, lse=None, *, causal=True,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tail = (scale, int(bool(causal)), int(window) if window else 0,
             float(softcap) if softcap else 0.0, stream)
+    for name, t in (("out", out), ("d_out", d_out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("lse must be contiguous on q's device")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if kernel == BWD_MMA:
-        for name, t in (("out", out), ("d_out", d_out)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
-        if lse.device != q.device or not lse.is_contiguous():
-            raise ValueError("lse must be contiguous on q's device")
-        delta = torch.empty((B, H, Sq), dtype=torch.float32,
-                            device=q.device)
         rc = _launcher(BWD_MMA)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, KH, D,
             bwd_split(B, Skv, H, KH), *tail)
     else:
-        if D > 256:
-            raise ValueError(f"flash_attention_bwd takes head_dim <= 256; "
-                             f"got {tuple(q.shape)}")
-        scratch = torch.empty(2 * B * H * Sq, dtype=torch.float32,
-                              device=q.device)
+        if D > 256 or D % 8:
+            raise ValueError(f"flash_attention_bwd takes head_dim <= 256 "
+                             f"with head_dim % 8 == 0; got {tuple(q.shape)}")
+        w = bwd_work(B, Sq, Skv, H, KH, D, causal=bool(causal),
+                     window=int(window) if window else None)
+        # rows that no key (no query) reaches are not written: zero them
+        for t, empty in zip((dq, dk, dv), w.empty() + w.empty()[1:]):
+            if empty:
+                t.zero_()
+        ws = torch.empty(w.workspace(D), dtype=torch.float32,
+                         device=q.device)
         rc = _launcher(BWD)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv,
-            H, KH, D, *tail)
+            d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), ws.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, KH, D, w.nbq,
+            w.nbk, *tail)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed (rc={rc})")
     flash_attention.bwd_launches += 1

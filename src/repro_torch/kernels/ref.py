@@ -9,9 +9,11 @@ CPU.
   ``repro.kernels.ref.flash_attention_ref``) and ``flash_attention_plain``
   (the blocked online softmax of ``repro.kernels.flash_attention``, with
   its rounding points); its gradient in the two backward kernels'
-  arithmetic, ``flash_attention_bwd_plain`` (CUDA-core, f32) and
-  ``flash_attention_bwd_mma_plain`` (tensor cores: L from the forward,
-  ``flash_lse_plain``, P and dS rounded to bf16);
+  arithmetic, ``flash_attention_bwd_plain`` (CUDA-core, f32; with the
+  forward's L, ``flash_lse_plain``, or recomputing it) beside
+  ``flash_attention_bwd_split_plain`` (its parts' partials added in order)
+  and ``flash_attention_bwd_mma_plain`` (tensor cores: L from the forward,
+  P and dS rounded to bf16);
 * the recurrences: ``wkv6_plain`` and ``ssm_scan_plain`` (ports of
   ``repro.kernels.ref``'s scans, with the dtypes of the Pallas kernels
   ``repro.kernels.wkv6`` and ``repro.kernels.ssm_scan``), each the zero
@@ -283,9 +285,9 @@ def _flash_scores(q, k, *, causal, window, softcap, scale):
 def flash_lse_plain(q, k, *, causal=True, window=None, softcap=None,
                     scale=None):
     """The forward's row log-sum-exp, as ``csrc/flash_attention_mma.cu``
-    writes it for the backward: L [B, H, Sq] in f32 (f64 stays f64) of the
-    masked, capped scores, +inf for a row with no kept key (so that P =
-    exp(S - L) = 0 there)."""
+    and ``csrc/flash_attention.cu`` write it for the backward: L [B, H,
+    Sq] in f32 (f64 stays f64) of the masked, capped scores, +inf for a
+    row with no kept key (so that P = exp(S - L) = 0 there)."""
     B, Sq, H, D = q.shape
     scale = scale if scale is not None else D ** -0.5
     s, _, keep = _flash_scores(q, k, causal=causal, window=window,
@@ -330,8 +332,9 @@ def _flash_bwd(q, k, v, out, d_out, lse, rnd, *, causal, window, softcap,
             dv.to(v.dtype))
 
 
-def flash_attention_bwd_plain(q, k, v, out, d_out, *, causal=True,
-                              window=None, softcap=None, scale=None):
+def flash_attention_bwd_plain(q, k, v, out, d_out, lse=None, *,
+                              causal=True, window=None, softcap=None,
+                              scale=None):
     """The gradients of the flash forward, in the CUDA-core backward
     kernel's own arithmetic (``csrc/flash_attention_bwd.cu``), written out
     rather than taken by autograd.  q, out, d_out [B,Sq,H,D]; k,v
@@ -340,12 +343,80 @@ def flash_attention_bwd_plain(q, k, v, out, d_out, *, causal=True,
 
     With S the capped score ``cap * tanh(scale q.k / cap)`` (the raw one
     without a softcap) under the forward's mask: the row log-sum-exp L is
-    recomputed from Q and K, P = exp(S - L) (0 where masked), D_i =
-    sum_d dO.O, dV = P^T dO, dP = dO V^T, dS = P (dP - D), times
-    1 - (S / cap)^2 with a softcap, dQ = scale dS K, dK = scale dS^T Q;
-    dK and dV sum over the query heads of each GQA group."""
-    return _flash_bwd(q, k, v, out, d_out, None, None, causal=causal,
+    ``lse`` [B,H,Sq] (the forward's, as ``flash_lse_plain`` gives it;
+    what the kernel reads) or, without it, recomputed from Q and K (the
+    same values), P = exp(S - L) (0 where masked), D_i = sum_d dO.O,
+    dV = P^T dO, dP = dO V^T, dS = P (dP - D), times 1 - (S / cap)^2 with
+    a softcap, dQ = scale dS K, dK = scale dS^T Q; dK and dV sum over the
+    query heads of each GQA group."""
+    return _flash_bwd(q, k, v, out, d_out, lse, None, causal=causal,
                       window=window, softcap=softcap, scale=scale)
+
+
+def _sum_in_order(parts):
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def flash_attention_bwd_split_plain(q, k, v, out, d_out, lse, work, *,
+                                    causal=True, window=None, softcap=None,
+                                    scale=None, fold=_sum_in_order):
+    """The CUDA-core backward's split in plain torch (f32; f64 stays
+    f64): ``work`` is the wrapper's ``bwd_work`` of these shapes (tiles of
+    ``work.T`` rows; ``dq_units``, ``dkdv_units`` and ``segments`` over
+    ``nbq``, ``nbk`` blocks).  Each segment's partial, as a block of
+    ``csrc/flash_attention_bwd.cu`` forms it (dQ of a query tile and head
+    over the segment's key tiles; dK and dV of a key tile and KV head over
+    its (query head, query tile) steps, in step order), and each unit's
+    partials added by ``fold`` (in block order, as the fold kernel adds
+    them), then dQ and dK scaled.  P and dS are
+    ``flash_attention_bwd_plain``'s with L given (``lse`` [B,H,Sq]).
+    Returns (dq, dk, dv) in the inputs' dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G, T = H // KH, work.T
+    scale = scale if scale is not None else D ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, of, gf = (t.to(acc).reshape(B, Sq, KH, G, D) for t in (q, out, d_out))
+    kf, vf = k.to(acc), v.to(acc)
+    s, t, keep = _flash_scores(q, k, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+    p = torch.where(keep, torch.exp(s - lse.to(acc).reshape(B, KH, G, Sq)
+                                    [..., None]), 0.0)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", gf, of)
+    ds = p * (torch.einsum("bqkgd,bskd->bkgqs", gf, vf) - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.zeros((B, Sq, KH, G, D), dtype=acc, device=q.device)
+    units = work.dq_units()
+    for (i, b, h, u0, _), segs in zip(units, work.segments(units, work.nbq)):
+        rows, lo = slice(i * T, (i + 1) * T), work.q_ranges[i][0]
+        kh, g = divmod(h, G)
+        parts = []
+        for u, se, _, _ in segs:
+            keys = slice((lo + u - u0) * T, (lo + se - u0) * T)
+            parts.append(ds[b, kh, g, rows, keys] @ kf[b, keys, kh])
+        dq[b, rows, kh, g] = fold(parts)
+    dk = torch.zeros((B, Skv, KH, D), dtype=acc, device=q.device)
+    dv = torch.zeros_like(dk)
+    units = work.dkdv_units()
+    for (j, b, kh, u0, _), segs in zip(units, work.segments(units, work.nbk)):
+        keys, (lo, hi) = slice(j * T, (j + 1) * T), work.k_ranges[j]
+        pk, pv = [], []
+        for u, se, _, _ in segs:
+            sk = sv = torch.zeros_like(dk[b, keys, kh])
+            for step in range(u - u0, se - u0):
+                g, ti = divmod(step, hi - lo)
+                rows = slice((lo + ti) * T, (lo + ti + 1) * T)
+                sk = sk + ds[b, kh, g, rows, keys].T @ qf[b, rows, kh, g]
+                sv = sv + p[b, kh, g, rows, keys].T @ gf[b, rows, kh, g]
+            pk.append(sk)
+            pv.append(sv)
+        dk[b, keys, kh], dv[b, keys, kh] = fold(pk), fold(pv)
+    dq = dq.reshape(B, Sq, H, D) * scale
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_mma_plain(q, k, v, out, d_out, lse, *, causal=True,

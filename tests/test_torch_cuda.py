@@ -872,8 +872,8 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
                                         KH, D):
     """The backward kernels against their plain versions, each gradient
     within ``chip_smoke.FLASH_BWD_TOL`` of its max|want|, on a ragged
-    length (S=300) from a strided cotangent; one launch counted.  bf16
-    takes the tensor-core kernels, fed the forward's L, against
+    length (S=300) from a strided cotangent; one launch counted; both fed
+    the forward's L.  bf16 takes the tensor-core kernels, against
     ``flash_attention_bwd_mma_plain``; f32 the CUDA-core kernels, against
     ``flash_attention_bwd_plain``."""
     g = torch.Generator(device=dev).manual_seed(0)
@@ -881,7 +881,7 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
     q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(torch, g, dev, c,
                                                          dtype, S=300)
     lse, o_same = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
-    assert o_same and (lse is None) == (dtype == torch.float32)
+    assert o_same and lse is not None
     before = (flash_attention.bwd_launches, flash_attention.bwd_mma_launches)
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     got = flash_attention_bwd(q, k, v, out, dout.transpose(1, 2)
@@ -895,8 +895,147 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
         want = ref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse,
                                                  **kw)
     else:
-        want = ref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+        want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
     assert max(chip_smoke.flash_bwd_ratios(got, want)) < tol
+
+
+@pytest.mark.parametrize("acc_dtype,window,softcap,H,KH,D", [
+    ("f32", None, 50.0, 8, 4, 24), ("f32", 7, None, 6, 2, 136),
+    ("bf16", None, 50.0, 8, 4, 256), ("bf16", 64, None, 4, 1, 64)])
+def test_flash_bwd_cuda_core_kernel_in_bf16(dev, acc_dtype, window, softcap,
+                                            H, KH, D):
+    """The CUDA-core backward on its bf16 routes (D % 16 == 8, and the bf16
+    accumulator), fed the CUDA-core forward's L, against
+    ``flash_attention_bwd_plain`` with that L within the bf16 gate, on a
+    ragged length (S=300); one launch counted, none on the tensor
+    cores."""
+    from repro_torch.kernels.flash_attention import (BWD, bwd_kernel_for,
+                                                     flash_attention_bwd,
+                                                     flash_attention_with_lse)
+    assert bwd_kernel_for(torch.bfloat16, acc_dtype, D) == BWD
+    g = torch.Generator(device=dev).manual_seed(4)
+    c = dict(B=2, H=H, KH=KH, D=D, window=window, softcap=softcap)
+    q, k, v, _, dout, kw = chip_smoke.flash_bwd_inputs(torch, g, dev, c,
+                                                       torch.bfloat16, S=300)
+    out, lse = flash_attention_with_lse(q, k, v, acc_dtype=acc_dtype, **kw)
+    before = (flash_attention.bwd_launches, flash_attention.bwd_mma_launches)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, acc_dtype=acc_dtype,
+                              **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.bwd_launches,
+            flash_attention.bwd_mma_launches) == (before[0] + 1, before[1])
+    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    assert max(chip_smoke.flash_bwd_ratios(got, want)) < \
+        chip_smoke.FLASH_BWD_TOL["bfloat16"]
+
+
+def _flash_bwd_f32_at(dev, case, graph=False):
+    """The CUDA-core backward in f32 at ``case`` (512 tokens) fed the
+    forward's L, against its plain version fed the f64 plain L, the
+    forward's L within ``FLASH_LSE_TOL``, one launch counted, a second
+    call the same bits and, with ``graph``, 3 calls captured in a CUDA
+    graph and replayed the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(
+        torch, g, dev, case, torch.float32,
+        S=case.get("S", chip_smoke.FLASH_BWD_S))
+    lse, o_same = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
+    assert o_same
+    lse_want = chip_smoke.flash_lse_want(torch, ref, q, k, kw)
+    assert chip_smoke.flash_lse_err(torch, lse, lse_want) <= \
+        chip_smoke.FLASH_LSE_TOL
+    before = (flash_attention.bwd_launches, flash_attention.bwd_mma_launches)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.bwd_launches,
+            flash_attention.bwd_mma_launches) == (before[0] + 1, before[1])
+    want = ref.flash_attention_bwd_plain(q, k, v, out, dout,
+                                         lse_want.float(), **kw)
+    assert max(chip_smoke.flash_bwd_ratios(
+        got, want)) < chip_smoke.FLASH_BWD_TOL["float32"]
+    again = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if not graph:
+        return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    cg = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cg):
+        replayed = [flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+                    for _ in range(3)]
+    cg.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for r in replayed for a, b in zip(got, r))
+
+
+@pytest.mark.parametrize("case", chip_smoke.FLASH_BWD_CASES + (
+    dict(arch="split-wide", B=1, H=64, KH=1, D=256, window=None,
+         softcap=None, S=64),), ids=lambda c: f"{c['arch']}-w{c['window']}"
+                                              f"-cap{c['softcap']}")
+def test_flash_bwd_f32_kernel_at_train_shapes(dev, case):
+    """The CUDA-core backward in f32 at every ``FLASH_BWD_CASES`` shape at
+    B 1, and at 64 query heads over one KV head at 64 tokens (key tile 0
+    shared by 88 blocks, the widest split: at 512 tokens at most 16),
+    against its plain version, deterministic (``_flash_bwd_f32_at``)."""
+    from repro_torch.kernels.flash_attention import bwd_work
+
+    def widest(S, H, KH, D, window):
+        w = bwd_work(1, S, S, H, KH, D, window=window)
+        return max(len(s) for s in w.segments(w.dkdv_units(), w.nbk))
+    case = dict(case, B=1)
+    if case["arch"] == "split-wide":
+        assert widest(64, 64, 1, 256, None) == 88 > max(
+            widest(chip_smoke.FLASH_BWD_S, c["H"], c["KH"], c["D"],
+                   c["window"]) for c in chip_smoke.FLASH_BWD_CASES)
+    _flash_bwd_f32_at(dev, case)
+
+
+def test_flash_bwd_f32_replays_from_a_cuda_graph(dev):
+    """The CUDA-core backward with its split's workspace and fold kernel
+    captured in a CUDA graph: its replay gives the eager call's bits (the
+    call reads no device value)."""
+    _flash_bwd_f32_at(dev, dict(chip_smoke.FLASH_BWD_CONTROL_CASE),
+                      graph=True)
+
+
+@pytest.mark.parametrize(
+    "B,S,Skv,H,KH,D,window,softcap,dtype,acc_dtype,split", [
+        (1, 512, 512, 8, 4, 256, None, 50.0, torch.float32, "f32", True),
+        (2, 300, 300, 4, 1, 128, 64, None, torch.float32, "f32", True),
+        (1, 40, 12, 2, 1, 16, 4, None, torch.float32, "f32", False),
+        (1, 200, 200, 4, 2, 64, None, 30.0, torch.bfloat16, "bf16", False),
+        (2, 77, 77, 2, 2, 40, None, None, torch.bfloat16, "f32", True)])
+def test_flash_cuda_core_forward_lse_leaves_o_unchanged(
+        dev, B, S, Skv, H, KH, D, window, softcap, dtype, acc_dtype, split):
+    """The CUDA-core forward writes the same O with and without its lse
+    buffer, split (``work_split`` gives more than one item a tile, the
+    merge kernel writes L) and unsplit (the bf16 accumulator is never
+    split), and L
+    within ``FLASH_LSE_TOL`` of the log-sum-exp of the f64 plain scores,
+    +inf where a row keeps no key (40 queries over 12 keys under a window
+    of 4)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_with_lse,
+                                                     work_split)
+    sp = work_split(B, S, Skv, H, KH, causal=True, window=window,
+                    acc_dtype=acc_dtype)
+    assert (sp.smax > 1) == split
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, Skv, KH, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap, scale=D ** -0.5)
+    out = flash_attention(q, k, v, acc_dtype=acc_dtype, **kw)
+    got, lse = flash_attention_with_lse(q, k, v, acc_dtype=acc_dtype, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
+    want = chip_smoke.flash_lse_want(torch, ref, q, k, kw)
+    assert chip_smoke.flash_lse_err(torch, lse, want) <= \
+        chip_smoke.FLASH_LSE_TOL
+    assert torch.isinf(want).any() == (Skv < S)
 
 
 @pytest.mark.parametrize("case", chip_smoke.FLASH_BWD_CASES,

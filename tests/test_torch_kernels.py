@@ -15,7 +15,10 @@ The flash backward: ``ref.flash_attention_bwd_plain`` (the arithmetic of
 tokens x softcap 50 x GQA groups 1, 2, 4 x D 16, 32, each gradient within
 1e-5 of its max|want| (the same f32 function in another order); against
 ``jax.grad`` of the reference's flash oracle at one windowed, softcapped
-GQA shape (1e-5), beside its interpret-mode kernel's forward; ``chip_smoke.py``'s
+GQA shape (1e-5), beside its interpret-mode kernel's forward; the
+CUDA-core kernels' split rehearsed (``ref.flash_attention_bwd_split_plain``:
+each part's partial added in part order) against both (1e-5), the split
+rule (``bwd_work``) at the card's f32 shapes; ``chip_smoke.py``'s
 ``FLASH_BWD_MUST_CATCH`` faults each failing that gate; the wiring of
 ``FlashAttentionFn`` on the CPU (saved tensors, ``needs_input_grad``, a
 strided cotangent, bf16) and the no-backward guards of the other kernels.
@@ -330,12 +333,13 @@ def test_flash_bwd_faults_fail_the_gate(name):
         torch, g, "cpu", chip_smoke.FLASH_BWD_CONTROL_CASE, torch.float32,
         S=64)
     kw["window"] = 16
-    want = tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    lse = tref.flash_lse_plain(q, k, **kw)
+    want = tref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
     sound = chip_smoke.flash_bwd_ratios(
-        tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw), want)
+        tref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw), want)
     assert max(sound) == 0.0
     controls = chip_smoke.flash_bwd_controls(torch, tref, q, k, v, out,
-                                             dout, kw, want)
+                                             dout, lse, kw, want)
     assert controls[name]["caught"]
     assert max(controls[name]["ratios"]) > BWD_TOL
 
@@ -428,9 +432,9 @@ def test_flash_lse_plain_gives_inf_to_a_row_with_no_key():
     (torch.float32, "bf16", 256, tfa.BWD)])
 def test_flash_bwd_dispatch_follows_the_forward(dtype, acc_dtype, D, want):
     """The backward takes the tensor-core kernel exactly where the forward
-    does, and on the CPU the plain version of the kernel it picks: the
-    tensor-core class needs the forward's L (``flash_attention_with_lse``
-    gives it, None for the other class) and raises without it."""
+    does, and on the CPU the plain version of the kernel it picks; both
+    classes need the forward's L (``flash_attention_with_lse`` gives it,
+    on the CPU ``flash_lse_plain``) and raise without it."""
     assert tfa.bwd_kernel_for(dtype, acc_dtype, D) == want
     assert (want == tfa.BWD_MMA) == (tfa.kernel_for(dtype, acc_dtype, D)
                                      == tfa.MMA)
@@ -444,15 +448,15 @@ def test_flash_bwd_dispatch_follows_the_forward(dtype, acc_dtype, D, want):
                                                 **kw))
     got = tfa.flash_attention_bwd(q, k, v, out, dout, lse,
                                   acc_dtype=acc_dtype, **kw)
+    assert torch.equal(lse, tref.flash_lse_plain(q, k, **kw))
     if want == tfa.BWD:
-        assert lse is None
-        plain = tref.flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+        plain = tref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
     else:
         plain = tref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse,
                                                    **kw)
-        with pytest.raises(ValueError, match="lse"):
-            tfa.flash_attention_bwd(q, k, v, out, dout, acc_dtype=acc_dtype,
-                                    **kw)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd(q, k, v, out, dout, acc_dtype=acc_dtype,
+                                **kw)
     for a, b in zip(got, plain):
         assert torch.equal(a, b)
 
@@ -466,6 +470,113 @@ def test_flash_bwd_dispatch_follows_the_forward(dtype, acc_dtype, D, want):
     ((1, 64, 6, 6), 1)])      # no group to split
 def test_flash_bwd_split_rule(shape, ns):
     assert tfa.bwd_split(*shape) == ns
+
+
+@pytest.mark.parametrize("S,Skv,H,KH,causal,window,softcap", [
+    (70, 70, 4, 2, True, None, 50.0), (64, 64, 6, 2, True, 16, None),
+    (40, 12, 2, 1, True, 4, None), (33, 50, 2, 2, False, 20, None)])
+def test_flash_bwd_split_plain_matches_plain_and_jax_grad(S, Skv, H, KH,
+                                                          causal, window,
+                                                          softcap):
+    """The CUDA-core backward's split, rehearsed: every segment's partial
+    as a block forms it, added in block order, against
+    ``flash_attention_bwd_plain`` with the same L (1e-5 of each max|want|:
+    the same f32 function, other sums) and, where every row keeps a key,
+    against ``jax.grad`` of ``repro.kernels.ref.flash_attention_ref``
+    (1e-5; the oracle's softmax gives a row with no key uniform weights
+    over the masked keys, the kernels P = 0); the rule's split over 3 and
+    5 blocks, so that units are shared at these sizes; ragged, windowed,
+    non-causal and with rows that keep no key."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(1, S, H, 16)) * 2).float()
+    k, v = (torch.from_numpy(rng.normal(size=(1, Skv, KH, 16))).float()
+            for _ in range(2))
+    dout = torch.from_numpy(rng.normal(size=(1, S, H, 16))).float()
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=0.25)
+    out = tref.flash_attention_plain(q, k, v, **kw)
+    lse = tref.flash_lse_plain(q, k, **kw)
+    work = tfa.bwd_work(1, S, Skv, H, KH, 16, causal=causal,
+                        window=window)._replace(nbq=3, nbk=5)
+    assert any(len(s) > 1 for s in work.segments(work.dkdv_units(), 5))
+    got = tref.flash_attention_bwd_split_plain(q, k, v, out, dout, lse, work,
+                                               **kw)
+    want = tref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    assert max(_ratios(got, want)) < BWD_TOL
+    if not torch.isfinite(lse).all():
+        return
+    jq, jk, jv = _jax(q.numpy(), k.numpy(), v.numpy())
+
+    def f(q_, k_, v_):
+        return jnp.vdot(jref.flash_attention_ref(q_, k_, v_, **kw),
+                        jnp.asarray(dout.numpy()))
+    jwant = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    assert max(_ratios(got, [torch.from_numpy(np.asarray(w))
+                             for w in jwant])) < BWD_TOL
+
+
+@pytest.mark.parametrize("case", chip_smoke.FLASH_BWD_CASES + (
+    chip_smoke.FLASH_BWD_CONTROL_CASE,), ids=lambda c: f"{c['arch']}-"
+                         f"w{c['window']}-cap{c['softcap']}")
+def test_flash_bwd_work_fills_the_card(case):
+    """The CUDA-core backward's split at the card's f32 shapes (B 1, 512
+    tokens): each kernel launches one block an SM (the dq kernel two at
+    D 128), every block's cost (``BWD_STEP_COST`` a step,
+    ``BWD_SEGMENT_COST`` a segment) within a step and two segments of the
+    mean, every step of every unit (tile x head; every key tile of a
+    query tile, every head x query tile of a key tile) in exactly one
+    segment, in order, a segment's slot -1 where it is the whole unit, and
+    at most one unit a block shared with another block on each side."""
+    S = chip_smoke.FLASH_BWD_S
+    w = tfa.bwd_work(1, S, S, case["H"], case["KH"], case["D"], causal=True,
+                     window=case["window"])
+    assert w.blocks() == (tfa.SMS * (2 if case["D"] <= 128 else 1), tfa.SMS)
+    G = case["H"] // case["KH"]
+    for units, nb, per in ((w.dq_units(), w.nbq, None),
+                           (w.dkdv_units(), w.nbk, G)):
+        W = sum(u[4] for u in units)
+        assert [u[3] for u in units] == [sum(x[4] for x in units[:n])
+                                         for n in range(len(units))]
+        segs = w.segments(units, nb)
+        cost = [0] * nb
+        shared = [0] * nb
+        for (*_, u0, n), ss in zip(units, segs):
+            assert [x for u, se, _, _ in ss for x in range(u, se)] == \
+                list(range(u0, u0 + n))
+            assert (ss[0][3] == -1) == (len(ss) == 1)
+            for u, se, blk, slot in ss:
+                cost[blk] += tfa.BWD_STEP_COST * (se - u) + \
+                    tfa.BWD_SEGMENT_COST
+                shared[blk] += slot >= 0
+        mean = (tfa.BWD_STEP_COST * W + tfa.BWD_SEGMENT_COST * len(units)) / nb
+        assert max(cost) <= mean + tfa.BWD_STEP_COST + \
+            2 * tfa.BWD_SEGMENT_COST
+        assert max(shared) <= 2
+    q_lo, q_hi = w.q_ranges[-1]
+    assert [u[0] for u in w.dq_units()][:case["H"]] == [w.nq - 1] * case["H"]
+    assert q_hi - q_lo == max(hi - lo for lo, hi in w.q_ranges)
+    assert tfa.bwd_work(1, S, S, case["H"], case["KH"], case["D"],
+                        causal=True, window=case["window"]) is w  # cached
+
+
+def test_flash_forward_gives_lse_on_the_cuda_core_route():
+    """``flash_attention_with_lse`` gives L for the CUDA-core forward's
+    inputs too (f32, the bf16 accumulator, bf16 at D % 16 == 8): on the
+    CPU ``flash_lse_plain``, beside the same O; ``FlashAttentionFn``
+    saves it."""
+    for dtype, acc_dtype, D in ((torch.float32, "f32", 32),
+                                (torch.bfloat16, "bf16", 32),
+                                (torch.bfloat16, "f32", 24)):
+        assert tfa.kernel_for(dtype, acc_dtype, D) == tfa.SIMT
+        q, k, v, _ = _bwd_inputs(1, 20, 4, 2, D, dtype)
+        kw = dict(causal=True, window=6, softcap=30.0, scale=D ** -0.5)
+        out, lse = tfa.flash_attention_with_lse(q, k, v, acc_dtype=acc_dtype,
+                                                **kw)
+        assert torch.equal(lse, tref.flash_lse_plain(q, k, **kw))
+        assert torch.equal(out, tfa.flash_attention(q, k, v,
+                                                    acc_dtype=acc_dtype, **kw))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    node = tfa.flash_attention(*xs, acc_dtype="f32", **kw).grad_fn
+    assert torch.equal(node.saved_tensors[4], lse)
 
 
 @pytest.mark.parametrize("name", chip_smoke.FLASH_BWD_MMA_MUST_CATCH)
