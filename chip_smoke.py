@@ -5011,9 +5011,13 @@ def flash_bwd_fault(torch, ref, name, q, k, v, out, dout, lse, kw):
         work = bwd_work(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                         k.shape[2], q.shape[3], causal=kw["causal"],
                         window=kw["window"])
+        # every shared unit's fold one partial short: its last
+        work = work._replace(**{
+            name: table._replace(folds=table.folds - torch.tensor(
+                [0, 0, 0, 0, 1], dtype=table.folds.dtype))
+            for name, table in (("dq", work.dq), ("dkdv", work.dkdv))})
         return ref.flash_attention_bwd_split_plain(
-            q, k, v, out, dout, lse, work, **kw,
-            fold=lambda parts: sum(parts[1:-1], parts[0]))
+            q, k, v, out, dout, lse, work, **kw)
     if name == "lse_next_row":
         lse = torch.cat([lse[..., 1:], lse[..., -1:]], dim=-1)
         return sound(q, k, v, out, dout, lse, **kw)

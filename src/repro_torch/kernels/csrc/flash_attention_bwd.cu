@@ -73,28 +73,25 @@
 //   the tile that landed and frees the slot it refills, one publishes the
 //   transposed P / dS tile.  With f32 inputs the resident tiles load by
 //   cp.async too, bf16 ones are widened once.
-// - Work on every SM without atomics (stream-K; the wrapper's `bwd_work`,
-//   a function of the shapes alone, so a call reads no device value and
-//   can be captured in a CUDA graph).  Each kernel's units in order
-//   (`fa_bwd_dq`: query tiles last-first, the longest under a causal
-//   mask; `fa_bwd_dkdv`: key tiles first-first; each for every (batch
-//   row, head)) cost kSegmentCost + kStepCost a step; the total is cut
-//   into nb equal parts, each cut moved to the nearest step, one span a
-//   block, nb one block an SM (`fa_bwd_dq` two at DP <= 128).  A block
-//   walks its span unit by unit (one thread finds each unit, the block
-//   reads it from shared memory): a unit inside the span it writes whole;
-//   a unit that several spans share gets an f32 partial from each, in the
-//   block's slot 0 (the span's first segment) or 1 (its last).  The
-//   blocks write their span starts and first units into a plan in the
-//   workspace, and `fa_bwd_fold` (16 blocks a block boundary, 4 rows
-//   each) reads it: where block f is the last of a unit's blocks, it adds
-//   their partials in block order, then scales and rounds.  So no SM
-//   idles while another walks a long causal tile.  Equal spans of steps
-//   put the many one-step units at the end of the causal order into a
-//   few blocks, each paying a prologue a unit (gemma2-2b's dq kernel 116
-//   us against 80 with costs); splitting each tile into parts of at most
-//   T steps, one a block (the first design), left SMs idle or paid a
-//   prologue a part, and its best T moved with the shape (PERF.md, PR 32).
+// - Work on every SM without atomics (stream-K).  The schedule is the
+//   wrapper's (`bwd_work`, a function of the shapes alone, copied to the
+//   device once a shape, so a call reads no device value and can be
+//   captured in a CUDA graph); the kernels only read it.  Each kernel's
+//   units in order (`fa_bwd_dq`: query tiles last-first, the longest
+//   under a causal mask; `fa_bwd_dkdv`: key tiles first-first; each for
+//   every (batch row, head)), their cost cut into nb equal spans, one a
+//   block, nb one block an SM (`fa_bwd_dq` two at DP <= 128).  The plan
+//   lists each block's segments (a unit's steps in its span): a segment
+//   that is the whole unit writes the gradient; the others write f32
+//   partials to the workspace, numbered in block order, and `fa_bwd_fold`
+//   (16 blocks a shared unit, 4 rows each) adds each shared unit's
+//   partials in that order, then scales and rounds.  So no SM idles
+//   while another walks a long causal tile.  Equal spans of steps put the
+//   many one-step units at the end of the causal order into a few blocks,
+//   each paying a prologue a unit (gemma2-2b's dq kernel 116 us against
+//   80 with a cost a unit); the costs and the first design (each tile cut
+//   into parts of at most T steps, one a block) are compared in PERF.md.
+//   Every plan field is int32: the wrapper raises where one would not fit.
 // - Shared memory at DP = 256 (f32): the two resident tiles (32 x 260
 //   f32 each), 2 slots of two streamed tiles (32 x 260 in the inputs'
 //   type), the transposed tiles (32 x 36 f32; two in `fa_bwd_dkdv`) and
@@ -130,10 +127,8 @@ constexpr int kLdS = kT + 4;          // row stride of the transposed tiles
 constexpr int kFoldThreads = 256;
 constexpr int kFoldRows = 4;          // rows of a unit a fold block adds
 constexpr int kMaxDevices = 64;
-// the spans' costs: a tile step, and a segment's own (its prologue's
-// loads, D, the partial out and back), in the same units
-constexpr int kStepCost = 5;
-constexpr int kSegmentCost = 3;
+constexpr int kSegInts = 8;           // a segment of the plan
+constexpr int kFoldInts = 5;          // a shared unit of the plan
 
 struct Args {
   const void* q;
@@ -146,131 +141,22 @@ struct Args {
   void* dk;
   void* dv;
   float* delta;       // [B, H, Sq], written by fa_bwd_dq
-  float* wsq;         // dQ partials [nbq][2][kT][D]
-  float* wsk;         // dK, dV partials [nbk][2][2][kT][D]
-  int* planq;         // span starts [nbq + 1], first units [nbq][5]
-  int* plank;         // the same for fa_bwd_dkdv
+  float* wsq;         // dQ partials [pq][kT][D]
+  float* wsk;         // dK, dV partials [pk][2][kT][D]
+  // the plan (the wrapper's BwdTable of each kernel): segments
+  // [n][kSegInts], block offsets [nb + 1], shared units [m][kFoldInts]
+  const int* segq;
+  const int* offq;
+  const int* foldq;
+  const int* segk;
+  const int* offk;
+  const int* foldk;
   int B, Sq, Skv, H, KH, D;
-  int nq, nk;         // query tiles, key tiles
-  long long Wq, Wk;   // tile steps of fa_bwd_dq and of fa_bwd_dkdv
-  long long Cq, Ck;   // their costs (kStepCost a step, kSegmentCost a unit)
-  int nbq, nbk;       // their blocks
+  int nbq, nbk;       // the blocks of fa_bwd_dq and of fa_bwd_dkdv
+  int nfq, nfk;       // their shared units
   float scale, softcap, inv_cap;
   int causal, window;
 };
-
-__host__ __device__ __forceinline__ int imin(int x, int y) {
-  return x < y ? x : y;
-}
-__host__ __device__ __forceinline__ int imax(int x, int y) {
-  return x > y ? x : y;
-}
-
-// the key tiles [lo, hi) holding a key the mask keeps for a row of query
-// tile i (a mirror of the wrapper's `bwd_work`)
-__host__ __device__ __forceinline__ void key_range(const Args& a, int i,
-                                                   int& lo, int& hi) {
-  const int q0 = i * kT;
-  const int q_last = imin(q0 + kT, a.Sq) - 1;
-  hi = a.causal ? imin(q_last / kT + 1, a.nk) : a.nk;
-  lo = a.window > 0 ? imax(q0 - a.window + 1, 0) / kT : 0;
-  if (hi < lo) hi = lo;
-}
-
-// the query tiles [lo, hi) holding a row the mask lets see a key of key
-// tile j
-__host__ __device__ __forceinline__ void query_range(const Args& a, int j,
-                                                     int& lo, int& hi) {
-  const int k0 = j * kT;
-  const int k_last = imin(k0 + kT, a.Skv) - 1;
-  lo = a.causal ? j : 0;
-  int q_hi = a.Sq - 1;
-  if (a.window > 0) q_hi = imin(k_last + a.window - 1, q_hi);
-  hi = q_hi / kT + 1;
-  if (hi < lo) hi = lo;
-}
-
-// the steps of query tile i (its key tiles) and of key tile j (its query
-// head x query tile pairs)
-__host__ __device__ __forceinline__ int q_steps(const Args& a, int i) {
-  int lo, hi;
-  key_range(a, i, lo, hi);
-  return hi - lo;
-}
-__host__ __device__ __forceinline__ int k_steps(const Args& a, int j) {
-  int lo, hi;
-  query_range(a, j, lo, hi);
-  return (a.H / a.KH) * (hi - lo);
-}
-
-// a tile of one head in a kernel's step order, and its steps [u0, u0 + n)
-struct Unit {
-  int tile, b, head, u0, n;
-};
-
-// a kernel's units in step order (DQ: fa_bwd_dq's query tiles last-first,
-// the longest under a causal mask, each for every (batch row, query
-// head); else fa_bwd_dkdv's key tiles first-first, each for every (batch
-// row, KV head)): the tiles and the steps of their r-th
-template <bool DQ>
-__host__ __device__ __forceinline__ int n_tiles(const Args& a) {
-  return DQ ? a.nq : a.nk;
-}
-template <bool DQ>
-__host__ __device__ __forceinline__ int tile_at(const Args& a, int r) {
-  return DQ ? a.nq - 1 - r : r;
-}
-template <bool DQ>
-__host__ __device__ __forceinline__ int tile_steps(const Args& a, int r) {
-  return DQ ? q_steps(a, tile_at<DQ>(a, r)) : k_steps(a, r);
-}
-template <bool DQ>
-__host__ __device__ __forceinline__ int n_heads(const Args& a) {
-  return DQ ? a.H : a.KH;
-}
-
-// the unit holding step u
-template <bool DQ>
-__host__ __device__ inline Unit unit_of(const Args& a, int u) {
-  int first = 0;
-  const int heads = n_heads<DQ>(a);
-  for (int r = 0; r < n_tiles<DQ>(a); ++r) {
-    const int n = tile_steps<DQ>(a, r);
-    const int group = a.B * heads * n;
-    if (u < first + group) {
-      const int x = (u - first) / n;
-      return Unit{tile_at<DQ>(a, r), x / heads, x % heads, first + x * n, n};
-    }
-    first += group;
-  }
-  return Unit{-1, 0, 0, first, 0};
-}
-
-// the first step of block b's span: the spans cut the kernel's cost C into
-// nb equal parts, a unit costing kSegmentCost + kStepCost n (its own cost
-// first), each cut moved to the nearest step; block nb starts at W
-template <bool DQ>
-__host__ __device__ inline int span_start(const Args& a, int b) {
-  const int nb = DQ ? a.nbq : a.nbk, heads = n_heads<DQ>(a);
-  const long long C = DQ ? a.Cq : a.Ck;
-  const long long x = C * b / nb;
-  long long cost = 0, step = 0;
-  for (int r = 0; r < n_tiles<DQ>(a); ++r) {
-    const int n = tile_steps<DQ>(a, r);
-    if (n == 0) continue;
-    const long long uc = kSegmentCost + (long long)kStepCost * n;
-    const long long units = (long long)a.B * heads;
-    if (x < cost + units * uc) {
-      const long long idx = (x - cost) / uc;
-      const long long o = x - cost - idx * uc - kSegmentCost;
-      const long long k = o <= 0 ? 0 : (o + kStepCost / 2) / kStepCost;
-      return (int)(step + idx * n + (k < n ? k : n));
-    }
-    cost += units * uc;
-    step += units * n;
-  }
-  return (int)(DQ ? a.Wq : a.Wk);
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -529,22 +415,13 @@ struct DkdvSmem {
       sizeof(T) * (size_t)4 * Ring<T, DP>::kTile;
 };
 
-// the partial slot of a segment [u, se) of a unit in block b's span
-// [start, end): -1 where it covers the whole unit (the block writes the
-// gradient), else 0 where it starts the span, 1 where it ends it
-__device__ __forceinline__ int segment_slot(const Unit& t, int u, int se,
-                                            int start) {
-  if (u == t.u0 && se == t.u0 + t.n) return -1;
-  return u == start ? 0 : 1;
-}
-
 // dQ of query tile i, head h, batch row b over key tiles [jb, je): into
-// dq where slot < 0, else the f32 partial into the block's slot; D of the
-// tile's rows into `delta` where `first` (the unit's first step)
+// dq where dest < 0, else the f32 partial into workspace slot dest; D of
+// the tile's rows into `delta` where `first` (the unit's first step)
 template <typename T, int DP>
 __device__ __forceinline__ void dq_segment(const Args& a, unsigned char* smem,
                                            int i, int b, int h, int jb,
-                                           int je, bool first, int slot) {
+                                           int je, bool first, int dest) {
   constexpr int kLf = Ld<DP>::kF, kTile = Ring<T, DP>::kTile;
   constexpr int kCC = DP / 8;
   float* sQ = reinterpret_cast<float*>(smem);          // [kT][kLf]
@@ -645,7 +522,7 @@ __device__ __forceinline__ void dq_segment(const Args& a, unsigned char* smem,
   }
   reduce_classes<DP>(acc);
   if (ks != 0) return;
-  float* w = a.wsq + ((size_t)blockIdx.x * 2 + (slot < 0 ? 0 : slot)) * kT * a.D;
+  float* w = a.wsq + (size_t)(dest < 0 ? 0 : dest) * kT * a.D;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int r = 4 * warp + j, qp = q0 + r;
@@ -655,7 +532,7 @@ __device__ __forceinline__ void dq_segment(const Args& a, unsigned char* smem,
       if (c >= a.D) continue;
       const float4 v4 = make_float4(acc[j][4 * u], acc[j][4 * u + 1],
                                     acc[j][4 * u + 2], acc[j][4 * u + 3]);
-      if (slot < 0) {
+      if (dest < 0) {
         if (qp < a.Sq)
           store4(static_cast<T*>(a.dq) +
                      (((size_t)b * a.Sq + qp) * a.H + h) * a.D + c,
@@ -669,12 +546,12 @@ __device__ __forceinline__ void dq_segment(const Args& a, unsigned char* smem,
 
 // dK and dV of key tile j, KV head kh, batch row b over its steps [ub,
 // ue) (query head kh G + u / nqt, query tile lo + u % nqt): into dk, dv
-// where slot < 0, else the f32 partials into the block's slot
+// where dest < 0, else the f32 partials into workspace slot dest
 template <typename T, int DP>
 __device__ __forceinline__ void dkdv_segment(const Args& a,
                                              unsigned char* smem, int j,
-                                             int b, int kh, int ub, int ue,
-                                             int slot) {
+                                             int b, int kh, int lo, int nqt,
+                                             int ub, int ue, int dest) {
   constexpr int kLf = Ld<DP>::kF, kTile = Ring<T, DP>::kTile;
   constexpr int kCC = DP / 8;
   float* sK = reinterpret_cast<float*>(smem);          // [kT][kLf]
@@ -683,10 +560,7 @@ __device__ __forceinline__ void dkdv_segment(const Args& a,
   float* sdS = sP + kT * kLdS;                         // dS [queries][kLdS]
   float* sLD = sdS + kT * kLdS;                        // 2 x (L, D) [kT]
   T* ring = reinterpret_cast<T*>(sLD + 4 * kT);        // 2 x (Q, dO)
-  const int G = a.H / a.KH;
-  int lo, hi;
-  query_range(a, j, lo, hi);
-  const int nqt = hi - lo, k0 = j * kT;
+  const int G = a.H / a.KH, k0 = j * kT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* Q = static_cast<const T*>(a.q);
   const T* dO = static_cast<const T*>(a.dout);
@@ -755,8 +629,7 @@ __device__ __forceinline__ void dkdv_segment(const Args& a,
   reduce_classes<DP>(dk);
   reduce_classes<DP>(dv);
   if (ks != 0) return;
-  float* w =
-      a.wsk + ((size_t)blockIdx.x * 2 + (slot < 0 ? 0 : slot)) * 2 * kT * a.D;
+  float* w = a.wsk + (size_t)(dest < 0 ? 0 : dest) * 2 * kT * a.D;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = 4 * warp + r, kp = k0 + row;
@@ -768,7 +641,7 @@ __device__ __forceinline__ void dkdv_segment(const Args& a,
                                     dk[r][4 * u + 2], dk[r][4 * u + 3]);
       const float4 v4 = make_float4(dv[r][4 * u], dv[r][4 * u + 1],
                                     dv[r][4 * u + 2], dv[r][4 * u + 3]);
-      if (slot < 0) {
+      if (dest < 0) {
         if (kp < a.Skv) {
           const size_t at = (((size_t)b * a.Skv + kp) * a.KH + kh) * a.D + c;
           store4(static_cast<T*>(a.dk) + at, scale4(k4, a.scale));
@@ -782,111 +655,63 @@ __device__ __forceinline__ void dkdv_segment(const Args& a,
   }
 }
 
-// one block an equal span of the query tiles' steps (stream-K): each unit
-// (query tile x head) the span touches, whole or in part
-// the block's span [span[0], span[1]), into the plan for the fold too:
-// one thread computes, the block reads shared memory
-template <bool DQ>
-__device__ __forceinline__ void block_span(const Args& a, int* span) {
-  if (threadIdx.x == 0) {
-    const int nb = DQ ? a.nbq : a.nbk;
-    int* plan = DQ ? a.planq : a.plank;
-    span[0] = span_start<DQ>(a, blockIdx.x);
-    span[1] = span_start<DQ>(a, blockIdx.x + 1);
-    plan[blockIdx.x] = span[0];
-    if ((int)blockIdx.x == nb - 1) plan[nb] = span[1];
-  }
-  __syncthreads();
+// a plan's segment: (tile, batch row, head, lo, per, first step, end,
+// dest), every thread reading the same words
+struct Seg {
+  int tile, b, head, lo, per, u, ue, dest;
+};
+
+__device__ __forceinline__ Seg load_seg(const int* __restrict__ p) {
+  return Seg{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3),
+             __ldg(p + 4), __ldg(p + 5), __ldg(p + 6), __ldg(p + 7)};
 }
 
-// the unit holding step u, found by one thread; the span's first (`first`)
-// goes into the plan
-template <bool DQ>
-__device__ __forceinline__ Unit next_unit(const Args& a, int u, bool first) {
-  __shared__ Unit s_unit;
-  if (threadIdx.x == 0) {
-    s_unit = unit_of<DQ>(a, u);
-    if (first) {
-      const int nb = DQ ? a.nbq : a.nbk;
-      int* d = (DQ ? a.planq : a.plank) + nb + 1 + 5 * blockIdx.x;
-      d[0] = s_unit.tile;
-      d[1] = s_unit.b;
-      d[2] = s_unit.head;
-      d[3] = s_unit.u0;
-      d[4] = s_unit.n;
-    }
-  }
-  __syncthreads();
-  return s_unit;
-}
-
+// the segments of this block's span, from the plan: the query tile's key
+// tiles lo + [u, ue)
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1)
     fa_bwd_dq(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_span[2];
-  block_span<true>(a, s_span);
-  const int start = s_span[0], end = s_span[1];
-  for (int u = start; u < end;) {
-    const Unit t = next_unit<true>(a, u, u == start);
-    const int se = t.u0 + t.n < end ? t.u0 + t.n : end;
-    int lo, hi;
-    key_range(a, t.tile, lo, hi);
-    dq_segment<T, DP>(a, smem_raw, t.tile, t.b, t.head, lo + u - t.u0,
-                      lo + se - t.u0, u == t.u0,
-                      segment_slot(t, u, se, start));
-    u = se;
+  const int end = __ldg(a.offq + blockIdx.x + 1);
+  for (int i = __ldg(a.offq + blockIdx.x); i < end; ++i) {
+    const Seg g = load_seg(a.segq + (size_t)kSegInts * i);
+    dq_segment<T, DP>(a, smem_raw, g.tile, g.b, g.head, g.lo + g.u,
+                      g.lo + g.ue, g.u == 0, g.dest);
     __syncthreads();   // the next segment reuses the shared tiles
   }
 }
 
-// one block an equal span of the key tiles' steps (stream-K)
+// the same for the key tiles: steps [u, ue) of (query head, query tile)
+// pairs, per query tiles a head from lo
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_span[2];
-  block_span<false>(a, s_span);
-  const int start = s_span[0], end = s_span[1];
-  for (int u = start; u < end;) {
-    const Unit t = next_unit<false>(a, u, u == start);
-    const int se = t.u0 + t.n < end ? t.u0 + t.n : end;
-    dkdv_segment<T, DP>(a, smem_raw, t.tile, t.b, t.head, u - t.u0,
-                        se - t.u0, segment_slot(t, u, se, start));
-    u = se;
+  const int end = __ldg(a.offk + blockIdx.x + 1);
+  for (int i = __ldg(a.offk + blockIdx.x); i < end; ++i) {
+    const Seg g = load_seg(a.segk + (size_t)kSegInts * i);
+    dkdv_segment<T, DP>(a, smem_raw, g.tile, g.b, g.head, g.lo, g.per, g.u,
+                        g.ue, g.dest);
     __syncthreads();
   }
 }
 
-// the unit that block f's span ends, where f is the last of several blocks
-// whose spans share it: rows [4 rg, 4 rg + 4) of its blocks' f32 partials
-// added in block order (empty spans skipped), scaled, rounded
+// shared unit f of the plan: rows [4 rg, 4 rg + 4) of its f32 partials
+// added in order (block order), scaled, rounded
 template <typename T, bool DQ>
 __device__ __forceinline__ void fold_rows(const Args& a, int f, int rg) {
-  const int nb = DQ ? a.nbq : a.nbk;
-  if (f >= nb) return;
-  // the plan the main kernel's blocks wrote: span starts, first units
-  const int* starts = DQ ? a.planq : a.plank;
-  const int s = starts[f], e = starts[f + 1];
-  if (s >= e) return;
-  const int* d = starts + nb + 1 + 5 * f;
-  const Unit t{d[0], d[1], d[2], d[3], d[4]};
-  if (t.u0 >= s || t.u0 + t.n > e) return;   // f is not a unit's last block
-  int b0 = f - 1;   // the unit's first block: the last whose start <= u0
-  while (starts[b0] > t.u0) --b0;
+  if (f >= (DQ ? a.nfq : a.nfk)) return;
+  const int* d = (DQ ? a.foldq : a.foldk) + kFoldInts * f;
+  const int tile = d[0], b = d[1], head = d[2], p0 = d[3], np = d[4];
   const int cpr = a.D / 4, S = DQ ? a.Sq : a.Skv;
   const float* ws = DQ ? a.wsq : a.wsk;
-  const int stride = DQ ? 1 : 2;   // tiles a slot: dQ, or dK and dV
+  const int stride = DQ ? 1 : 2;   // tiles a partial: dQ, or dK and dV
   for (int idx = threadIdx.x; idx < kFoldRows * cpr; idx += kFoldThreads) {
     const int r = kFoldRows * rg + idx / cpr, c = (idx % cpr) * 4;
-    const int pos = t.tile * kT + r;
+    const int pos = tile * kT + r;
     if (pos >= S) continue;
     float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
-    for (int bb = b0; bb <= f; ++bb) {
-      // slot 1 where the unit starts inside the first block's span; an
-      // empty span wrote nothing
-      if (starts[bb] == starts[bb + 1]) continue;
-      const int slot = bb == b0 && starts[bb] != t.u0 ? 1 : 0;
-      const float* w = ws + ((size_t)bb * 2 + slot) * stride * kT * a.D;
+    for (int p = p0; p < p0 + np; ++p) {
+      const float* w = ws + (size_t)p * stride * kT * a.D;
       const float4 x = ld4(w + (size_t)r * a.D + c);
       s0.x += x.x;
       s0.y += x.y;
@@ -902,18 +727,18 @@ __device__ __forceinline__ void fold_rows(const Args& a, int f, int rg) {
     }
     if (DQ) {
       store4(static_cast<T*>(a.dq) +
-                 (((size_t)t.b * a.Sq + pos) * a.H + t.head) * a.D + c,
+                 (((size_t)b * a.Sq + pos) * a.H + head) * a.D + c,
              scale4(s0, a.scale));
     } else {
-      const size_t at = (((size_t)t.b * a.Skv + pos) * a.KH + t.head) * a.D + c;
+      const size_t at = (((size_t)b * a.Skv + pos) * a.KH + head) * a.D + c;
       store4(static_cast<T*>(a.dk) + at, scale4(s0, a.scale));
       store4(static_cast<T*>(a.dv) + at, s1);
     }
   }
 }
 
-// the units that several blocks share: block (f, y) folds rows 4 y of the
-// dQ unit that block f ends (y < 8), or rows 4 (y - 8) of its dK, dV unit
+// block (f, y) folds rows 4 y of the dQ unit f (y < 8), or rows 4 (y - 8)
+// of the dK, dV unit f
 template <typename T>
 __global__ void __launch_bounds__(kFoldThreads) fa_bwd_fold(const Args a) {
   constexpr int kGroups = kT / kFoldRows;
@@ -954,8 +779,10 @@ int launch(const Args& a, cudaStream_t stream) {
       a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_fold<T><<<dim3(a.nbq > a.nbk ? a.nbq : a.nbk, 2 * kT / kFoldRows),
-                   kFoldThreads, 0, stream>>>(a);
+  const int nf = a.nfq > a.nfk ? a.nfq : a.nfk;
+  if (nf == 0) return 0;
+  fa_bwd_fold<T><<<dim3(nf, 2 * kT / kFoldRows), kFoldThreads, 0, stream>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
@@ -970,21 +797,25 @@ int launch_dim(const Args& a, cudaStream_t s) {
 }  // namespace
 
 // q, k, v, out, dout, dq, dk, dv in the inputs' type (is_bf16); lse and
-// delta f32 [B, H, Sq]; nbq, nbk the blocks of the dq and the dk/dv kernel
-// (the wrapper's `bwd_work`: one, or two at D <= 128 for dq, an SM); ws
-// holds the partials, nbq * 2 * 32 * D floats (dQ) then nbk * 2 * 2 * 32 * D
-// (dK, dV), then the plans, 6 (nbq + nbk) + 2 ints.  Query or key tiles that no key or query reaches are not
-// written: the caller zeroes their rows.  Returns 0, -1 for arguments the
-// kernels do not take, else the CUDA error of an attribute or a launch.
+// delta f32 [B, H, Sq]; plan the int32 schedule of both kernels (the
+// wrapper's BwdWork.plan: fa_bwd_dq's ns_q segments of kSegInts, its
+// nbq + 1 block offsets, its nf_q shared units of kFoldInts, then the same
+// for fa_bwd_dkdv); ws the f32 partials, pq of 32 x D (dQ) then 2 x 32 x
+// D each (dK, dV).  Query or key tiles that no key or query reaches are
+// not written: the caller zeroes their rows.  Returns 0, -1 for arguments
+// the kernels do not take, else the CUDA error of an attribute or a
+// launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, void* ws, int is_bf16, int B, int Sq, int Skv, int H,
-    int KH, int D, int nbq, int nbk, float scale, int causal, int window,
+    void* delta, void* ws, const void* plan, int is_bf16, int B, int Sq,
+    int Skv, int H, int KH, int D, int ns_q, int no_q, int nf_q, int ns_k,
+    int no_k, int nf_k, int pq, float scale, int causal, int window,
     float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KH <= 0 || H % KH || D <= 0 ||
-      D > 256 || D % 8 || softcap < 0.f || nbq <= 0 || nbk <= 0 || !lse ||
-      !delta || !ws)
+      D > 256 || D % 8 || softcap < 0.f || no_q < 2 || no_k < 2 || !lse ||
+      !delta || !ws || !plan || ns_q < 0 || nf_q < 0 || ns_k < 0 ||
+      nf_k < 0 || pq < 0)
     return -1;
   Args a;
   a.q = q;
@@ -997,37 +828,29 @@ extern "C" int flash_attention_bwd_launch(
   a.dk = dk;
   a.dv = dv;
   a.delta = static_cast<float*>(delta);
+  a.wsq = static_cast<float*>(ws);
+  a.wsk = a.wsq + (size_t)pq * kT * D;
+  a.segq = static_cast<const int*>(plan);
+  a.offq = a.segq + (size_t)kSegInts * ns_q;
+  a.foldq = a.offq + no_q;
+  a.segk = a.foldq + (size_t)kFoldInts * nf_q;
+  a.offk = a.segk + (size_t)kSegInts * ns_k;
+  a.foldk = a.offk + no_k;
   a.B = B;
   a.Sq = Sq;
   a.Skv = Skv;
   a.H = H;
   a.KH = KH;
   a.D = D;
-  a.nq = (Sq + kT - 1) / kT;
-  a.nk = (Skv + kT - 1) / kT;
-  a.nbq = nbq;
-  a.nbk = nbk;
+  a.nbq = no_q - 1;
+  a.nbk = no_k - 1;
+  a.nfq = nf_q;
+  a.nfk = nf_k;
   a.scale = scale;
   a.softcap = softcap;
   a.inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   a.causal = causal;
   a.window = window;
-  a.Wq = a.Wk = a.Cq = a.Ck = 0;
-  for (int i = 0; i < a.nq; ++i) {
-    const int n = q_steps(a, i);
-    a.Wq += (long long)B * H * n;
-    if (n) a.Cq += (long long)B * H * (kSegmentCost + kStepCost * n);
-  }
-  for (int j = 0; j < a.nk; ++j) {
-    const int n = k_steps(a, j);
-    a.Wk += (long long)B * KH * n;
-    if (n) a.Ck += (long long)B * KH * (kSegmentCost + kStepCost * n);
-  }
-  if (a.Wq > 0x7fffffffLL || a.Wk > 0x7fffffffLL) return -1;
-  a.wsq = static_cast<float*>(ws);
-  a.wsk = a.wsq + (size_t)nbq * 2 * kT * D;
-  a.planq = reinterpret_cast<int*>(a.wsk + (size_t)nbk * 4 * kT * D);
-  a.plank = a.planq + 6 * nbq + 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_dim<__nv_bfloat16>(a, s) : launch_dim<float>(a, s);
 }

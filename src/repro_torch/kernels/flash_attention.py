@@ -51,11 +51,14 @@ with and without it; on the CPU ``ref.flash_lse_plain``).  Its backward
 * everything else launches the CUDA-core kernels of
   ``csrc/flash_attention_bwd.cu`` (f32 FFMA, register-blocked: a dq kernel
   that also writes dO.O, a dk/dv kernel, each with one block an SM
-  walking an equal span of its tile steps (``bwd_work``, stream-K), and a
-  fold kernel adding in block order the f32 partials of the tiles that
-  several spans share); its plain version is
-  ``ref.flash_attention_bwd_plain`` with L given, and
-  ``ref.flash_attention_bwd_split_plain`` rehearses the split.
+  walking an equal span of its tile steps, and a fold kernel adding in
+  block order the f32 partials of the tiles that several spans share);
+  the schedule is the wrapper's (``bwd_work``, stream-K, a function of
+  the shapes alone), copied to the card once a shape and read there, so
+  call it once at a shape before capturing it in a CUDA graph.  Its plain
+  version is ``ref.flash_attention_bwd_plain`` with L given, and
+  ``ref.flash_attention_bwd_split_plain`` rehearses the split from the
+  same schedule.
 
 CPU tensors take the plain version of the kernel the rule picks.  A CUDA
 tensor the kernel does not take raises.  The JAX package has no
@@ -70,7 +73,6 @@ took).
 """
 from __future__ import annotations
 
-import bisect
 import ctypes
 import functools
 from typing import List, NamedTuple, Tuple
@@ -106,8 +108,8 @@ MMA_SLOTS = 2             # slots of its K/V ring (csrc: kSlots)
 BWD_BLOCKS_PER_SM = 1
 BWD_MAX_PARTS = 8
 BWD_T = 32                # rows of the CUDA-core backward's tiles (csrc kT)
-# its spans' costs: a tile step and a unit's own (csrc kStepCost,
-# kSegmentCost)
+# its spans' costs: a tile step and a segment's own (its prologue's loads,
+# D, a partial out and back), in the same units
 BWD_STEP_COST, BWD_SEGMENT_COST = 5, 3
 _fns = {}
 
@@ -122,7 +124,7 @@ def _launcher(name):
         elif name == BWD_MMA:
             fn.argtypes = [P] * 10 + [I] * 7 + [F, I, I, F, P]
         elif name == BWD:
-            fn.argtypes = [P] * 11 + [I] * 9 + [F, I, I, F, P]
+            fn.argtypes = [P] * 12 + [I] * 14 + [F, I, I, F, P]
         else:
             fn.argtypes = [P] * 6 + [I] * 13 + [F, I, I, F, P]
         fn.restype = I
@@ -166,138 +168,198 @@ def bwd_split(B: int, Skv: int, H: int, KH: int) -> int:
 def _query_range(j: int, T: int, Sq: int, Skv: int, causal: bool,
                  window) -> Tuple[int, int]:
     """The query tiles ``[lo, hi)`` of ``T`` rows holding a row the mask
-    lets see a key of key tile ``j`` (csrc ``query_range``)."""
+    lets see a key of key tile ``j``."""
     k_last = min((j + 1) * T, Skv) - 1
     q_hi = Sq - 1 if not window else min(k_last + window - 1, Sq - 1)
     lo = j if causal else 0
     return lo, max(q_hi // T + 1, lo)
 
 
+class BwdUnits(NamedTuple):
+    """One CUDA-core backward kernel's units (a tile of one head) in its
+    step order, each field int64 [U]: ``tile``, batch row ``b``, ``head``
+    (query head for the dq kernel, KV head for the dk/dv kernel), ``lo``
+    (the first key tile, or query tile, of the tile's range), ``per`` (the
+    range's tiles) and ``n``, its steps (``per``, or ``G * per`` for the
+    dk/dv kernel, whose step u is query head ``head * G + u // per`` and
+    query tile ``lo + u % per``)."""
+    tile: torch.Tensor
+    b: torch.Tensor
+    head: torch.Tensor
+    lo: torch.Tensor
+    per: torch.Tensor
+    n: torch.Tensor
+
+
+def _units(B: int, ranges, heads: int, reps: int,
+           last_first: bool) -> BwdUnits:
+    """The units of tiles with ``ranges`` (each ``(lo, hi)``), tiles in
+    order (``last_first``: the last first), each for every (batch row,
+    head); tiles with an empty range have none."""
+    order = [(i, lo, hi - lo) for i, (lo, hi) in enumerate(ranges)
+             if hi > lo]
+    if last_first:
+        order.reverse()
+    t = torch.tensor(order, dtype=torch.int64).reshape(-1, 3)
+    rep = B * heads
+    bh = torch.arange(rep, dtype=torch.int64).repeat(len(order))
+    per = t[:, 2].repeat_interleave(rep)
+    return BwdUnits(t[:, 0].repeat_interleave(rep), bh // heads, bh % heads,
+                    t[:, 1].repeat_interleave(rep), per, per * reps)
+
+
+def bwd_units(B: int, Sq: int, Skv: int, H: int, KH: int, *, causal=True,
+              window=None) -> Tuple[BwdUnits, BwdUnits]:
+    """Both CUDA-core backward kernels' units: the dq kernel's (32-row
+    query tiles last-first, the longest under a causal mask, each for
+    every batch row and query head; its steps the tile's key tiles) and
+    the dk/dv kernel's (32-key tiles first-first, each for every batch
+    row and KV head; its steps the (query head of the group, query tile)
+    pairs, head-major)."""
+    T = BWD_T
+    q_ranges = [tile_range(i, T, T, Sq, Skv, causal, window)
+                for i in range(-(-Sq // T))]
+    k_ranges = [_query_range(j, T, Sq, Skv, causal, window)
+                for j in range(-(-Skv // T))]
+    return (_units(B, q_ranges, H, 1, True),
+            _units(B, k_ranges, KH, H // KH, False))
+
+
+def stream_k(units: BwdUnits, nb: int) -> torch.Tensor:
+    """The first step of each of ``nb`` blocks' spans and the steps' end,
+    int64 [nb + 1]: the units' cost (``BWD_SEGMENT_COST +
+    BWD_STEP_COST * n`` a unit, its own cost first) cut into ``nb`` equal
+    parts, each cut moved to the nearest step."""
+    U = len(units.n)    # at least one: query 0 keeps key 0 under any mask
+    zero = torch.zeros(1, dtype=torch.int64)
+    cost = torch.cat([zero, (BWD_SEGMENT_COST + BWD_STEP_COST * units.n)
+                      .cumsum(0)])
+    u0 = torch.cat([zero, units.n.cumsum(0)])
+    x = cost[-1] * torch.arange(nb + 1, dtype=torch.int64) // nb
+    at = torch.searchsorted(cost, x, right=True) - 1
+    k = at.clamp(max=U - 1)
+    o = x - cost[k] - BWD_SEGMENT_COST
+    step = torch.minimum(units.n[k], (o + BWD_STEP_COST // 2)
+                         // BWD_STEP_COST).clamp(min=0)
+    return torch.where(at >= U, u0[-1], u0[k] + step)
+
+
+class BwdTable(NamedTuple):
+    """One CUDA-core backward kernel's schedule, which its blocks read from
+    the device (int32): ``segs`` [n, 8], each a run of one unit's steps in
+    one block's span as ``(tile, b, head, lo, per, first step, end,
+    dest)`` (``dest`` -1 where the segment is the whole unit and the block
+    writes the gradient, else the index of its f32 partial in the
+    workspace); ``offsets`` [nb + 1], block j's segments being ``segs[
+    offsets[j]:offsets[j + 1]]``; ``folds`` [m, 5], each unit that several
+    segments share as ``(tile, b, head, first partial, partials)``, its
+    partials consecutive and in block order; ``partials``, their count."""
+    segs: torch.Tensor
+    offsets: torch.Tensor
+    folds: torch.Tensor
+    partials: int
+
+    def blocks(self) -> int:
+        return len(self.offsets) - 1
+
+
+def bwd_table(units: BwdUnits, starts: torch.Tensor) -> BwdTable:
+    """The schedule of blocks whose spans start at ``starts`` (int64
+    [nb + 1], non-decreasing, from 0 to the steps' end): each span cut at
+    the units' bounds into segments, in step order (so in block order and
+    unit order at once).  Raises ``ValueError`` where a field or the
+    segment count passes 2^31 - 1."""
+    zero = torch.zeros(1, dtype=torch.int64)
+    u0 = torch.cat([zero, units.n.cumsum(0)])
+    s, e = starts[:-1], starts[1:]
+    first = torch.searchsorted(u0, s, right=True) - 1
+    last = torch.searchsorted(u0, e - 1, right=True) - 1
+    count = torch.where(e > s, last - first + 1, 0)
+    offsets = torch.cat([zero, count.cumsum(0)])
+    blk = torch.repeat_interleave(torch.arange(len(s)), count)
+    unit = first[blk] + torch.arange(int(offsets[-1])) - offsets[blk]
+    s0 = torch.maximum(s[blk], u0[unit]) - u0[unit]
+    s1 = torch.minimum(e[blk], u0[unit + 1]) - u0[unit]
+    part = (s0 > 0) | (s1 < units.n[unit])
+    dest = torch.where(part, part.cumsum(0) - 1, -1)
+    segs = torch.stack([units.tile[unit], units.b[unit], units.head[unit],
+                        units.lo[unit], units.per[unit], s0, s1, dest], 1)
+    shared, cnt = torch.unique_consecutive(unit[part], return_counts=True)
+    p0 = cnt.cumsum(0) - cnt
+    folds = torch.stack([units.tile[shared], units.b[shared],
+                         units.head[shared], p0, cnt], 1)
+    big = max([int(x.max()) for x in (segs, offsets, folds) if x.numel()]
+              + [0])
+    if big > 2 ** 31 - 1:
+        raise ValueError(f"flash_attention_bwd: a schedule field of {big} "
+                         f"exceeds 2^31 - 1 (int32)")
+    return BwdTable(segs.int(), offsets.int(), folds.int(),
+                    int(part.sum()))
+
+
 class BwdWork(NamedTuple):
-    """The CUDA-core backward's work split (stream-K): each kernel's tile
-    steps in one order (``dq_units``: 32-row query tiles last-first, each
-    for every batch row and query head, its key tiles in order;
-    ``dkdv_units``: 32-key tiles first-first, each for every batch row
-    and KV head, its (query head of the group, query tile) pairs,
-    head-major), cut into ``nbq`` (``nbk``) spans of equal cost, one a
-    block (``spans``).  A unit (a tile of one head) inside one span is
-    written by its block;
-    one that several spans share gets an f32 partial from each, which the
-    fold kernel adds in block order.  ``q_ranges``: each query tile's key
-    tiles; ``k_ranges``: each key tile's query tiles."""
-    B: int
-    H: int
-    KH: int
+    """The CUDA-core backward's schedule: ``dq`` and ``dkdv``, each
+    kernel's ``BwdTable`` over its ``bwd_units``, tiles of ``T`` rows;
+    ``empty``: whether some query tile sees no key (its dq rows are not
+    written) and whether some key tile is seen by no query (dk, dv)."""
     T: int
-    nq: int
-    nk: int
-    nbq: int
-    nbk: int
-    q_ranges: Tuple[Tuple[int, int], ...]
-    k_ranges: Tuple[Tuple[int, int], ...]
-
-    def dq_units(self) -> List[Tuple[int, int, int, int, int]]:
-        """``(query tile, batch row, head, first step, steps)`` of every
-        unit with a step, in step order (csrc ``dq_unit``)."""
-        return self._units([(i, hi - lo) for i, (lo, hi) in
-                            reversed(list(enumerate(self.q_ranges)))],
-                           self.H)
-
-    def dkdv_units(self) -> List[Tuple[int, int, int, int, int]]:
-        """``(key tile, batch row, KV head, first step, steps)``, the same
-        for the dk/dv kernel (csrc ``dkdv_unit``); step u of a unit is
-        query head ``kh * G + u // nqt`` and query tile ``lo + u % nqt``."""
-        G = self.H // self.KH
-        return self._units([(j, G * (hi - lo)) for j, (lo, hi) in
-                            enumerate(self.k_ranges)], self.KH)
-
-    def _units(self, tiles, heads):
-        out, first = [], 0
-        for tile, n in tiles:
-            if n == 0:
-                continue
-            for b in range(self.B):
-                for h in range(heads):
-                    out.append((tile, b, h, first, n))
-                    first += n
-        return out
-
-    @staticmethod
-    def spans(units, nb: int) -> List[int]:
-        """The first step of each of ``nb`` blocks' spans, and the steps'
-        end (csrc ``span_start``): the cut points of the units' cost (a
-        unit ``BWD_SEGMENT_COST + BWD_STEP_COST * n``, its own cost first)
-        into ``nb`` equal parts, each moved to the nearest step."""
-        cost = [0]
-        for *_, n in units:
-            cost.append(cost[-1] + BWD_SEGMENT_COST + BWD_STEP_COST * n)
-        out = []
-        for b in range(nb + 1):
-            x = cost[-1] * b // nb
-            k = bisect.bisect_right(cost, x) - 1
-            if k == len(units):
-                out.append(sum(u[4] for u in units))
-                continue
-            *_, u0, n = units[k]
-            o = x - cost[k] - BWD_SEGMENT_COST
-            out.append(u0 + (0 if o <= 0 else min(
-                n, (o + BWD_STEP_COST // 2) // BWD_STEP_COST)))
-        return out
-
-    @classmethod
-    def segments(cls, units, nb: int) -> List[List[Tuple[int, int, int,
-                                                         int]]]:
-        """Each unit's segments ``(first step, end, block, slot)`` over the
-        ``nb`` blocks' ``spans`` (csrc ``segment_slot``): slot -1 where
-        the block holds the whole unit, else 0 where the segment starts
-        the block's span and 1 where it ends it."""
-        starts = cls.spans(units, nb)
-        out = []
-        for *_, u0, n in units:
-            segs, u = [], u0
-            while u < u0 + n:
-                blk = bisect.bisect_right(starts, u) - 1
-                se = min(u0 + n, starts[blk + 1])
-                slot = (-1 if (u, se) == (u0, u0 + n)
-                        else 0 if u == starts[blk] else 1)
-                segs.append((u, se, blk, slot))
-                u = se
-            out.append(segs)
-        return out
+    dq: BwdTable
+    dkdv: BwdTable
+    empty: Tuple[bool, bool]
 
     def blocks(self) -> Tuple[int, int]:
         """The grids of the dq and the dk/dv kernel."""
-        return self.nbq, self.nbk
+        return self.dq.blocks(), self.dkdv.blocks()
 
     def workspace(self, D: int) -> int:
-        """32-bit elements of the workspace (csrc ``ws``): the f32
-        partials, two slots a block (dQ, then dK and dV), then each
-        kernel's plan for the fold (its blocks' span starts and first
-        units)."""
-        return (self.T * D * (2 * self.nbq + 4 * self.nbk)
-                + 6 * (self.nbq + self.nbk) + 2)
+        """f32 elements of the workspace (csrc ``ws``): the dQ partials of
+        ``T`` x D, then the dK and dV partials, two such tiles each."""
+        return self.T * D * (self.dq.partials + 2 * self.dkdv.partials)
 
-    def empty(self) -> Tuple[bool, bool]:
-        """Whether some query tile sees no key (its dq rows are not
-        written) and whether some key tile is seen by no query (dk, dv)."""
-        return (any(hi == lo for lo, hi in self.q_ranges),
-                any(hi == lo for lo, hi in self.k_ranges))
+    def plan(self) -> torch.Tensor:
+        """Both tables in one int32 tensor, in the launcher's order."""
+        return torch.cat([x.reshape(-1) for t in (self.dq, self.dkdv)
+                          for x in t[:3]])
+
+
+def bwd_schedule(Sq: int, Skv: int, units, tables) -> BwdWork:
+    """The ``BwdWork`` of ``tables`` (the dq and the dk/dv kernel's) over
+    ``units`` (``bwd_units`` of these shapes)."""
+    return BwdWork(BWD_T, *tables, tuple(
+        len(torch.unique(u.tile)) < -(-S // BWD_T)
+        for u, S in zip(units, (Sq, Skv))))
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_work(B: int, Sq: int, Skv: int, H: int, KH: int, D: int, *,
              causal=True, window=None) -> BwdWork:
-    """The CUDA-core backward's split, from the shapes alone (cached: a
-    call at seen shapes costs the host nothing): one block for each of the
-    H100's ``SMS`` SMs, the dq kernel two at D <= 128 (csrc: its launch
-    bounds), each a span of equal cost of its kernel's units."""
-    T = BWD_T
-    nq, nk = -(-Sq // T), -(-Skv // T)
-    return BwdWork(B, H, KH, T, nq, nk, SMS * (2 if D <= 128 else 1), SMS,
-                   tuple(tile_range(i, T, T, Sq, Skv, causal, window)
-                         for i in range(nq)),
-                   tuple(_query_range(j, T, Sq, Skv, causal, window)
-                         for j in range(nk)))
+    """The CUDA-core backward's schedule (stream-K), from the shapes alone
+    (cached: a call at seen shapes costs the host nothing): each kernel's
+    units cut into spans of equal cost (``stream_k``), one a block, one
+    block for each of the H100's ``SMS`` SMs, the dq kernel two at D <=
+    128 (csrc: its launch bounds)."""
+    uq, uk = bwd_units(B, Sq, Skv, H, KH, causal=causal, window=window)
+    return bwd_schedule(Sq, Skv, (uq, uk), (
+        bwd_table(uq, stream_k(uq, SMS * (2 if D <= 128 else 1))),
+        bwd_table(uk, stream_k(uk, SMS))))
+
+
+# each BwdWork's plan on a device, uploaded at its first call: (the work,
+# kept alive so that its id is not reused, and the tensor)
+_plans = {}
+
+
+def _bwd_plan(work: BwdWork, device) -> torch.Tensor:
+    key = (id(work), device)
+    hit = _plans.get(key)
+    if hit is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_attention_bwd: call it once at these shapes before "
+                "capturing a CUDA graph (its schedule is copied to the "
+                "device at the first call)")
+        hit = _plans[key] = (work, work.plan().to(device))
+    return hit[1]
 
 
 def smem_bytes(D: int, lk: int, kernel: str = SIMT, elem: int = 4) -> int:
@@ -687,18 +749,20 @@ def flash_attention_bwd(q, k, v, out, d_out, lse=None, *, causal=True,
                              f"with head_dim % 8 == 0; got {tuple(q.shape)}")
         w = bwd_work(B, Sq, Skv, H, KH, D, causal=bool(causal),
                      window=int(window) if window else None)
+        plan = _bwd_plan(w, q.device)
         # rows that no key (no query) reaches are not written: zero them
-        for t, empty in zip((dq, dk, dv), w.empty() + w.empty()[1:]):
+        for t, empty in zip((dq, dk, dv), w.empty + w.empty[1:]):
             if empty:
                 t.zero_()
-        ws = torch.empty(w.workspace(D), dtype=torch.float32,
+        ws = torch.empty(max(w.workspace(D), 1), dtype=torch.float32,
                          device=q.device)
         rc = _launcher(BWD)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), ws.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, KH, D, w.nbq,
-            w.nbk, *tail)
+            dv.data_ptr(), delta.data_ptr(), ws.data_ptr(), plan.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, KH, D,
+            *(len(x) for t in (w.dq, w.dkdv) for x in t[:3]),
+            w.dq.partials, *tail)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed (rc={rc})")
     flash_attention.bwd_launches += 1

@@ -362,16 +362,17 @@ def _sum_in_order(parts):
 
 def flash_attention_bwd_split_plain(q, k, v, out, d_out, lse, work, *,
                                     causal=True, window=None, softcap=None,
-                                    scale=None, fold=_sum_in_order):
+                                    scale=None):
     """The CUDA-core backward's split in plain torch (f32; f64 stays
-    f64): ``work`` is the wrapper's ``bwd_work`` of these shapes (tiles of
-    ``work.T`` rows; ``dq_units``, ``dkdv_units`` and ``segments`` over
-    ``nbq``, ``nbk`` blocks).  Each segment's partial, as a block of
-    ``csrc/flash_attention_bwd.cu`` forms it (dQ of a query tile and head
-    over the segment's key tiles; dK and dV of a key tile and KV head over
-    its (query head, query tile) steps, in step order), and each unit's
-    partials added by ``fold`` (in block order, as the fold kernel adds
-    them), then dQ and dK scaled.  P and dS are
+    f64), read from the schedule the kernels read: ``work`` is the
+    wrapper's ``bwd_work`` of these shapes (tiles of ``work.T`` rows; per
+    kernel a ``BwdTable`` of segments and shared units).  Each segment's
+    product, as a block of ``csrc/flash_attention_bwd.cu`` forms it (dQ
+    of a query tile and head over the segment's key tiles; dK and dV of a
+    key tile and KV head over its (query head, query tile) steps, in step
+    order), written where it is the whole unit, else kept as its partial;
+    each shared unit's partials added in order, as the fold kernel adds
+    them; then dQ and dK scaled.  P and dS are
     ``flash_attention_bwd_plain``'s with L given (``lse`` [B,H,Sq]).
     Returns (dq, dk, dv) in the inputs' dtype."""
     B, Sq, H, D = q.shape
@@ -390,31 +391,38 @@ def flash_attention_bwd_split_plain(q, k, v, out, d_out, lse, work, *,
     if softcap is not None:
         ds = ds * (1.0 - t * t)
     dq = torch.zeros((B, Sq, KH, G, D), dtype=acc, device=q.device)
-    units = work.dq_units()
-    for (i, b, h, u0, _), segs in zip(units, work.segments(units, work.nbq)):
-        rows, lo = slice(i * T, (i + 1) * T), work.q_ranges[i][0]
+    parts = [None] * work.dq.partials
+    for i, b, h, lo, _, u, ue, dest in work.dq.segs.tolist():
         kh, g = divmod(h, G)
-        parts = []
-        for u, se, _, _ in segs:
-            keys = slice((lo + u - u0) * T, (lo + se - u0) * T)
-            parts.append(ds[b, kh, g, rows, keys] @ kf[b, keys, kh])
-        dq[b, rows, kh, g] = fold(parts)
+        rows, keys = slice(i * T, (i + 1) * T), slice((lo + u) * T,
+                                                      (lo + ue) * T)
+        x = ds[b, kh, g, rows, keys] @ kf[b, keys, kh]
+        if dest < 0:
+            dq[b, rows, kh, g] = x
+        else:
+            parts[dest] = x
+    for i, b, h, p0, n in work.dq.folds.tolist():
+        kh, g = divmod(h, G)
+        dq[b, i * T:(i + 1) * T, kh, g] = _sum_in_order(parts[p0:p0 + n])
     dk = torch.zeros((B, Skv, KH, D), dtype=acc, device=q.device)
     dv = torch.zeros_like(dk)
-    units = work.dkdv_units()
-    for (j, b, kh, u0, _), segs in zip(units, work.segments(units, work.nbk)):
-        keys, (lo, hi) = slice(j * T, (j + 1) * T), work.k_ranges[j]
-        pk, pv = [], []
-        for u, se, _, _ in segs:
-            sk = sv = torch.zeros_like(dk[b, keys, kh])
-            for step in range(u - u0, se - u0):
-                g, ti = divmod(step, hi - lo)
-                rows = slice((lo + ti) * T, (lo + ti + 1) * T)
-                sk = sk + ds[b, kh, g, rows, keys].T @ qf[b, rows, kh, g]
-                sv = sv + p[b, kh, g, rows, keys].T @ gf[b, rows, kh, g]
-            pk.append(sk)
-            pv.append(sv)
-        dk[b, keys, kh], dv[b, keys, kh] = fold(pk), fold(pv)
+    parts = [None] * work.dkdv.partials
+    for j, b, kh, lo, per, u, ue, dest in work.dkdv.segs.tolist():
+        keys = slice(j * T, (j + 1) * T)
+        sk = sv = torch.zeros_like(dk[b, keys, kh])
+        for step in range(u, ue):
+            g, ti = divmod(step, per)
+            rows = slice((lo + ti) * T, (lo + ti + 1) * T)
+            sk = sk + ds[b, kh, g, rows, keys].T @ qf[b, rows, kh, g]
+            sv = sv + p[b, kh, g, rows, keys].T @ gf[b, rows, kh, g]
+        if dest < 0:
+            dk[b, keys, kh], dv[b, keys, kh] = sk, sv
+        else:
+            parts[dest] = (sk, sv)
+    for j, b, kh, p0, n in work.dkdv.folds.tolist():
+        keys = slice(j * T, (j + 1) * T)
+        dk[b, keys, kh] = _sum_in_order([x[0] for x in parts[p0:p0 + n]])
+        dv[b, keys, kh] = _sum_in_order([x[1] for x in parts[p0:p0 + n]])
     dq = dq.reshape(B, Sq, H, D) * scale
     return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
 

@@ -872,16 +872,21 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
                                         KH, D):
     """The backward kernels against their plain versions, each gradient
     within ``chip_smoke.FLASH_BWD_TOL`` of its max|want|, on a ragged
-    length (S=300) from a strided cotangent; one launch counted; both fed
-    the forward's L.  bf16 takes the tensor-core kernels, against
-    ``flash_attention_bwd_mma_plain``; f32 the CUDA-core kernels, against
-    ``flash_attention_bwd_plain``."""
+    length (S=300) from a strided cotangent; one launch counted.  The
+    kernels take the forward's L, which must lie within
+    ``FLASH_LSE_TOL`` of the f64 plain L; the plain versions take that
+    plain L, so that a wrong L fails here.  bf16 takes the tensor-core
+    kernels, against ``flash_attention_bwd_mma_plain``; f32 the CUDA-core
+    kernels, against ``flash_attention_bwd_plain``."""
     g = torch.Generator(device=dev).manual_seed(0)
     c = dict(B=2, H=H, KH=KH, D=D, window=window, softcap=softcap)
     q, k, v, out, dout, kw = chip_smoke.flash_bwd_inputs(torch, g, dev, c,
                                                          dtype, S=300)
     lse, o_same = chip_smoke.flash_bwd_lse(torch, q, k, v, out, kw)
     assert o_same and lse is not None
+    lse_want = chip_smoke.flash_lse_want(torch, ref, q, k, kw)
+    assert chip_smoke.flash_lse_err(torch, lse, lse_want) <= \
+        chip_smoke.FLASH_LSE_TOL
     before = (flash_attention.bwd_launches, flash_attention.bwd_mma_launches)
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     got = flash_attention_bwd(q, k, v, out, dout.transpose(1, 2)
@@ -892,10 +897,11 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
             flash_attention.bwd_mma_launches) == (before[0] + 1,
                                                   before[1] + mma)
     if mma:
-        want = ref.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse,
-                                                 **kw)
+        want = ref.flash_attention_bwd_mma_plain(q, k, v, out, dout,
+                                                 lse_want.float(), **kw)
     else:
-        want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        want = ref.flash_attention_bwd_plain(q, k, v, out, dout,
+                                             lse_want.float(), **kw)
     assert max(chip_smoke.flash_bwd_ratios(got, want)) < tol
 
 
@@ -905,8 +911,9 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, tol, window, softcap, H,
 def test_flash_bwd_cuda_core_kernel_in_bf16(dev, acc_dtype, window, softcap,
                                             H, KH, D):
     """The CUDA-core backward on its bf16 routes (D % 16 == 8, and the bf16
-    accumulator), fed the CUDA-core forward's L, against
-    ``flash_attention_bwd_plain`` with that L within the bf16 gate, on a
+    accumulator), fed the CUDA-core forward's L (within ``FLASH_LSE_TOL``
+    of the f64 plain L), against ``flash_attention_bwd_plain`` fed the
+    plain L within the bf16 gate, on a
     ragged length (S=300); one launch counted, none on the tensor
     cores."""
     from repro_torch.kernels.flash_attention import (BWD, bwd_kernel_for,
@@ -924,7 +931,11 @@ def test_flash_bwd_cuda_core_kernel_in_bf16(dev, acc_dtype, window, softcap,
     torch.cuda.synchronize()
     assert (flash_attention.bwd_launches,
             flash_attention.bwd_mma_launches) == (before[0] + 1, before[1])
-    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    lse_want = chip_smoke.flash_lse_want(torch, ref, q, k, kw)
+    assert chip_smoke.flash_lse_err(torch, lse, lse_want) <= \
+        chip_smoke.FLASH_LSE_TOL
+    want = ref.flash_attention_bwd_plain(q, k, v, out, dout,
+                                         lse_want.float(), **kw)
     assert max(chip_smoke.flash_bwd_ratios(got, want)) < \
         chip_smoke.FLASH_BWD_TOL["bfloat16"]
 
@@ -985,7 +996,7 @@ def test_flash_bwd_f32_kernel_at_train_shapes(dev, case):
 
     def widest(S, H, KH, D, window):
         w = bwd_work(1, S, S, H, KH, D, window=window)
-        return max(len(s) for s in w.segments(w.dkdv_units(), w.nbk))
+        return int(w.dkdv.folds[:, 4].max())
     case = dict(case, B=1)
     if case["arch"] == "split-wide":
         assert widest(64, 64, 1, 256, None) == 88 > max(

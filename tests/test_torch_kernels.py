@@ -495,9 +495,13 @@ def test_flash_bwd_split_plain_matches_plain_and_jax_grad(S, Skv, H, KH,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=0.25)
     out = tref.flash_attention_plain(q, k, v, **kw)
     lse = tref.flash_lse_plain(q, k, **kw)
-    work = tfa.bwd_work(1, S, Skv, H, KH, 16, causal=causal,
-                        window=window)._replace(nbq=3, nbk=5)
-    assert any(len(s) > 1 for s in work.segments(work.dkdv_units(), 5))
+    uq, uk = tfa.bwd_units(1, S, Skv, H, KH, causal=causal, window=window)
+    work = tfa.bwd_schedule(S, Skv, (uq, uk),
+                            (tfa.bwd_table(uq, tfa.stream_k(uq, 3)),
+                             tfa.bwd_table(uk, tfa.stream_k(uk, 5))))
+    assert work.empty == tfa.bwd_work(1, S, Skv, H, KH, 16, causal=causal,
+                                      window=window).empty
+    assert len(work.dkdv.folds) and int(work.dkdv.folds[:, 4].max()) > 1
     got = tref.flash_attention_bwd_split_plain(q, k, v, out, dout, lse, work,
                                                **kw)
     want = tref.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
@@ -518,42 +522,62 @@ def test_flash_bwd_split_plain_matches_plain_and_jax_grad(S, Skv, H, KH,
     chip_smoke.FLASH_BWD_CONTROL_CASE,), ids=lambda c: f"{c['arch']}-"
                          f"w{c['window']}-cap{c['softcap']}")
 def test_flash_bwd_work_fills_the_card(case):
-    """The CUDA-core backward's split at the card's f32 shapes (B 1, 512
+    """The CUDA-core backward's schedule at the card's f32 shapes (B 1, 512
     tokens): each kernel launches one block an SM (the dq kernel two at
     D 128), every block's cost (``BWD_STEP_COST`` a step,
     ``BWD_SEGMENT_COST`` a segment) within a step and two segments of the
     mean, every step of every unit (tile x head; every key tile of a
     query tile, every head x query tile of a key tile) in exactly one
-    segment, in order, a segment's slot -1 where it is the whole unit, and
-    at most one unit a block shared with another block on each side."""
+    segment, in order, the block offsets in step order, a segment's dest
+    -1 where it is the whole unit, else its partial numbered in step
+    order, each shared unit's partials consecutive (at least two), and at
+    most two partials a block; the longest query tile first."""
     S = chip_smoke.FLASH_BWD_S
     w = tfa.bwd_work(1, S, S, case["H"], case["KH"], case["D"], causal=True,
                      window=case["window"])
     assert w.blocks() == (tfa.SMS * (2 if case["D"] <= 128 else 1), tfa.SMS)
     G = case["H"] // case["KH"]
-    for units, nb, per in ((w.dq_units(), w.nbq, None),
-                           (w.dkdv_units(), w.nbk, G)):
-        W = sum(u[4] for u in units)
-        assert [u[3] for u in units] == [sum(x[4] for x in units[:n])
-                                         for n in range(len(units))]
-        segs = w.segments(units, nb)
-        cost = [0] * nb
-        shared = [0] * nb
-        for (*_, u0, n), ss in zip(units, segs):
-            assert [x for u, se, _, _ in ss for x in range(u, se)] == \
-                list(range(u0, u0 + n))
-            assert (ss[0][3] == -1) == (len(ss) == 1)
-            for u, se, blk, slot in ss:
-                cost[blk] += tfa.BWD_STEP_COST * (se - u) + \
+    for table, reps in ((w.dq, 1), (w.dkdv, G)):
+        segs, off = table.segs.tolist(), table.offsets.tolist()
+        nb = len(off) - 1
+        assert off[0] == 0 and off[-1] == len(segs) and off == sorted(off)
+        units = {}
+        cost, shared = [0] * nb, [0] * nb
+        for blk in range(nb):
+            for tile, b, h, lo, per, u, ue, dest in segs[off[blk]:
+                                                      off[blk + 1]]:
+                units.setdefault((tile, b, h), []).append((u, ue, dest))
+                cost[blk] += tfa.BWD_STEP_COST * (ue - u) + \
                     tfa.BWD_SEGMENT_COST
-                shared[blk] += slot >= 0
+                shared[blk] += dest >= 0
+        # every unit (tile x batch row x head with a step) once
+        ranges = ([tfa.tile_range(i, w.T, w.T, S, S, True, case["window"])
+                   for i in range(-(-S // w.T))] if reps == 1 else
+                  [tfa._query_range(j, w.T, S, S, True, case["window"])
+                   for j in range(-(-S // w.T))])
+        assert set(units) == {(t, 0, h) for t, (lo, hi) in enumerate(ranges)
+                              if hi > lo
+                              for h in range(case["H"] // reps)}
+        W = 0
+        for (tile, b, h), ss in units.items():
+            per = next(x[4] for x in segs if x[:3] == [tile, b, h])
+            n = reps * per
+            W += n
+            assert [s for u, ue, _ in ss for s in range(u, ue)] == \
+                list(range(n))
+            assert (ss[0][2] == -1) == (len(ss) == 1)
+        dests = [x[7] for x in segs if x[7] >= 0]
+        assert dests == list(range(table.partials))
+        for tile, b, h, p0, n in table.folds.tolist():
+            assert n >= 2 and [x[7] for x in segs if x[:3] == [tile, b, h]] \
+                == list(range(p0, p0 + n))
         mean = (tfa.BWD_STEP_COST * W + tfa.BWD_SEGMENT_COST * len(units)) / nb
         assert max(cost) <= mean + tfa.BWD_STEP_COST + \
             2 * tfa.BWD_SEGMENT_COST
         assert max(shared) <= 2
-    q_lo, q_hi = w.q_ranges[-1]
-    assert [u[0] for u in w.dq_units()][:case["H"]] == [w.nq - 1] * case["H"]
-    assert q_hi - q_lo == max(hi - lo for lo, hi in w.q_ranges)
+    nq = -(-S // w.T)
+    assert [x[0] for x in w.dq.segs.tolist()][:case["H"]] == [nq - 1] * \
+        case["H"]
     assert tfa.bwd_work(1, S, S, case["H"], case["KH"], case["D"],
                         causal=True, window=case["window"]) is w  # cached
 

@@ -20,11 +20,16 @@ device time alone) and ``max_rel``, the largest gradient's max |got -
 want| / max|want| against ``ref.flash_attention_bwd_plain`` fed the same
 L (probes are not the function).
 
-``split``: the stream-K split (``bwd_work``) at its blocks (``rule``: one
-an SM, the dq kernel two at D 128), with the dq kernel at one an SM
-(``dq_132``), and with twice the rule's blocks in each kernel
-(``double``: half the span a block, more units shared); each with its
-grids and its segments (a unit's share of one block's span).
+``split``: the same kernel under other schedules (the wrapper copies
+whatever ``bwd_work`` gives to the card): the stream-K split
+(``bwd_work``) at its blocks (``rule``: one an SM, the dq kernel two at
+D 128, 5 a step and 3 a segment), at other costs a segment
+(``cost_5_0`` .. ``cost_5_12``), with the dq kernel at one an SM
+(``dq_132``), with twice the rule's blocks in each kernel (``double``:
+half the span a block, more units shared), and the first design's split
+(``parts_1``, ``parts_2``: each unit cut into parts of at most T steps,
+one a block, T the steps over one or two blocks an SM); each with its
+grids, segments and shared units.
 
 Parts that compare builds compile copies of the source with one change
 each (text substitutions, checked to apply) and bind each in turn in
@@ -54,6 +59,7 @@ tree's ``src`` on the path.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -139,7 +145,7 @@ def _bind(lib):
     import ctypes
     fn = lib.flash_attention_bwd_launch
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 11 + [I] * 9 + [F, I, I, F, P]
+    fn.argtypes = [P] * 12 + [I] * 14 + [F, I, I, F, P]
     fn.restype = I
     return fn
 
@@ -195,26 +201,79 @@ def compare(part: str, data) -> dict:
     return res
 
 
-SPLITS = {"rule": lambda w: w,
-          "dq_132": lambda w: w._replace(nbq=fa.SMS),
-          "double": lambda w: w._replace(nbq=2 * w.nbq, nbk=2 * w.nbk)}
+def _stream_k(step=None, segment=None, dq_blocks=None, scale=1):
+    """A schedule of the kernel's stream-K spans at these costs a step and
+    a segment (the package's ``BWD_STEP_COST``, ``BWD_SEGMENT_COST`` where
+    None), the dq kernel at ``dq_blocks`` blocks (the rule's where None),
+    every grid times ``scale``."""
+    def starts(units, nb):
+        old = fa.BWD_STEP_COST, fa.BWD_SEGMENT_COST
+        fa.BWD_STEP_COST = old[0] if step is None else step
+        fa.BWD_SEGMENT_COST = old[1] if segment is None else segment
+        try:
+            return fa.stream_k(units, nb * scale)
+        finally:
+            fa.BWD_STEP_COST, fa.BWD_SEGMENT_COST = old
+    return starts, dq_blocks
+
+
+def _parts(aim):
+    """The first design's split: each unit cut into near-equal parts of
+    at most T steps, one a block, T the kernel's steps over ``aim`` blocks
+    an SM (rounded up)."""
+    def starts(units, nb):
+        n = units.n.tolist()
+        T = max(1, -(-sum(n) // (aim * fa.SMS)))
+        out, u0 = [], 0
+        for x in n:
+            ns = -(-x // T)
+            out += [u0 + s * x // ns for s in range(ns)]
+            u0 += x
+        return torch.tensor(out + [u0], dtype=torch.int64)
+    return starts, None
+
+
+# name -> (starts(units, the rule's blocks), the dq kernel's blocks)
+SPLITS = {"rule": _stream_k(),
+          "cost_5_0": _stream_k(5, 0), "cost_5_1": _stream_k(5, 1),
+          "cost_5_6": _stream_k(5, 6), "cost_5_12": _stream_k(5, 12),
+          "dq_132": _stream_k(dq_blocks=132),
+          "double": _stream_k(scale=2),
+          "parts_1": _parts(1), "parts_2": _parts(2)}
+
+
+def _split_work(name):
+    """``fa.bwd_work`` under split ``name``, cached like it (the wrapper
+    copies a schedule to the card once an object)."""
+    starts, dq_blocks = SPLITS[name]
+
+    @functools.lru_cache(maxsize=None)
+    def work(B, Sq, Skv, H, KH, D, *, causal=True, window=None):
+        uq, uk = fa.bwd_units(B, Sq, Skv, H, KH, causal=causal,
+                              window=window)
+        nbq = dq_blocks or fa.SMS * (2 if D <= 128 else 1)
+        return fa.bwd_schedule(Sq, Skv, (uq, uk), (
+            fa.bwd_table(uq, starts(uq, nbq)),
+            fa.bwd_table(uk, starts(uk, fa.SMS))))
+    return work
 
 
 def split(data) -> dict:
     rule = fa.bwd_work
+    works = {name: _split_work(name) for name in SPLITS}
     res = {name: {} for name in SPLITS}
     order = list(SPLITS)
     for name in (order + order[::-1]) * 2:
-        fa.bwd_work = (lambda *a, _f=SPLITS[name], **k: _f(rule(*a, **k)))
+        fa.bwd_work = works[name]
         _measure(res, name, data)
         for case, (args, kw, _) in data.items():
             q, k = args[0], args[1]
             w = fa.bwd_work(1, S, S, q.shape[2], k.shape[2], q.shape[3],
                             causal=kw["causal"], window=kw["window"])
-            res[name][case].update(blocks=w.blocks(), segments=[
-                sum(len(x) for x in w.segments(units, nb))
-                for units, nb in ((w.dq_units(), w.nbq),
-                                  (w.dkdv_units(), w.nbk))])
+            res[name][case].update(
+                blocks=w.blocks(),
+                segments=[len(w.dq.segs), len(w.dkdv.segs)],
+                shared=[len(w.dq.folds), len(w.dkdv.folds)])
     fa.bwd_work = rule
     return res
 
@@ -270,8 +329,10 @@ def parent_part(parent: Path) -> dict:
         root = parent.resolve() if side == "parent" else ROOT
         env = dict(os.environ, PYTHONPATH=str(root / "src"))
         proc = subprocess.run([sys.executable, __file__, "--tree-one"],
-                              capture_output=True, text=True, env=env,
-                              check=True)
+                              capture_output=True, text=True, env=env)
+        if proc.returncode:
+            raise RuntimeError(f"{side} ({root}): exit {proc.returncode}\n"
+                               f"{proc.stderr[-3000:]}")
         res[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     return res
 
