@@ -270,7 +270,30 @@ exits non-zero):
    every 256 steps, the last state's term left out of y), and the
    kernel's SASS (MUFU.EX2 count); then "long" in f32 at Bt=1, where a
    biased exponential shows against the f32 tolerance.
-19. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
+19. wkv6_bwd_kernel: the RWKV6 recurrence's gradient (``wkv6_bwd``,
+   ``csrc/wkv6_bwd.cu``) against its plain version
+   (``ref.wkv6_bwd_plain``) run in f64 on the same inputs and a seeded
+   cotangent: phase 17's sweep shapes in f32 and bf16, the train shape
+   (``WKV_BWD_TRAIN``: B=2, S=4096, H=32, N=64, one micro-batch of phase
+   train (c)) in bf16 in every case of ``WKV_CASES``, and in f32 at B=1
+   in every case.  Every gradient (dr, dk, dv, dw, du) within
+   ``REC_BWD_TOL`` (f32 1e-4, bf16 1e-2) of its max|want|, a second call
+   the same bits, one launch counted; the train-shape bf16 runs timed
+   (``ms``, ``stream_ms`` as the flash kernels', the bound
+   ``wkv_bwd_bound``: 14 N^2 + 16 N f32 operations a (row, step, head);
+   no library call), the first also the plain backward once; the
+   controls of ``WKV_BWD_MUST_CATCH`` on the f32 run of their case (G
+   decayed one step late, dw from S_t, u's term dropped from dk, a column
+   block's partial dropped from dr), each caught by the f32 gate.
+20. ssm_bwd_kernel: the same for the scan's gradient (``ssm_scan_bwd``,
+   ``csrc/ssm_scan_bwd.cu``; dx, ddt, dB, dC, dA) on phase 18's sweep
+   shapes and the train shape (``SSM_BWD_TRAIN``: Bt=2, S=4224, Di=1600,
+   N=16) in every case of ``SSM_CASES``, the bound ``ssm_bwd_bound`` (one
+   exponential a state element, 18 N + 4 f32 operations a (row, step,
+   channel)), and ``SSM_BWD_MUST_CATCH`` (a one step late in the reverse
+   walk, a channel group's partial dropped from dB, a row's from dA, a
+   chunk-boundary state zeroed).
+21. eval_rwkv6: full-width rwkv6-1.6b (24 layers, seeded random bf16
    weights) through ``make_eval_step`` on one ``SyntheticLM`` batch of
    4 x 4096 tokens, under sync debugging; the loss must be finite and
    ``wkv6`` launched once a layer; then ``EVAL_REPS`` more steps timed
@@ -281,13 +304,13 @@ exits non-zero):
    holds controls, the plain version with a fault injected (an input one
    step late; in bf16 also the decay rounded to bf16 and ``u`` left in
    f32); the gates must catch those ``MUST_CATCH`` names.
-20. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
+22. eval_hymba: the same for full-width hymba-1.5b (32 layers, 128 meta
    tokens, window 2048 binding at 4224 positions) and ``ssm_scan``, with
    its parity_eval.  Both eval lines hold ``kernel_ms``: one more step
    with a CUDA event pair around each call of the recurrence kernel.
-21. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
+23. reference_eval: reduced f32 rwkv6 and hymba on the card (kernels) and
    on the CPU (plain versions): the losses must agree to 1e-5 relative.
-22. recurrent_serve: (a) full-width rwkv6-1.6b and hymba-1.5b (seeded
+24. recurrent_serve: (a) full-width rwkv6-1.6b and hymba-1.5b (seeded
    random bf16 weights) through the fused slot engine (max_batch 4,
    max_len 1024; 8 prompts of 16-384 tokens, 8 new tokens each, so rows
    are reused) under sync debugging: every request complete in
@@ -305,7 +328,7 @@ exits non-zero):
    the fused and legacy engines, rows reused, on the card and the CPU:
    tokens equal to the port's teacher-forced greedy decode on the card.
 
-23. flash_bwd_kernel: the flash backward (``flash_attention_bwd``) at
+25. flash_bwd_kernel: the flash backward (``flash_attention_bwd``) at
    the train path's shapes (``FLASH_BWD_CASES``, 512 tokens: gemma2-2b's
    B=4, H=8, KH=4, D=256 with softcap 50 and window None or 128, and with
    both off; gemma3-1b's H=4, KH=1, D=256; internlm2-20b's B=2, H=48,
@@ -336,10 +359,10 @@ exits non-zero):
    group's dK and dV) on the bf16 case with both, each caught by its
    dtype's gate, and of ``FLASH_LSE_MUST_CATCH`` (L a row off, a head
    off, the softcap left out) on those two cases' L, each caught by the L
-   gate; and ``wkv6``, ``ssm_scan`` and
-   ``paged_attention`` refusing inputs that require grad on the card
+   gate; and ``paged_attention``, the one kernel left without a
+   backward, refusing inputs that require grad on the card
    (``guards_raise``).
-24. train: (a) full-width gemma2-2b (26 layers, d_model 2304, vocab
+26. train: (a) full-width gemma2-2b (26 layers, d_model 2304, vocab
    256,000; f32 params, bf16 compute, AdamW) through ``train()``,
    ``TRAIN_FULL`` (3 steps of 8 x 512 tokens, accum 2), priced by the
    committed H100 table, no checkpoint: losses and grad norms finite,
@@ -352,12 +375,24 @@ exits non-zero):
    the card and on the CPU from one init, losses within
    ``TRAIN_LOSS_RTOL``, its backward the CUDA-core kernels; then a run of
    4 steps with a checkpoint and a restarted run to 8, its losses the
-   uninterrupted run's.
+   uninterrupted run's.  (c) full-width rwkv6-1.6b (24 layers) and
+   hymba-1.5b (32 layers, 128 meta tokens) through ``train()``, seeded
+   random weights, f32 params, bf16 compute, AdamW, remat,
+   ``TRAIN_RECURRENT`` (3 steps of 4 x 4096 tokens, accum 2: the
+   configs' microbatch cut to ``TRAIN_RECURRENT_MICRO`` rows): losses and
+   grad norms finite, params moved (the recurrence's own among them), and
+   each step's launches exactly remat's, ``wkv6`` 2 x 24 x 2 forward and
+   24 x 2 backward, ``ssm_scan`` 2 x 32 x 2 and 32 x 2
+   (``train_want_per_step``); readings the median step of steps 2-3,
+   tokens/s and peak memory.  (d) reduced f32 rwkv6 and hymba,
+   ``TRAIN_REDUCED`` on the card (the recurrences' kernels) and on the
+   CPU (their plain versions) from one init: losses within
+   ``TRAIN_LOSS_RTOL``, backward launches above 0 on the card.
 
 Run order: the card phase starts every build and returns; phases 2-8
-then run, each waiting for the kernels it launches, then phases 17 and
-18, while the probe kernels finish building; ``build_wait`` (the card
-line, with each build's seconds) waits for the rest before phase 9.
+then run, each waiting for the kernels it launches, then phases 17-20,
+while the probe kernels finish building; ``build_wait`` (the card line,
+with each build's seconds) waits for the rest before phase 9.
 
 A ``timing`` line gives each phase's seconds; the line before the last
 holds every kernel's numbers; the last line is
@@ -971,19 +1006,24 @@ def reset_launches():
     wrappers["flash_attention"].mma_launches = 0
     wrappers["flash_attention"].bwd_launches = 0
     wrappers["flash_attention"].bwd_mma_launches = 0
+    wrappers["wkv6"].bwd_launches = 0
+    wrappers["ssm_scan"].bwd_launches = 0
 
 
 def launch_counts():
     """Each wrapper's launches; ``flash_attention`` counts both flash
     forward kernels, ``flash_attention_mma`` the tensor-core one alone,
     ``flash_attention_bwd`` both backwards' launches,
-    ``flash_attention_bwd_mma`` the tensor-core backward's."""
+    ``flash_attention_bwd_mma`` the tensor-core backward's; ``wkv6_bwd``
+    and ``ssm_scan_bwd`` the recurrences' backwards'."""
     wrappers = _wrappers()
     counts = {name: f.launches for name, f in wrappers.items()}
     counts["flash_attention_mma"] = wrappers["flash_attention"].mma_launches
     counts["flash_attention_bwd"] = wrappers["flash_attention"].bwd_launches
     counts["flash_attention_bwd_mma"] = \
         wrappers["flash_attention"].bwd_mma_launches
+    counts["wkv6_bwd"] = wrappers["wkv6"].bwd_launches
+    counts["ssm_scan_bwd"] = wrappers["ssm_scan"].bwd_launches
     return counts
 
 
@@ -4407,6 +4447,286 @@ def phase_ssm_kernel(torch, dev, seed):
     return cases["eval"], max_err
 
 
+# --- phases wkv6_bwd_kernel and ssm_bwd_kernel --------------------------------
+
+# the recurrences' backward kernels against their plain versions in f64,
+# each gradient's max |got - want| over its max|want|: in f32 the sums run
+# in another order (FLASH_BWD_TOL's f32 gate); in bf16 dr, dk, dv (dx, dB,
+# dC) are rounded once to bf16, 2^-9 of a value
+REC_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the train path's shapes: one micro-batch of 2 rows (TRAIN_RECURRENT)
+WKV_BWD_TRAIN = dict(B=2, S=4096, H=32, N=64)
+SSM_BWD_TRAIN = dict(Bt=2, S=4224, Di=1600, N=16)
+# the faults the f32 gate must catch on the f32 B=1 run of the case named:
+# G's update decayed by w_{t-1} in place of w_t; dw read from S_t in place
+# of S_{t-1}; u's term dropped from dk; the last column block's partial
+# dropped from dr (csrc/wkv6_bwd.cu's split, ref.wkv6_bwd_parts)
+WKV_BWD_MUST_CATCH = {"g_decay_late": "fast", "dw_from_s_t": "fast",
+                      "u_dropped_from_dk": "fast",
+                      "dr_block_dropped": "long"}
+# ... and for the scan: G_t = dy_t C_t + a_t G_{t+1} (a one step late in
+# the reverse walk); the last channel group's partial dropped from dB; the
+# last row's partial dropped from dA; the middle chunk-boundary state
+# zeroed (csrc/ssm_scan_bwd.cu's split, ref.ssm_scan_bwd_parts)
+SSM_BWD_MUST_CATCH = {"a_late_in_reverse": "eval",
+                      "dB_group_dropped": "eval", "dA_row_dropped": "eval",
+                      "boundary_zeroed": "long"}
+
+
+def _in_order(parts):
+    """The partials added in order, as the fold kernels add them."""
+    return sum(parts[1:], parts[0])
+
+
+def wkv_bwd_g_late(torch, r, k, v, w, u, dy):
+    """The wkv6 backward written out again (every state kept) with G's
+    update reading w one step late: G_{t-1} = diag(w_{t-1}) G_t + r_t dy_t^T
+    (``g_decay_late``)."""
+    wl = _late(torch, w)
+    s = torch.zeros(r.shape[:1] + r.shape[2:] + r.shape[-1:], dtype=r.dtype,
+                    device=r.device)
+    states = []
+    for t in range(r.shape[1]):
+        states.append(s)
+        s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
+    G = torch.zeros_like(s)
+    dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+    for t in reversed(range(r.shape[1])):
+        sp = states[t]
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dy[:, t])
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", G, v[:, t])
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, k[:, t])
+        dw[:, t] = (G * sp).sum(-1)
+        G = wl[:, t, :, :, None] * G + r[:, t, :, :, None] * dy[:, t, :, None, :]
+    vdy = (v * dy).sum(-1, keepdim=True)
+    return (dr + u * k * vdy, dk + u * r * vdy,
+            dv + (r * u * k).sum(-1, keepdim=True) * dy, dw,
+            (r * k * vdy).sum((0, 1)))
+
+
+def wkv_bwd_fault(torch, ref, name, r, k, v, w, u, dy):
+    """The plain wkv6 backward with fault ``name`` (``WKV_BWD_MUST_CATCH``)."""
+    from repro_torch.kernels.wkv6 import BWD_CHUNK, BWD_COLS
+    if name == "g_decay_late":
+        return wkv_bwd_g_late(torch, r, k, v, w, u, dy)
+    if name == "dr_block_dropped":
+        p = ref.wkv6_bwd_parts(r, k, v, w, u, dy, cols=BWD_COLS,
+                               chunk=BWD_CHUNK)
+        return (_in_order(p["dr"][:-1]), _in_order(p["dk"]), p["dv"],
+                _in_order(p["dw"]),
+                _in_order([x for row in p["du"] for x in row]))
+    dr, dk, dv, dw, du = ref.wkv6_bwd_plain(r, k, v, w, u, dy)
+    bonus = u * r * (v * dy).sum(-1, keepdim=True)
+    if name == "u_dropped_from_dk":
+        return dr, dk - bonus, dv, dw, du
+    if name == "dw_from_s_t":
+        # S_t = diag(w_t) S_{t-1} + k_t v_t^T, so sum_j G_t S_t is
+        # w_t dw_t + k_t (G_t v_t), G_t v_t being dk_t less the bonus
+        return dr, dk, dv, w * dw + k * (dk - bonus), du
+    raise KeyError(name)
+
+
+def ssm_bwd_written_out(torch, x, dt, B, C, A, dy, fault):
+    """The scan's backward written out again over the kernel's chunks
+    with fault ``a_late_in_reverse`` (G_t = dy_t C_t + a_t G_{t+1}) or
+    ``boundary_zeroed`` (the middle chunk's boundary state zeroed)."""
+    from repro_torch.kernels.ssm_scan import BWD_CHUNK
+    Bt, S, Di = x.shape
+    h = torch.zeros((Bt, Di, A.shape[1]), dtype=x.dtype, device=x.device)
+    bounds = []
+    for t in range(S):
+        if t % BWD_CHUNK == 0:
+            bounds.append(h)
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :])
+    if fault == "boundary_zeroed":
+        bounds[len(bounds) // 2] = torch.zeros_like(h)
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    dA = torch.zeros_like(h)
+    G, a_next = torch.zeros_like(h), torch.ones_like(h)
+    for c in reversed(range(len(bounds))):
+        steps = range(c * BWD_CHUNK, min(S, (c + 1) * BWD_CHUNK))
+        hs, h = [], bounds[c]
+        for t in steps:
+            a = torch.exp(dt[:, t, :, None] * A)
+            hs.append((h, a))
+            h = a * h + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
+            dC[:, t] = torch.einsum("bdn,bd->bn", h, dy[:, t])
+        for t in reversed(steps):
+            hp, a = hs[t - steps[0]]
+            late = a if fault == "a_late_in_reverse" else a_next
+            G = dy[:, t, :, None] * C[:, t, None, :] + late * G
+            gB = torch.einsum("bdn,bn->bd", G, B[:, t])
+            gah = G * a * hp
+            dx[:, t] = dt[:, t] * gB
+            ddt[:, t] = x[:, t] * gB + (gah * A).sum(-1)
+            dA += gah * dt[:, t, :, None]
+            dB[:, t] = torch.einsum("bdn,bd->bn", G, dt[:, t] * x[:, t])
+            a_next = a
+    return dx, ddt, dB, dC, dA.sum(0)
+
+
+def ssm_bwd_fault(torch, ref, name, x, dt, B, C, A, dy):
+    """The plain scan backward with fault ``name`` (``SSM_BWD_MUST_CATCH``)."""
+    from repro_torch.kernels.ssm_scan import BWD_CHUNK, BWD_GROUP
+    if name in ("a_late_in_reverse", "boundary_zeroed"):
+        return ssm_bwd_written_out(torch, x, dt, B, C, A, dy, name)
+    p = ref.ssm_scan_bwd_parts(x, dt, B, C, A, dy, group=BWD_GROUP,
+                               chunk=BWD_CHUNK)
+    dB, dA = p["dB"], p["dA"]
+    if name == "dB_group_dropped":
+        dB = dB[:-1]
+    elif name == "dA_row_dropped":
+        dA = dA[:-1] or [torch.zeros_like(dA[0])]
+    else:
+        raise KeyError(name)
+    return (p["dx"], p["ddt"], _in_order(dB), _in_order(p["dC"]),
+            _in_order(dA))
+
+
+def wkv_bwd_bound(B, S, H, N, elem=2):
+    """(ms, by) for the wkv6 gradient: r, k, v, dy, w, u read and dr, dk,
+    dv, dw, du written once; 14 N^2 + 16 N f32 operations a (row, step,
+    head): S_{t-1} (k v^T, w S + k v^T) 3 N^2, G's update 3 N^2, the sums
+    S dy, G v, G^T k and G o S 8 N^2; v . dy 2 N, a_t 3 N, the bonus
+    terms of dr, dk, dv 8 N, du 3 N."""
+    n = B * S * H * N
+    nbytes = n * (7 * elem + 8) + H * N * 8
+    return _bound(nbytes, (14 * N * N + 16 * N) * B * S * H, F32_OPS_PER_S)
+
+
+def ssm_bwd_bound(Bt, S, Di, N, elem=2):
+    """(ms, by) for the scan's gradient: x, dt, dy, B, C, A read and dx,
+    ddt, dB, dC, dA written once; one exponential a (row, step, channel,
+    state) and 18 N + 4 f32 operations a (row, step, channel): h_t 3 N,
+    G_t 3 N, G . B 2 N, G a h_{t-1} and its A-weighted sum 4 N, dA 2 N,
+    dB and dC with their channel sums 4 N; dt x, dx, ddt 4."""
+    n = Bt * S * Di
+    nbytes = n * (3 * elem + 8) + 4 * Bt * S * N * elem + Di * N * 8
+    return _bound(nbytes, n * (18 * N + 4), F32_OPS_PER_S, exps=n * N)
+
+
+def rec_bwd_run(torch, bwd, plain, counter, args, dy, tol):
+    """One backward call against the plain backward in f64: the gradients'
+    ratios (``flash_bwd_ratios``), the largest absolute error, a second
+    call's bits, the launches counted, and the failed gates."""
+    before = counter()
+    got = bwd(*args, dy)
+    torch.cuda.synchronize()
+    launched = counter() - before
+    want = plain(*(t.double() for t in args), dy.double())
+    ratios = flash_bwd_ratios(got, want)
+    err = max((a.double() - b).abs().max().item() for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, bwd(*args, dy)))
+    failed = []
+    if not max(ratios) <= tol:
+        failed.append(f"ratios {ratios} over {tol}")
+    if not same:
+        failed.append("a second call differs")
+    if launched != 1:
+        failed.append(f"{launched} launches counted")
+    return want, {"ratios": ratios, "max_abs_err": err, "same_bits": same,
+                  "dtypes": [str(t.dtype).split(".")[-1] for t in got]}, \
+        failed
+
+
+def rec_bwd_controls(torch, want, faults):
+    """Each fault's gradients (f64) against ``want``: its ratios and
+    whether the f32 gate catches it."""
+    out = {}
+    for name, fn in faults.items():
+        r = flash_bwd_ratios(fn(), want)
+        out[name] = {"ratios": r, "caught": max(r) > REC_BWD_TOL["float32"]}
+    return out
+
+
+def _rec_bwd_phase(torch, dev, seed, phase, runs, inputs, bwd, plain,
+                   counter, bound, must_catch, fault):
+    """The body of the two backward phases: ``runs`` of (label, shape,
+    dtype, case) against ``plain`` in f64, each train-shape bf16 run timed
+    beside its bound (the first also the plain backward once, in its own
+    f32), the controls of ``must_catch`` on the f32 run of their case.
+    Returns the first timed run's line and the largest absolute error."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    failed, controls, main, max_err = [], {}, None, 0.0
+    for label, shape, dtype, case in runs:
+        dname = str(dtype).split(".")[-1]
+        args = inputs(torch, g, dev, *shape.values(), dtype, case)
+        dy = torch.randn(args[0].shape, generator=g, device=dev).to(dtype)
+        want, line, bad = rec_bwd_run(torch, bwd, plain, counter, args, dy,
+                                      REC_BWD_TOL[dname])
+        failed += [f"{label} {case} {dname}: {b}" for b in bad]
+        max_err = max(max_err, line["max_abs_err"])
+        line = {"phase": phase, "label": label, "case": case, **shape,
+                "dtype": dname, **line}
+        if label == "train":
+            def call():
+                return bwd(*args, dy)
+            bms, by = bound(*shape.values())
+            line.update(ms=gpu_ms(torch, call, 10),
+                        stream_ms=stream_ms(torch, call), bound_ms=bms,
+                        bound_by=by, library_ms=None, library=NO_LIBRARY)
+            if main is None:
+                _, line["plain_ms"] = timed_once(torch,
+                                                 lambda: plain(*args, dy))
+                main = line
+        if dtype == torch.float32 and label == "train_b1":
+            want64 = [t.double() for t in args] + [dy.double()]
+            controls.update(rec_bwd_controls(torch, want, {
+                name: (lambda name=name: fault(name, *want64))
+                for name, at in must_catch.items() if at == case}))
+        emit(line)
+        del args, dy, want
+    emit({"phase": phase, "controls": controls})
+    failed += [f"control {n} not caught" for n in must_catch
+               if not controls.get(n, {}).get("caught")]
+    if failed:
+        raise AssertionError(f"{phase}: {failed}")
+    torch.cuda.empty_cache()
+    return main, max_err
+
+
+def phase_wkv6_bwd_kernel(torch, dev, seed):
+    """The wkv6 backward kernel against ``ref.wkv6_bwd_plain`` in f64: phase
+    wkv6_kernel's sweep shapes in f32 and bf16, the train shape
+    (``WKV_BWD_TRAIN``) in bf16 in every case of ``WKV_CASES`` (timed) and
+    in f32 at B=1 (with ``WKV_BWD_MUST_CATCH``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+    runs = [("sweep", dict(B=2, S=24, H=H, N=N), dtype, "short")
+            for H, N in ((2, 32), (4, 64))
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [("train", WKV_BWD_TRAIN, torch.bfloat16, c) for c in WKV_CASES]
+    runs += [("train_b1", {**WKV_BWD_TRAIN, "B": 1}, torch.float32, c)
+             for c in WKV_CASES]
+    return _rec_bwd_phase(torch, dev, seed, "wkv6_bwd_kernel", runs,
+                          wkv_inputs, wkv6_bwd, ref.wkv6_bwd_plain,
+                          lambda: wkv6.bwd_launches, wkv_bwd_bound,
+                          WKV_BWD_MUST_CATCH,
+                          lambda *a: wkv_bwd_fault(torch, ref, *a))
+
+
+def phase_ssm_bwd_kernel(torch, dev, seed):
+    """The scan's backward kernel against ``ref.ssm_scan_bwd_plain`` in
+    f64: phase ssm_kernel's sweep shapes in f32 and bf16, the train shape
+    (``SSM_BWD_TRAIN``) in bf16 in every case of ``SSM_CASES`` (timed) and
+    in f32 at Bt=1 (with ``SSM_BWD_MUST_CATCH``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+    runs = [("sweep", dict(Bt=2, S=32, Di=Di, N=N), dtype, "sweep")
+            for Di, N in ((256, 8), (512, 16))
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [("train", SSM_BWD_TRAIN, torch.bfloat16, c) for c in SSM_CASES]
+    runs += [("train_b1", {**SSM_BWD_TRAIN, "Bt": 1}, torch.float32, c)
+             for c in SSM_CASES]
+    return _rec_bwd_phase(torch, dev, seed, "ssm_bwd_kernel", runs,
+                          ssm_inputs, ssm_scan_bwd, ref.ssm_scan_bwd_plain,
+                          lambda: ssm_scan.bwd_launches, ssm_bwd_bound,
+                          SSM_BWD_MUST_CATCH,
+                          lambda *a: ssm_bwd_fault(torch, ref, *a))
+
+
 def phase_eval(torch, dev, seed, arch, kernel):
     """Full-width ``arch`` through ``make_eval_step`` on one 4 x 4096
     ``SyntheticLM`` batch (the train_4k cell's per-shard microbatch),
@@ -5185,20 +5505,14 @@ def flash_lse_controls(torch, ref, q, k, lse, want, kw):
 
 
 def guards_raise(torch, dev):
-    """The kernels with no backward refuse grad-requiring inputs on
-    ``dev``: each name mapped to whether its wrapper raised
-    ``NotImplementedError``."""
+    """The kernel with no backward on a differentiable path refuses
+    grad-requiring inputs on ``dev``: its name mapped to whether its
+    wrapper raised ``NotImplementedError``."""
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.ssm_scan import ssm_scan
-    from repro_torch.kernels.wkv6 import wkv6
 
     def t(*shape, dtype=torch.float32):
         return torch.rand(shape, device=dev, dtype=dtype).requires_grad_()
     calls = {
-        "wkv6": lambda: wkv6(t(1, 4, 1, 16), t(1, 4, 1, 16), t(1, 4, 1, 16),
-                             t(1, 4, 1, 16), t(1, 16)),
-        "ssm_scan": lambda: ssm_scan(t(1, 4, 8), t(1, 4, 8), t(1, 4, 4),
-                                     t(1, 4, 4), t(8, 4), block_d=8),
         "paged_attention": lambda: paged_attention(
             t(1, 2, 16, dtype=torch.bfloat16),
             t(2, 16, 1, 16, dtype=torch.bfloat16),
@@ -5358,40 +5672,56 @@ def phase_flash_bwd_kernel(torch, dev, seed):
 # phase train: (a) full-width gemma2-2b, 3 AdamW steps of 8 x 512 tokens
 # (accum 2 from microbatch 4), no checkpoint (the f32 params, both moments
 # and the summed grads are 42 GB); (b) reduced f32 gemma2, 8 steps on the
-# card against the CPU from one init, then a restart from step 4
+# card against the CPU from one init, then a restart from step 4; (c)
+# full-width rwkv6-1.6b and hymba-1.5b, 3 AdamW steps of 4 x 4096 tokens
+# (accum 2: the configs' microbatch of 4 rows cut to 2, one micro-batch
+# the shape of WKV_BWD_TRAIN / SSM_BWD_TRAIN); (d) reduced f32 rwkv6 and
+# hymba, TRAIN_REDUCED on the card against the CPU from one init
 TRAIN_FULL = dict(num_steps=3, global_batch=8, seq_len=512)
 TRAIN_REDUCED = dict(num_steps=8, global_batch=8, seq_len=64, lr=1e-2)
 TRAIN_RESTART_AT = 4
 TRAIN_LOSS_RTOL = 1e-4
+TRAIN_RECURRENT = dict(num_steps=3, global_batch=4, seq_len=4096)
+TRAIN_RECURRENT_MICRO = 2
+# the launches a train step counts, by kernel
+TRAIN_COUNTS = ("flash_attention", "flash_attention_bwd",
+                "flash_attention_bwd_mma", "wkv6", "wkv6_bwd", "ssm_scan",
+                "ssm_scan_bwd")
 
 
 def train_want_per_step(cfg, accum, mma):
-    """Remat's flash launches a step: the forward kernel twice a layer a
-    micro-batch (the forward and its recomputation in the backward), the
-    backward kernel once, on the tensor cores (``mma``) or not."""
+    """Remat's launches a step: a layer's forward kernel twice a
+    micro-batch (the forward and its recomputation in the backward), its
+    backward kernel once: the flash attention's for the dense family (the
+    backward on the tensor cores with ``mma``), the recurrence's for
+    rwkv6 (``wkv6``) and hymba (``ssm_scan``); every other count 0."""
     n = cfg.n_layers * accum
-    return {"flash_attention": 2 * n, "flash_attention_bwd": n,
-            "flash_attention_bwd_mma": n if mma else 0}
+    want = dict.fromkeys(TRAIN_COUNTS, 0)
+    if cfg.family == "ssm":
+        want.update(wkv6=2 * n, wkv6_bwd=n)
+    elif cfg.family == "hybrid":
+        want.update(ssm_scan=2 * n, ssm_scan_bwd=n)
+    else:
+        want.update(flash_attention=2 * n, flash_attention_bwd=n,
+                    flash_attention_bwd_mma=n if mma else 0)
+    return want
 
 
 def train_launch_gate(per_step, cfg, accum, mma):
-    """Each step's flash launches must be ``train_want_per_step``'s."""
+    """Each step's launches must be ``train_want_per_step``'s."""
     want = train_want_per_step(cfg, accum, mma)
     return [f"step {i}: {got} launches, want {want}"
             for i, got in enumerate(per_step) if got != want]
 
 
 def train_counting_hook(per_step):
-    """A train() hook appending each step's flash launches (the counts
-    since the previous step's hook)."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    last = {"flash_attention": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_mma": 0}
+    """A train() hook appending each step's launches of ``TRAIN_COUNTS``
+    (the counts since the previous step's hook; zeroed before the run)."""
+    last = dict.fromkeys(TRAIN_COUNTS, 0)
 
     def hook(step, metrics):
-        now = {"flash_attention": flash_attention.launches,
-               "flash_attention_bwd": flash_attention.bwd_launches,
-               "flash_attention_bwd_mma": flash_attention.bwd_mma_launches}
+        counts = launch_counts()
+        now = {k: counts[k] for k in TRAIN_COUNTS}
         per_step.append({k: now[k] - last[k] for k in now})
         last.update(now)
     return hook
@@ -5433,7 +5763,8 @@ def train_reduced(torch, seed):
 
     def rel(a, b):
         return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
-    line = {"card_losses": on_card.losses, "cpu_losses": on_cpu.losses,
+    line = {"arch": cfg.name, "card_losses": on_card.losses,
+            "cpu_losses": on_cpu.losses,
             "card_vs_cpu": rel(on_card.losses, on_cpu.losses),
             "restarted_from": rest.restored_from,
             "restart_losses": first.losses + rest.losses,
@@ -5514,24 +5845,147 @@ def train_full(torch, seed):
     return line, failed
 
 
-def phase_train(torch, seed):
-    """Dense training on the card: full-width gemma2-2b through the loop
-    (a), reduced f32 gemma2 card == CPU and a checkpoint restart (b).
-    Returns the tensor-core backward's launches in (a) and the CUDA-core
-    backward's in (b)'s card run."""
+def train_recurrent_reduced(torch, seed, arch):
+    """Reduced f32 ``arch`` (rwkv6 or hymba): ``TRAIN_REDUCED`` on the
+    card (the recurrence's kernels) and on the CPU (their plain versions)
+    from one (CPU-drawn) init.  Returns the readings and the failed
+    gates."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import accum_steps_for
+    from repro_torch.train.tree import tree_map
+
+    cfg = reduced(get_config(arch), compute_dtype="float32")
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg,
+                                                            device="cuda")
+    init = cpu.init(seed, dtype=torch.float32)
+    kw = dict(TRAIN_REDUCED, seed=seed)
+    reset_launches()
+    per_step = []
+    on_card = train(card, params=tree_map(lambda t: t.to("cuda", copy=True),
+                                          init),
+                    hooks=[train_counting_hook(per_step)], **kw)
+    on_cpu = train(cpu, params=tree_map(lambda t: t.clone(), init), **kw)
+    rel = max(abs(x - y) / max(abs(y), 1e-30)
+              for x, y in zip(on_card.losses, on_cpu.losses))
+    bwd = "wkv6_bwd" if cfg.family == "ssm" else "ssm_scan_bwd"
+    line = {"arch": cfg.name, "card_losses": on_card.losses,
+            "cpu_losses": on_cpu.losses, "card_vs_cpu": rel,
+            "launches_per_step": per_step[0] if per_step else None,
+            "card_bwd_launches": sum(s[bwd] for s in per_step)}
+    failed = []
+    if not rel <= TRAIN_LOSS_RTOL:
+        failed.append(f"{arch}: card losses vs CPU {rel}")
+    if not line["card_bwd_launches"] > 0:
+        failed.append(f"{arch}: no {bwd} launch on the card")
+    failed += train_launch_gate(per_step, cfg, accum_steps_for(
+        cfg, kw["global_batch"], 1), mma=False)
+    return line, failed
+
+
+def train_recurrent_full(torch, seed, arch):
+    """Full-width ``arch`` (rwkv6-1.6b or hymba-1.5b; seeded random
+    weights, f32 params, bf16 compute, AdamW, remat) through ``train()``
+    (``TRAIN_RECURRENT``, micro-batches of ``TRAIN_RECURRENT_MICRO``
+    rows): the readings and the failed gates (losses and grad norms
+    finite, params moved, each step's launches exactly remat's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import accum_steps_for
+
+    cfg = get_config(arch).replace(microbatch=TRAIN_RECURRENT_MICRO)
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed, dtype=torch.float32)
+    layer0 = params["layers"][0]
+    probes = {"embed": lambda: params["embed"]["table"][:8],
+              "ln_f": lambda: params["ln_f"]["scale"]}
+    if cfg.family == "ssm":
+        probes.update(wr=lambda: layer0["tmix"]["wr"][:8],
+                      u_bonus=lambda: layer0["tmix"]["u_bonus"])
+    else:
+        probes.update(w_in=lambda: layer0["mamba"]["w_in"][:8],
+                      a_log=lambda: layer0["mamba"]["a_log"])
+    before = {k: f().float().clone() for k, f in probes.items()}
+    accum = accum_steps_for(cfg, TRAIN_RECURRENT["global_batch"], 1)
+    metrics, per_step = [], []
+    count = train_counting_hook(per_step)
+
+    def hook(step, m):
+        count(step, m)
+        metrics.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"])})
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = train(model, params=params, seed=seed, hooks=[hook],
+                **TRAIN_RECURRENT)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {k: (f().float() - before[k]).abs().max().item()
+             for k, f in probes.items()}
+    steps_ms = [1e3 * t for t in res.step_times_s]
+    median_ms = statistics.median(steps_ms[1:])
+    tokens = TRAIN_RECURRENT["global_batch"] * TRAIN_RECURRENT["seq_len"]
+    line = {"arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            **TRAIN_RECURRENT, "microbatch": cfg.microbatch, "accum": accum,
+            "positions": TRAIN_RECURRENT["seq_len"] + cfg.meta_tokens,
+            "losses": res.losses,
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_ms": steps_ms, "median_step_ms_2_3": median_ms,
+            "tokens_per_s": tokens / (median_ms / 1e3), "peak_gib": peak,
+            "moved": moved, "launches_per_step": per_step,
+            "want_per_step": train_want_per_step(cfg, accum, mma=False)}
+    failed = [f"{arch}: {k} not finite" for k in ("losses", "grad_norms")
+              if not all(math.isfinite(x) for x in line[k])]
+    failed += [f"{arch}: {k} did not move" for k, d in moved.items()
+               if not d > 0]
+    failed += [f"{arch}: {f}" for f in
+               train_launch_gate(per_step, cfg, accum, mma=False)]
+    if len(res.losses) != TRAIN_RECURRENT["num_steps"]:
+        failed.append(f"{arch}: {len(res.losses)} steps run")
+    del model, params, res
+    gc_collect(torch)
+    return line, failed
+
+
+def gc_collect(torch):
+    """Free what earlier work left: Python's garbage, then the cache."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_train(torch, seed):
+    """Training on the card: full-width gemma2-2b through the loop (a),
+    reduced f32 gemma2 card == CPU and a checkpoint restart (b),
+    full-width rwkv6-1.6b and hymba-1.5b through the loop (c), reduced f32
+    rwkv6 and hymba card == CPU (d).  Returns the backward launches of the
+    main paths: the tensor-core flash backward's in (a), the CUDA-core
+    one's in (b)'s card run, ``wkv6_bwd``'s and ``ssm_scan_bwd``'s in
+    (c)."""
+    gc_collect(torch)
     full, failed = train_full(torch, seed)
     emit({"phase": "train", "part": "full_width", **full})
     red, bad = train_reduced(torch, seed)
     emit({"phase": "train", "part": "reduced", **red})
     failed += [f"reduced: {b}" for b in bad]
+    rec = {}
+    for arch, bwd in (("rwkv6-1.6b", "wkv6_bwd"),
+                      ("hymba-1.5b", "ssm_scan_bwd")):
+        line, bad = train_recurrent_full(torch, seed, arch)
+        emit({"phase": "train", "part": "recurrent_full_width", **line})
+        failed += bad
+        rec[bwd] = sum(s[bwd] for s in line["launches_per_step"])
+        line, bad = train_recurrent_reduced(torch, seed, arch)
+        emit({"phase": "train", "part": "recurrent_reduced", **line})
+        failed += bad
     if failed:
         raise AssertionError(f"train: {failed}")
     return (sum(s["flash_attention_bwd_mma"]
                 for s in full["launches_per_step"]),
-            red["card_launches"])
+            red["card_launches"], rec["wkv6_bwd"], rec["ssm_scan_bwd"])
 
 
 def main(argv=None) -> int:
@@ -5590,6 +6044,10 @@ def main(argv=None) -> int:
     lap("wkv6_kernel")
     ssm_case, ssm_err = phase_ssm_kernel(torch, dev, args.seed)
     lap("ssm_kernel")
+    wkv_bwd_case, wkv_bwd_err = phase_wkv6_bwd_kernel(torch, dev, args.seed)
+    lap("wkv6_bwd_kernel")
+    ssm_bwd_case, ssm_bwd_err = phase_ssm_bwd_kernel(torch, dev, args.seed)
+    lap("ssm_bwd_kernel")
     card_builds(torch, card, builds)
     lap("build_wait")
     probes, probe_err = phase_probes(torch, np, dev, args.seed)
@@ -5620,7 +6078,8 @@ def main(argv=None) -> int:
     lap("recurrent_serve")
     bwd_cases, bwd_err = phase_flash_bwd_kernel(torch, dev, args.seed)
     lap("flash_bwd_kernel")
-    bwd_mma_launches, bwd_launches = phase_train(torch, args.seed)
+    (bwd_mma_launches, bwd_launches, wkv_bwd_launches,
+     ssm_bwd_launches) = phase_train(torch, args.seed)
     lap("train")
     emit({"phase": "timing", "seconds": seconds,
           "total_s": sum(seconds.values())})
@@ -5700,7 +6159,12 @@ def main(argv=None) -> int:
             ("wkv6", "src/repro/kernels/wkv6.py:46", wkv_launches, wkv_err,
              wkv_case, keys + ("stream_ms",)),
             ("ssm_scan", "src/repro/kernels/ssm_scan.py:39", ssm_launches,
-             ssm_err, ssm_case, keys + ("stream_ms",)))]})
+             ssm_err, ssm_case, keys + ("stream_ms",)),
+            ("wkv6_bwd", "src/repro/kernels/wkv6.py:46", wkv_bwd_launches,
+             wkv_bwd_err, wkv_bwd_case, keys + ("stream_ms",)),
+            ("ssm_scan_bwd", "src/repro/kernels/ssm_scan.py:39",
+             ssm_bwd_launches, ssm_bwd_err, ssm_bwd_case,
+             keys + ("stream_ms",)))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

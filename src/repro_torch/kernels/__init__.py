@@ -11,11 +11,14 @@ rule: the tensor-core backward ``csrc/flash_attention_bwd_mma.cu`` where
 the forward ran on the tensor cores, else the CUDA-core
 ``csrc/flash_attention_bwd.cu``.  ``wkv6`` and ``ssm_scan`` (``kernels/<name>.py``,
 ``csrc/<name>.cu``) are the recurrences of rwkv6's and hymba's train-mode
-forward.  The paper's probes ``alu_chain``, ``pointer_chase`` and
-``mxu_probe`` (``kernels/<name>.py``, ``csrc/<name>.cu``) are the kernels
-of the measurement layer (``core/microbench``).  ``ops`` resolves their
-launch configurations; ``ref`` holds the plain versions.  The kernels
-without a backward refuse inputs that require grad (``refuse_grad``).
+forward; their gradients (``Wkv6Fn``, ``SsmScanFn``: rwkv6's and hymba's
+training) are ``csrc/wkv6_bwd.cu`` and ``csrc/ssm_scan_bwd.cu``.  The
+paper's probes ``alu_chain``, ``pointer_chase`` and ``mxu_probe``
+(``kernels/<name>.py``, ``csrc/<name>.cu``) are the kernels of the
+measurement layer (``core/microbench``).  ``ops`` resolves their launch
+configurations; ``ref`` holds the plain versions.  ``paged_attention``,
+the one kernel on a differentiable path without a backward, refuses
+inputs that require grad (``refuse_grad``).
 """
 
 

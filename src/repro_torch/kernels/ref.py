@@ -445,18 +445,26 @@ def flash_attention_bwd_mma_plain(q, k, v, out, d_out, lse, *, causal=True,
 
 # --- the recurrences -------------------------------------------------------
 
+def _acc(*tensors):
+    """The recurrences' arithmetic type: f64 where an input is f64, else
+    f32 (bf16 and f32 inputs are read in f32, as the kernels read them)."""
+    return (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+            else torch.float32)
+
+
 def wkv6_carry(r, k, v, w, u, s0):
     """The RWKV6 recurrence from a carried state, a port of
     ``repro.models.layers.rwkv._wkv_scan_ref`` as a plain time loop (its
     sqrt-remat chunking only saves memory for gradients).  r,k,v,w
     [B,S,H,N]; u [H,N]; s0 [B,H,N,N] -> (y [B,S,H,N] f32, sT f32), every
-    input read in f32.
+    input read in f32 (f64 where one is f64).
 
       y_t = r_t . (S + diag(u) k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T"""
     B, S, H, N = r.shape
-    rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, w, u))
-    s = s0.float()
-    y = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
+    acc = _acc(r, k, v, w, u)
+    rf, kf, vf, wf, uf = (t.to(acc) for t in (r, k, v, w, u))
+    s = s0.to(acc)
+    y = torch.empty((B, S, H, N), dtype=acc, device=r.device)
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]       # [B,H,N,N]
         y[:, t] = torch.einsum("bhi,bhij->bhj", rf[:, t],
@@ -485,13 +493,14 @@ def ssm_scan_carry(x, dt, B, C, A, h0):
     """The selective scan from a carried state, a port of
     ``repro.models.layers.mamba._ssm_scan_ref`` as a plain time loop.
     x,dt [Bt,S,Di]; B,C [Bt,S,N]; A [Di,N]; h0 [Bt,Di,N] -> (y [Bt,S,Di]
-    f32, hT f32), every input read in f32.
+    f32, hT f32), every input read in f32 (f64 where one is f64).
 
       h_t = exp(dt_t A) h + (dt_t x_t) B_t;   y_t = h_t . C_t"""
     Bt, S, Di = x.shape
-    xf, dtf, bf, cf, Af = (t.float() for t in (x, dt, B, C, A))
-    h = h0.float()
-    y = torch.empty((Bt, S, Di), dtype=torch.float32, device=x.device)
+    acc = _acc(x, dt, B, C, A)
+    xf, dtf, bf, cf, Af = (t.to(acc) for t in (x, dt, B, C, A))
+    h = h0.to(acc)
+    y = torch.empty((Bt, S, Di), dtype=acc, device=x.device)
     for t in range(S):
         dA = torch.exp(dtf[:, t, :, None] * Af)
         h = dA * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
@@ -511,6 +520,208 @@ def ssm_scan_plain(x, dt, B, C, A, *, block_d=256):
     h0 = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
                      dtype=torch.float32, device=x.device)
     return ssm_scan_carry(x, dt, B, C, A, h0)[0].to(x.dtype)
+
+
+# --- the recurrences' gradients ---------------------------------------------
+#
+# Closed forms of the gradients of ``wkv6_plain`` and ``ssm_scan_plain``
+# (the models' train path: a zero start, the final state never read), in
+# f32 (f64 where an input is f64).  Both need the forward state beside the
+# reverse cotangent at each step: the state is kept at chunk boundaries by
+# a forward sweep and a chunk's states are rebuilt from its boundary during
+# the reverse walk (never recovered by dividing by a decay, which reaches
+# 5e-6).  The ``*_parts`` functions keep the kernels' partial sums apart
+# (column blocks of a head for wkv6, channel groups and rows for the scan);
+# the ``*_split_plain`` functions add them in the kernels' order.
+
+def _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, cols):
+    """The recurrence's reverse walk over ``chunk``-step chunks: per column
+    slice in ``cols`` the partials (dr, dk, dw) of S_{t-1} dy_t, G_t v_t
+    and sum_j G_t S_{t-1}, and dv = G_t^T k_t whole (f32/f64, [B,S,H,N]).
+    G_{t-1} = diag(w_t) G_t + r_t dy_t^T from G = 0 after the last step.
+    The time loops carry S and G alone; a chunk's sums are taken at once
+    from its stacked states."""
+    B, S, H, N = rf.shape
+    s = torch.zeros((B, H, N, N), dtype=rf.dtype, device=rf.device)
+    bounds = []
+    for t in range(S):
+        if t % chunk == 0:
+            bounds.append(s)
+        s = torch.addcmul(wf[:, t, :, :, None] * s, kf[:, t, :, :, None],
+                          vf[:, t, :, None, :])
+    parts = {n: [torch.zeros_like(rf) for _ in cols] for n in ("dr", "dk",
+                                                                "dw")}
+    dv = torch.zeros_like(rf)
+    G = torch.zeros((B, H, N, N), dtype=rf.dtype, device=rf.device)
+    for c in reversed(range(len(bounds))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        states, gs, s = [], [], bounds[c]
+        for t in range(t0, t1):
+            states.append(s)
+            s = torch.addcmul(wf[:, t, :, :, None] * s, kf[:, t, :, :, None],
+                              vf[:, t, :, None, :])
+        for t in reversed(range(t0, t1)):
+            gs.append(G)
+            G = torch.addcmul(wf[:, t, :, :, None] * G, rf[:, t, :, :, None],
+                              gf[:, t, :, None, :])
+        sp = torch.stack(states, 1)                 # [B,L,H,N,N] S_{t-1}
+        gt = torch.stack(gs[::-1], 1)               # [B,L,H,N,N] G_t
+        ts = slice(t0, t1)
+        for i, cs in enumerate(cols):
+            parts["dr"][i][:, ts] = torch.einsum(
+                "blhij,blhj->blhi", sp[..., cs], gf[:, ts, :, cs])
+            parts["dk"][i][:, ts] = torch.einsum(
+                "blhij,blhj->blhi", gt[..., cs], vf[:, ts, :, cs])
+            parts["dw"][i][:, ts] = (gt[..., cs] * sp[..., cs]).sum(-1)
+        dv[:, ts] = torch.einsum("blhij,blhi->blhj", gt, kf[:, ts])
+    return parts, dv
+
+
+def wkv6_bwd_parts(r, k, v, w, u, dy, *, cols=32, chunk=8):
+    """The wkv6 backward kernel's partial sums (``csrc/wkv6_bwd.cu``): a
+    head's columns cut into blocks of ``cols``, each block's share of dr,
+    dk and dw (the sums over columns j, bonus terms included) and of du
+    for each row, beside dv whole (a column block holds every row i).
+
+      dr_t = S_{t-1} dy_t + (u o k_t)(v_t . dy_t)
+      dk_t = G_t v_t + (u o r_t)(v_t . dy_t)
+      dv_t = G_t^T k_t + (r_t . (u o k_t)) dy_t
+      dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+      du = sum_{row,t} (r_t o k_t)(v_t . dy_t)
+
+    Returns {"dr", "dk", "dw": one [B,S,H,N] per block, "du": [B][block]
+    [H,N], "dv": [B,S,H,N]} in f32 (f64 where an input is f64)."""
+    acc = _acc(r, k, v, w, u, dy)
+    rf, kf, vf, wf, gf = (t.to(acc) for t in (r, k, v, w, dy))
+    uf = u.to(acc)
+    N = r.shape[-1]
+    width = min(cols, N)
+    blocks = [slice(j, j + width) for j in range(0, N, width)]
+    parts, dv = _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, blocks)
+    vdy = [(vf[..., cs] * gf[..., cs]).sum(-1, keepdim=True) for cs in blocks]
+    for i, d in enumerate(vdy):
+        parts["dr"][i] += uf * kf * d
+        parts["dk"][i] += uf * rf * d
+    dv += (rf * uf * kf).sum(-1, keepdim=True) * gf
+    parts["du"] = [[(rf[b] * kf[b] * d[b]).sum(0) for d in vdy]
+                   for b in range(r.shape[0])]
+    parts["dv"] = dv
+    return parts
+
+
+def wkv6_bwd_split_plain(r, k, v, w, u, dy, *, cols=32, chunk=8):
+    """The wkv6 backward as the kernel adds its partials: dr, dk and dw
+    over the column blocks in order, du over (row, block) in order
+    (``wkv6_bwd_parts``).  -> (dr, dk, dv in r's dtype, dw f32, du in u's
+    dtype), each rounded once."""
+    p = wkv6_bwd_parts(r, k, v, w, u, dy, cols=cols, chunk=chunk)
+    dr, dk, dw = (_sum_in_order(p[n]) for n in ("dr", "dk", "dw"))
+    du = _sum_in_order([x for row in p["du"] for x in row])
+    return (dr.to(r.dtype), dk.to(r.dtype), p["dv"].to(r.dtype),
+            dw.to(_acc(w, r)), du.to(u.dtype))
+
+
+def wkv6_bwd_plain(r, k, v, w, u, dy, *, chunk=64):
+    """The gradient of ``wkv6_plain(r, k, v, w, u)`` at the cotangent
+    ``dy`` [B,S,H,N]: (dr, dk, dv, dw, du) from the closed forms of
+    ``wkv6_bwd_parts`` over whole heads, the state kept every ``chunk``
+    steps.  dr, dk, dv in r's dtype, dw in f32 (f64 where an input is f64),
+    du in u's dtype; every sum in f32 (f64)."""
+    return wkv6_bwd_split_plain(r, k, v, w, u, dy, cols=r.shape[-1],
+                                chunk=chunk)
+
+
+def ssm_scan_bwd_parts(x, dt, B, C, A, dy, *, group=16, chunk=16):
+    """The ssm_scan backward kernel's partial sums
+    (``csrc/ssm_scan_bwd.cu``): dB and dC, sums over channels, as one
+    partial per group of ``group`` channels; dA, a sum over rows and
+    steps, as one partial per row; dx and ddt whole.  With a_t =
+    exp(dt_t A), h_t = a_t h_{t-1} + (dt_t x_t) B_t and the state's
+    cotangent G_t = dy_t C_t + a_{t+1} G_{t+1}:
+
+      dC_t[n] = sum_d dy_t[d] h_t[d,n]
+      dB_t[n] = sum_d G_t[d,n] dt_t[d] x_t[d]
+      dx_t[d] = dt_t[d] sum_n G_t[d,n] B_t[n]
+      ddt_t[d] = x_t[d] sum_n G_t[d,n] B_t[n]
+                 + sum_n G_t[d,n] A[d,n] a_t[d,n] h_{t-1}[d,n]
+      dA[d,n] = sum_{row,t} G_t[d,n] dt_t[d] a_t[d,n] h_{t-1}[d,n]
+
+    Returns {"dB", "dC": one [Bt,S,N] a group, "dA": one [Di,N] a row,
+    "dx", "ddt": [Bt,S,Di]} in f32 (f64 where an input is f64)."""
+    acc = _acc(x, dt, B, C, A, dy)
+    xf, dtf, bf, cf, Af, gf = (t.to(acc) for t in (x, dt, B, C, A, dy))
+    Bt, S, Di = x.shape
+    N = A.shape[1]
+    groups = [slice(d, d + group) for d in range(0, Di, group)]
+    dtx = dtf * xf
+    h = torch.zeros((Bt, Di, N), dtype=acc, device=x.device)
+    bounds = []
+    for t0 in range(0, S, chunk):
+        bounds.append(h)
+        a = torch.exp(dtf[:, t0:t0 + chunk, :, None] * Af)
+        for t in range(t0, min(S, t0 + chunk)):
+            h = torch.addcmul(a[:, t - t0] * h, dtx[:, t, :, None],
+                              bf[:, t, None, :])
+    dB = [torch.zeros_like(bf) for _ in groups]
+    dC = [torch.zeros_like(cf) for _ in groups]
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(xf)
+    dA = torch.zeros((Bt, Di, N), dtype=acc, device=x.device)
+    G = torch.zeros((Bt, Di, N), dtype=acc, device=x.device)
+    a_next = torch.ones_like(G)
+    # the time loops carry h and G alone; a chunk's sums are taken at once
+    # from its stacked h_{t-1}, a_t, h_t and G_t ([Bt,L,Di,N])
+    for c in reversed(range(len(bounds))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        ts = slice(t0, t1)
+        a = torch.exp(dtf[:, ts, :, None] * Af)
+        hs, gs, h = [], [], bounds[c]
+        for t in range(t0, t1):
+            hs.append(h)
+            h = torch.addcmul(a[:, t - t0] * h, dtx[:, t, :, None],
+                              bf[:, t, None, :])
+        hs.append(h)
+        for t in reversed(range(t0, t1)):
+            G = torch.addcmul(a_next * G, gf[:, t, :, None],
+                              cf[:, t, None, :])
+            gs.append(G)
+            a_next = a[:, t - t0]
+        hp, ht = torch.stack(hs[:-1], 1), torch.stack(hs[1:], 1)
+        gt = torch.stack(gs[::-1], 1)
+        gB = torch.einsum("bldn,bln->bld", gt, bf[:, ts])
+        gah = gt * a * hp
+        dx[:, ts] = dtf[:, ts] * gB
+        ddt[:, ts] = xf[:, ts] * gB + (gah * Af).sum(-1)
+        dA += (gah * dtf[:, ts, :, None]).sum(1)
+        for i, gsl in enumerate(groups):
+            dB[i][:, ts] = torch.einsum("bldn,bld->bln", gt[:, :, gsl],
+                                        dtx[:, ts, gsl])
+            dC[i][:, ts] = torch.einsum("bldn,bld->bln", ht[:, :, gsl],
+                                        gf[:, ts, gsl])
+    return {"dB": dB, "dC": dC, "dA": list(dA.unbind(0)), "dx": dx,
+            "ddt": ddt}
+
+
+def ssm_scan_bwd_split_plain(x, dt, B, C, A, dy, *, group=16, chunk=16):
+    """The ssm_scan backward as the kernel adds its partials: dB and dC
+    over the channel groups in order, dA over the rows in order
+    (``ssm_scan_bwd_parts``).  -> (dx in x's dtype, ddt f32, dB, dC in
+    B's dtype, dA f32), each rounded once."""
+    p = ssm_scan_bwd_parts(x, dt, B, C, A, dy, group=group, chunk=chunk)
+    f = _acc(x, dt, B, C, A)
+    return (p["dx"].to(x.dtype), p["ddt"].to(f),
+            _sum_in_order(p["dB"]).to(B.dtype),
+            _sum_in_order(p["dC"]).to(C.dtype),
+            _sum_in_order(p["dA"]).to(f))
+
+
+def ssm_scan_bwd_plain(x, dt, B, C, A, dy, *, chunk=64):
+    """The gradient of ``ssm_scan_plain(x, dt, B, C, A)`` at the cotangent
+    ``dy`` [Bt,S,Di]: (dx, ddt, dB, dC, dA) from the closed forms of
+    ``ssm_scan_bwd_parts`` over all channels at once, the state kept
+    every ``chunk`` steps.  dx in x's dtype, dB and dC in B's, ddt and dA
+    in f32 (f64 where an input is f64); every sum in f32 (f64)."""
+    return ssm_scan_bwd_split_plain(x, dt, B, C, A, dy, group=x.shape[2],
+                                    chunk=chunk)
 
 
 # --- the paper's probes ----------------------------------------------------

@@ -1,7 +1,7 @@
 """Train a model through the port's loop (``repro_torch.train.loop``).
 
   python -m repro_torch.launch.train --arch gemma2-2b --steps 3            # full width, on the card
-  python -m repro_torch.launch.train --arch gemma2-2b --reduced --device cpu
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --reduced --device cpu
 
 ``global_batch=8`` and ``seq_len=64``, as the reference's launcher; random
 weights from ``--seed``; AdamW or Adafactor as the config says; one card.
@@ -9,8 +9,9 @@ weights from ``--seed``; AdamW or Adafactor as the config says; one card.
 ``--host-mesh``) runs anywhere; ``--device cpu`` runs the plain versions
 of the kernels on the host.  ``--dry-run`` (lower and price without
 running) and ``--multi-pod`` need the sharding half of the port and exit
-with status 2, naming the ROADMAP item they wait on.  Only the dense
-family trains (rwkv6 and hymba raise: their kernels have no backward).
+with status 2, naming the ROADMAP item they wait on.  Every family the
+port evaluates trains: the dense family, rwkv6 and hymba (their
+recurrences' backward kernels on the card).
 """
 from __future__ import annotations
 

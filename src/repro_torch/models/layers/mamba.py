@@ -11,7 +11,8 @@ RMS-normed and mean-fused before the shared output projection (the trunk,
 * **Train mode** (no state in, none needed) starts every row from a zero
   state and never reads the final one, so the scan runs through
   ``kernels.ops.ssm_scan`` (the CUDA kernel on the card, its plain version
-  on the CPU).
+  on the CPU); its gradient is ``SsmScanFn``'s (the backward kernel on the
+  card), each input's in that input's dtype.
 * **Prefill and decode** carry the state: the causal conv reads the
   ``W-1`` rows before the new ones from the state's buffer, and the scan
   is the reference's (``kernels.ref.ssm_scan_carry``, a plain f32 time

@@ -10,7 +10,10 @@ Token shift is the v6 "ddlerp" (a LoRA-modulated lerp with x_{t-1}).
   state and never reads the final one, so the recurrence runs through
   ``kernels.ops.wkv6`` (the CUDA kernel on the card, its plain version on
   the CPU) with ``u`` rounded to r's dtype, as the reference's Pallas path
-  rounds it.
+  rounds it.  Its gradient is ``Wkv6Fn``'s (the backward kernel on the
+  card); ``u``'s comes back through the rounding, in f32.  In bf16 this
+  differs by design from the reference's training scan, which keeps ``u``
+  in f32; in f32 the two are one function.
 * **Prefill and decode** carry the state: the token shifts come from the
   state and the recurrence runs the reference's scan
   (``kernels.ref.wkv6_carry``, a plain f32 time loop) with ``u`` in f32.

@@ -172,12 +172,32 @@ def _hybrid_layer(x, lp, *, cfg, positions, is_global, cache, write_pos,
             {**(new_kv or {}), **(s_new or {})})
 
 
+def _recurrent_layer(x, lp, *, cfg, positions, is_global, cache, write_pos,
+                     need_state, wkv_fn, ssm_fn):
+    """One rwkv6 (``_ssm_layer``) or hymba (``_hybrid_layer``) layer:
+    (x, the layer's new state or None)."""
+    if cfg.family == "ssm":
+        return _ssm_layer(x, lp, cfg=cfg, state=cache, need_state=need_state,
+                          wkv_fn=wkv_fn)
+    return _hybrid_layer(x, lp, cfg=cfg, positions=positions,
+                         is_global=is_global, cache=cache,
+                         write_pos=write_pos, need_state=need_state,
+                         ssm_fn=ssm_fn)
+
+
+def _output(layer, x, lp):
+    """``layer``'s output alone (a train layer's new state is None)."""
+    return layer(x, lp)[0]
+
+
 def _recurrent_apply(params, cfg, tokens, mode, cache, write_pos, max_len,
-                     wkv_fn, ssm_fn):
+                     wkv_fn, ssm_fn, remat):
     """``lm_apply`` for rwkv6 and hymba.  Train and prefill run from zero
     state at positions ``0..St-1``, hymba's meta tokens prepended (rwkv6's
     ``ln0`` after the embedding), the prefix sliced off after the final
-    norm; decode prepends nothing, runs at ``write_pos`` and writes every
+    norm; train with ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), as the dense stack does;
+    decode prepends nothing, runs at ``write_pos`` and writes every
     layer's new state into ``cache`` in place (hymba's K/V through the
     attention's slot write)."""
     cdt = getattr(torch, cfg.compute_dtype)
@@ -206,14 +226,16 @@ def _recurrent_apply(params, cfg, tokens, mode, cache, write_pos, max_len,
     for i, lp in enumerate(params["layers"]):
         layer_cache = ({key: c[i] for key, c in cache.items()}
                        if mode == "decode" else None)
-        if cfg.family == "ssm":
-            x, nc = _ssm_layer(x, lp, cfg=cfg, state=layer_cache,
-                               need_state=mode != "train", wkv_fn=wkv_fn)
-        else:
-            x, nc = _hybrid_layer(x, lp, cfg=cfg, positions=positions,
-                                  is_global=cfg.layer_is_global(i),
-                                  cache=layer_cache, write_pos=write_pos,
-                                  need_state=mode != "train", ssm_fn=ssm_fn)
+        layer = functools.partial(
+            _recurrent_layer, cfg=cfg, positions=positions,
+            is_global=cfg.layer_is_global(i), cache=layer_cache,
+            write_pos=write_pos, need_state=mode != "train", wkv_fn=wkv_fn,
+            ssm_fn=ssm_fn)
+        if mode == "train":
+            x = (checkpoint(_output, layer, x, lp, use_reentrant=False)
+                 if remat else _output(layer, x, lp))
+            continue
+        x, nc = layer(x, lp)
         if mode == "decode":
             for key, t in nc.items():
                 layer_cache[key].copy_(t)
@@ -271,8 +293,9 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
                   ``torch.utils.checkpoint`` (non-reentrant), the
                   counterpart of the reference's ``jax.checkpoint`` with
                   ``nothing_saveable``: its forward runs again in the
-                  backward pass, so the attention's forward kernel
-                  launches twice a layer and its backward once;
+                  backward pass, so the attention's (rwkv6's and hymba's
+                  recurrence's) forward kernel launches twice a layer and
+                  its backward once;
                   ``remat_policy="save_attn"`` is not ported and raises.
                   "prefill": the uncached forward from position 0; returns
                   the new cache (``init_decode_cache``'s keys): K/V [L, B,
@@ -289,21 +312,20 @@ def lm_apply(params, cfg, *, tokens, mode, cache=None, write_pos=None,
                   nothing into the paged pool
     block_tables  [B,NB] int32 (paged pool only)
     Returns (f32 logits [B, 1, Vpad] of the last position, cache) in
-    prefill and decode.  rwkv6 and hymba ignore ``remat``: their kernels
-    have no backward, so they do not train.
+    prefill and decode.
     """
     check_supported(cfg, mode)
-    if is_recurrent(cfg):
-        if block_tables is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: paged decode needs a plain GQA stack")
-        return _recurrent_apply(params, cfg, tokens, mode, cache, write_pos,
-                                max_len, wkv_fn, ssm_fn)
     remat = remat and mode == "train" and torch.is_grad_enabled()
     if remat and cfg.remat_policy != "nothing":
         raise NotImplementedError(
             f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported "
             "(the port recomputes every layer: 'nothing')")
+    if is_recurrent(cfg):
+        if block_tables is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: paged decode needs a plain GQA stack")
+        return _recurrent_apply(params, cfg, tokens, mode, cache, write_pos,
+                                max_len, wkv_fn, ssm_fn, remat)
     cdt = getattr(torch, cfg.compute_dtype)
     B, S = tokens.shape
     x = basic.embed_tokens(params["embed"], tokens, cdt,

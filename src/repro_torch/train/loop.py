@@ -84,8 +84,17 @@ def train(model, mesh=None, *, num_steps: int = 50, global_batch: int = 8,
 
 
 def _train_kernel_shapes(cfg, seq_len: int, rows: int) -> Dict[str, Dict]:
-    """The tunable-kernel problem shapes one train microstep presents (the
-    dense family, the one the port trains: its flash attention)."""
+    """The tunable-kernel problem shapes one train microstep presents: the
+    dense family's flash attention, rwkv6's recurrence, hymba's scan (its
+    attention, over the meta tokens, takes no kernel)."""
+    if cfg.family == "ssm":
+        return {"wkv6": {"batch": rows, "seq": seq_len,
+                         "heads": cfg.d_model // cfg.rwkv.head_dim,
+                         "head_dim": cfg.rwkv.head_dim}}
+    if cfg.family == "hybrid":
+        return {"ssm_scan": {"batch": rows, "seq": seq_len + cfg.meta_tokens,
+                             "d_inner": cfg.d_model,
+                             "state_dim": cfg.ssm.state_dim}}
     return {"flash_attention": {
         "batch": rows, "seq_q": seq_len, "seq_kv": seq_len,
         "heads": cfg.padded_heads, "kv_heads": cfg.n_kv_heads,

@@ -10,16 +10,16 @@ returns the same trees: at full width a second copy would not fit on one
 card.  ``batch_axes`` belongs to the mesh, which the port does not have
 yet (ROADMAP queue 1), so there is no such argument.
 
-Only the dense family trains: the rwkv6 and hymba recurrences' kernels
-(``wkv6``, ``ssm_scan``) have no backward, and the reference cannot
-differentiate its own Pallas recurrences either, so ``make_train_step``
-refuses them on every device rather than train them on the CPU alone.
+Every family the port evaluates trains: the dense family through
+``FlashAttentionFn``, rwkv6 and hymba through ``Wkv6Fn`` and
+``SsmScanFn`` (the recurrences' backward kernels on the card, their plain
+versions on the CPU), where the reference takes ``jax.grad`` of its scans.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import check_supported, is_recurrent
+from repro_torch.models.transformer import check_supported
 from repro_torch.train.tree import leaves, unflatten
 
 
@@ -51,11 +51,6 @@ def make_train_step(model, optimizer, accum: int):
     copies (the gradient of the cast is the cast of the gradient), as
     the reference hoists its casts above the accumulation loop."""
     cfg = model.cfg
-    if is_recurrent(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training rwkv6 and hymba is not ported: the wkv6 "
-            "and ssm_scan kernels have no backward, and the reference "
-            "cannot differentiate its Pallas recurrences either (ROADMAP)")
     check_supported(cfg, "train")
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")

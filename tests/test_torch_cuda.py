@@ -24,8 +24,8 @@ from repro_torch.kernels.mxu_probe import REL_TOL as MXU_REL_TOL
 from repro_torch.kernels.mxu_probe import mxu_probe
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.pointer_chase import pointer_chase
-from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 from repro_torch.models.convert import params_to
 from repro_torch.models.zoo import build_model
 from repro_torch.train.step import make_eval_step
@@ -1139,4 +1139,83 @@ def test_train_reduced_on_card_matches_cpu(dev):
     the card and on the CPU from one init, and a restart, with remat's
     launch counts."""
     line, failed = chip_smoke.train_reduced(torch, 0)
+    assert failed == [], line
+
+
+# --- the recurrences' backward kernels ----------------------------------------
+
+def _bwd_gate(args, dy, bwd, plain, counter):
+    """``chip_smoke.rec_bwd_run``: every gradient within ``REC_BWD_TOL`` of
+    its max|want| against the plain backward in f64, a second call the
+    same bits, one launch counted."""
+    dname = str(args[0].dtype).split(".")[-1]
+    _, line, failed = chip_smoke.rec_bwd_run(
+        torch, bwd, plain, counter, args, dy, chip_smoke.REC_BWD_TOL[dname])
+    assert failed == [], line
+    return line
+
+
+# the sweep's (H, N), N=16 over a ragged last chunk, and the train shape (a
+# micro-batch of rwkv6-1.6b: two column blocks a head)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,case", [
+    ((2, 24, 2, 32), "short"), ((2, 24, 4, 64), "short"),
+    ((2, 37, 4, 16), "fast"), ((2, 4096, 32, 64), "long")])
+def test_wkv6_bwd_kernel_matches_plain(dev, dtype, shape, case):
+    g = torch.Generator(device=dev).manual_seed(3)
+    args = chip_smoke.wkv_inputs(torch, g, dev, *shape, dtype, case)
+    dy = torch.randn(args[0].shape, generator=g, device=dev).to(dtype)
+    line = _bwd_gate(args, dy, wkv6_bwd, ref.wkv6_bwd_plain,
+                     lambda: wkv6.bwd_launches)
+    want = [str(dtype).split(".")[-1]] * 3 + ["float32", line["dtypes"][0]]
+    assert line["dtypes"] == want
+
+
+# the sweep's (Di, N), Di=24 (a block's second warp past Di) over a ragged
+# last chunk at N=4, and the train shape (a micro-batch of hymba-1.5b)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,case", [
+    ((2, 32, 256, 8), "sweep"), ((2, 32, 512, 16), "sweep"),
+    ((2, 45, 24, 4), "eval"), ((2, 4224, 1600, 16), "long")])
+def test_ssm_scan_bwd_kernel_matches_plain(dev, dtype, shape, case):
+    g = torch.Generator(device=dev).manual_seed(4)
+    args = chip_smoke.ssm_inputs(torch, g, dev, *shape, dtype, case)
+    dy = torch.randn(args[0].shape, generator=g, device=dev).to(dtype)
+    line = _bwd_gate(args, dy, ssm_scan_bwd, ref.ssm_scan_bwd_plain,
+                     lambda: ssm_scan.bwd_launches)
+    d = str(dtype).split(".")[-1]
+    assert line["dtypes"] == [d, "float32", d, d, "float32"]
+
+
+def test_recurrence_functions_launch_their_backward_kernels(dev):
+    """Through autograd (``Wkv6Fn``, ``SsmScanFn``) the gradients are the
+    backward kernels' own, one launch each; a strided cotangent is taken."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    args = chip_smoke.wkv_inputs(torch, g, dev, 2, 40, 4, 64,
+                                 torch.bfloat16, "long")
+    xs = [t.clone().requires_grad_() for t in args]
+    dy = torch.randn((2, 4, 40, 64), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    before = wkv6.bwd_launches
+    got = torch.autograd.grad(wkv6(*xs), xs, dy)
+    assert wkv6.bwd_launches == before + 1
+    for a, b in zip(got, wkv6_bwd(*args, dy)):
+        assert torch.equal(a, b.to(a.dtype))
+    args = chip_smoke.ssm_inputs(torch, g, dev, 2, 50, 64, 16,
+                                 torch.bfloat16, "eval")
+    xs = [t.clone().requires_grad_() for t in args]
+    dy = torch.randn(args[0].shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    before = ssm_scan.bwd_launches
+    got = torch.autograd.grad(ssm_scan(*xs, block_d=64), xs, dy)
+    assert ssm_scan.bwd_launches == before + 1
+    for a, b in zip(got, ssm_scan_bwd(*args, dy)):
+        assert torch.equal(a, b.to(a.dtype))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_train_recurrent_reduced_on_card_matches_cpu(dev, arch):
+    """``chip_smoke.py``'s phase train (d): reduced f32 ``arch`` trained on
+    the card and on the CPU from one init, with remat's launch counts."""
+    line, failed = chip_smoke.train_recurrent_reduced(torch, 0, arch)
     assert failed == [], line

@@ -708,11 +708,11 @@ def test_flash_attention_fn_bf16_and_no_grad_paths():
     assert tfa.flash_attention.bwd_mma_launches == 0
 
 
-@pytest.mark.parametrize("name", ["wkv6", "ssm_scan", "paged_attention"])
+@pytest.mark.parametrize("name", ["paged_attention"])
 def test_kernels_without_a_backward_refuse_grad(name):
-    """``wkv6``, ``ssm_scan`` and ``paged_attention`` raise, naming
-    themselves, on inputs that require grad (on the CPU as on the card:
-    ``chip_smoke.guards_raise``), and run under ``torch.no_grad()``."""
+    """``paged_attention`` raises, naming itself, on inputs that require
+    grad (on the CPU as on the card: ``chip_smoke.guards_raise``), and runs
+    under ``torch.no_grad()``."""
     assert chip_smoke.guards_raise(torch, "cpu")[name]
     with torch.no_grad():
         assert not chip_smoke.guards_raise(torch, "cpu")[name]

@@ -27,8 +27,8 @@
   of the same steps taken one by one; ``cost_model=`` prices every step;
   ``autotuner=`` fills ``tuned_configs`` and restores the previous handle
   (``tests/test_autotune.py``'s check).
-* Refusals (rwkv6 and hymba in ``make_train_step``, ``mesh=`` in
-  ``train``), remat, ``Prefetcher`` and the launcher.
+* Refusals (``mesh=`` in ``train``), remat, ``Prefetcher`` and the
+  launcher.  rwkv6 and hymba train in ``tests/test_torch_recurrent_train.py``.
 
 The reference's models are built once (``_models``) and its steps
 compiled once, in a module-scoped fixture.
@@ -354,13 +354,6 @@ def test_accum_steps_for_matches_reference():
             for shards in (1, 2):
                 assert accum_steps_for(ARCHS[arch], gb, shards) == jaccum(
                     JARCHS[arch], gb, shards)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
-def test_train_step_refuses_recurrent_families(arch):
-    model = build_model(reduced(ARCHS[arch]), device="cpu")
-    with pytest.raises(NotImplementedError, match="no backward"):
-        make_train_step(model, topt.make_optimizer("adamw"), 1)
 
 
 # -- the loop ----------------------------------------------------------------
