@@ -273,18 +273,22 @@ exits non-zero):
 19. wkv6_bwd_kernel: the RWKV6 recurrence's gradient (``wkv6_bwd``,
    ``csrc/wkv6_bwd.cu``) against its plain version
    (``ref.wkv6_bwd_plain``) run in f64 on the same inputs and a seeded
-   cotangent: phase 17's sweep shapes in f32 and bf16, the train shape
-   (``WKV_BWD_TRAIN``: B=2, S=4096, H=32, N=64, one micro-batch of phase
-   train (c)) in bf16 in every case of ``WKV_CASES``, and in f32 at B=1
-   in every case.  Every gradient (dr, dk, dv, dw, du) within
-   ``REC_BWD_TOL`` (f32 1e-4, bf16 1e-2) of its max|want|, a second call
-   the same bits, one launch counted; the train-shape bf16 runs timed
+   cotangent: phase 17's sweep shapes in f32 and bf16, a ragged shape
+   over 16 of the kernel's 64-step segments (the last one 40 steps) in
+   f32, the train shape (``WKV_BWD_TRAIN``: B=2, S=4096, H=32, N=64, one
+   micro-batch of phase train (c)) in bf16 in every case of
+   ``WKV_CASES``, and in f32 at B=1 in every case.  Every gradient (dr,
+   dk, dv, dw, du) within ``REC_BWD_TOL`` (f32 1e-4, bf16 1e-2) of its
+   max|want|, a second call the same bits, one launch counted; the
+   train-shape bf16 runs timed
    (``ms``, ``stream_ms`` as the flash kernels', the bound
    ``wkv_bwd_bound``: 14 N^2 + 16 N f32 operations a (row, step, head);
    no library call), the first also the plain backward once; the
    controls of ``WKV_BWD_MUST_CATCH`` on the f32 run of their case (G
    decayed one step late, dw from S_t, u's term dropped from dk, a column
-   block's partial dropped from dr), each caught by the f32 gate.
+   group's partial dropped from dr; a segment's start state or end
+   cotangent not carried, the segments' decay products left out of the
+   combine), each caught by the f32 gate.
 20. ssm_bwd_kernel: the same for the scan's gradient (``ssm_scan_bwd``,
    ``csrc/ssm_scan_bwd.cu``; dx, ddt, dB, dC, dA) on phase 18's sweep
    shapes and the train shape (``SSM_BWD_TRAIN``: Bt=2, S=4224, Di=1600,
@@ -4459,11 +4463,18 @@ WKV_BWD_TRAIN = dict(B=2, S=4096, H=32, N=64)
 SSM_BWD_TRAIN = dict(Bt=2, S=4224, Di=1600, N=16)
 # the faults the f32 gate must catch on the f32 B=1 run of the case named:
 # G's update decayed by w_{t-1} in place of w_t; dw read from S_t in place
-# of S_{t-1}; u's term dropped from dk; the last column block's partial
-# dropped from dr (csrc/wkv6_bwd.cu's split, ref.wkv6_bwd_parts)
+# of S_{t-1}; u's term dropped from dk; the last column group's partial
+# dropped from dr; and in the segment split (csrc/wkv6_bwd.cu's passes,
+# ref.wkv6_bwd_local / wkv6_bwd_combine / wkv6_bwd_parts): the middle
+# segment's start state not carried (zero), every segment's decay product
+# left out of the combine (taken as 1), and the middle segment's end
+# cotangent not carried (zero)
 WKV_BWD_MUST_CATCH = {"g_decay_late": "fast", "dw_from_s_t": "fast",
                       "u_dropped_from_dk": "fast",
-                      "dr_block_dropped": "long"}
+                      "dr_block_dropped": "long",
+                      "seg_start_dropped": "long",
+                      "seg_decay_dropped": "long",
+                      "seg_g_end_dropped": "long"}
 # ... and for the scan: G_t = dy_t C_t + a_t G_{t+1} (a one step late in
 # the reverse walk); the last channel group's partial dropped from dB; the
 # last row's partial dropped from dA; the middle chunk-boundary state
@@ -4506,15 +4517,28 @@ def wkv_bwd_g_late(torch, r, k, v, w, u, dy):
 
 def wkv_bwd_fault(torch, ref, name, r, k, v, w, u, dy):
     """The plain wkv6 backward with fault ``name`` (``WKV_BWD_MUST_CATCH``)."""
-    from repro_torch.kernels.wkv6 import BWD_CHUNK, BWD_COLS
+    from repro_torch.kernels.wkv6 import BWD_CHUNK, BWD_GROUP, BWD_SEG
     if name == "g_decay_late":
         return wkv_bwd_g_late(torch, r, k, v, w, u, dy)
+    split = dict(cols=BWD_GROUP, chunk=BWD_CHUNK, seg=BWD_SEG)
     if name == "dr_block_dropped":
-        p = ref.wkv6_bwd_parts(r, k, v, w, u, dy, cols=BWD_COLS,
-                               chunk=BWD_CHUNK)
-        return (_in_order(p["dr"][:-1]), _in_order(p["dk"]), p["dv"],
-                _in_order(p["dw"]),
-                _in_order([x for row in p["du"] for x in row]))
+        p = ref.wkv6_bwd_parts(r, k, v, w, u, dy, **split)
+        p["dr"] = p["dr"][:-1]
+        return ref.wkv6_bwd_sum(p, r, w, u)
+    if name.startswith("seg_"):
+        local = ref.wkv6_bwd_local(r, k, v, w, dy, seg=BWD_SEG)
+        if name == "seg_decay_dropped":
+            local = [(s, g, torch.ones_like(p)) for s, g, p in local]
+        starts, ends = ref.wkv6_bwd_combine(local)
+        mid = len(starts) // 2
+        if name == "seg_start_dropped":
+            starts[mid] = torch.zeros_like(starts[mid])
+        elif name == "seg_g_end_dropped":
+            ends[mid - 1] = torch.zeros_like(ends[mid - 1])
+        elif name != "seg_decay_dropped":
+            raise KeyError(name)
+        return ref.wkv6_bwd_sum(ref.wkv6_bwd_parts(
+            r, k, v, w, u, dy, **split, bounds=(starts, ends)), r, w, u)
     dr, dk, dv, dw, du = ref.wkv6_bwd_plain(r, k, v, w, u, dy)
     bonus = u * r * (v * dy).sum(-1, keepdim=True)
     if name == "u_dropped_from_dk":
@@ -4689,7 +4713,8 @@ def _rec_bwd_phase(torch, dev, seed, phase, runs, inputs, bwd, plain,
 
 def phase_wkv6_bwd_kernel(torch, dev, seed):
     """The wkv6 backward kernel against ``ref.wkv6_bwd_plain`` in f64: phase
-    wkv6_kernel's sweep shapes in f32 and bf16, the train shape
+    wkv6_kernel's sweep shapes in f32 and bf16, a ragged shape over 16
+    segments in f32, the train shape
     (``WKV_BWD_TRAIN``) in bf16 in every case of ``WKV_CASES`` (timed) and
     in f32 at B=1 (with ``WKV_BWD_MUST_CATCH``)."""
     from repro_torch.kernels import ref
@@ -4697,6 +4722,7 @@ def phase_wkv6_bwd_kernel(torch, dev, seed):
     runs = [("sweep", dict(B=2, S=24, H=H, N=N), dtype, "short")
             for H, N in ((2, 32), (4, 64))
             for dtype in (torch.float32, torch.bfloat16)]
+    runs += [("ragged", dict(B=2, S=1000, H=4, N=64), torch.float32, "long")]
     runs += [("train", WKV_BWD_TRAIN, torch.bfloat16, c) for c in WKV_CASES]
     runs += [("train_b1", {**WKV_BWD_TRAIN, "B": 1}, torch.float32, c)
              for c in WKV_CASES]

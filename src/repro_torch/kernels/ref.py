@@ -531,18 +531,23 @@ def ssm_scan_plain(x, dt, B, C, A, *, block_d=256):
 # a forward sweep and a chunk's states are rebuilt from its boundary during
 # the reverse walk (never recovered by dividing by a decay, which reaches
 # 5e-6).  The ``*_parts`` functions keep the kernels' partial sums apart
-# (column blocks of a head for wkv6, channel groups and rows for the scan);
-# the ``*_split_plain`` functions add them in the kernels' order.
+# (column groups of a head for wkv6, channel groups and rows for the scan);
+# the ``*_split_plain`` functions add them in the kernels' order.  The wkv6
+# kernel also cuts the sequence into segments (``wkv6_bwd_local``,
+# ``wkv6_bwd_combine``): both of its recurrences are linear with a per-row
+# decay, so a segment's effect composes from its walk from zero and the
+# product of its decays.
 
-def _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, cols):
-    """The recurrence's reverse walk over ``chunk``-step chunks: per column
-    slice in ``cols`` the partials (dr, dk, dw) of S_{t-1} dy_t, G_t v_t
-    and sum_j G_t S_{t-1}, and dv = G_t^T k_t whole (f32/f64, [B,S,H,N]).
-    G_{t-1} = diag(w_t) G_t + r_t dy_t^T from G = 0 after the last step.
-    The time loops carry S and G alone; a chunk's sums are taken at once
-    from its stacked states."""
+def _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, cols, s0, g1):
+    """The recurrence's reverse walk over ``chunk``-step chunks from the
+    state ``s0`` before the first step and the cotangent ``g1`` after the
+    last: per column slice in ``cols`` the partials (dr, dk, dw) of
+    S_{t-1} dy_t, G_t v_t and sum_j G_t S_{t-1}, and dv = G_t^T k_t whole
+    (f32/f64, [B,S,H,N]).  G_{t-1} = diag(w_t) G_t + r_t dy_t^T.  The time
+    loops carry S and G alone; a chunk's sums are taken at once from its
+    stacked states."""
     B, S, H, N = rf.shape
-    s = torch.zeros((B, H, N, N), dtype=rf.dtype, device=rf.device)
+    s = s0
     bounds = []
     for t in range(S):
         if t % chunk == 0:
@@ -552,7 +557,7 @@ def _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, cols):
     parts = {n: [torch.zeros_like(rf) for _ in cols] for n in ("dr", "dk",
                                                                 "dw")}
     dv = torch.zeros_like(rf)
-    G = torch.zeros((B, H, N, N), dtype=rf.dtype, device=rf.device)
+    G = g1
     for c in reversed(range(len(bounds))):
         t0, t1 = c * chunk, min(S, (c + 1) * chunk)
         states, gs, s = [], [], bounds[c]
@@ -577,11 +582,64 @@ def _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, cols):
     return parts, dv
 
 
-def wkv6_bwd_parts(r, k, v, w, u, dy, *, cols=32, chunk=8):
-    """The wkv6 backward kernel's partial sums (``csrc/wkv6_bwd.cu``): a
-    head's columns cut into blocks of ``cols``, each block's share of dr,
-    dk and dw (the sums over columns j, bonus terms included) and of du
-    for each row, beside dv whole (a column block holds every row i).
+def _segments(S, seg):
+    """The [t0, t1) of each ``seg``-step segment (one segment where seg is
+    None)."""
+    seg = seg or S
+    return [(t0, min(S, t0 + seg)) for t0 in range(0, S, seg)]
+
+
+def wkv6_bwd_local(r, k, v, w, dy, *, seg):
+    """The wkv6 backward kernel's first pass: for each ``seg``-step
+    segment [t0, t1) of each (row, head), from zero, the state after its
+    last step (S_local = the forward over the segment), the cotangent
+    before its first (G_local = the reverse walk, G_{t0-1} with G_{t1-1}
+    = 0) and P, the product of its decays ([B,H,N]), each a product of w
+    and never a quotient: a P that underflows to 0 is the true product.
+    -> [(S_local, G_local, P)] in f32 (f64 where an input is f64)."""
+    acc = _acc(r, k, v, w, dy)
+    rf, kf, vf, wf, gf = (t.to(acc) for t in (r, k, v, w, dy))
+    B, S, H, N = rf.shape
+    out = []
+    for t0, t1 in _segments(S, seg):
+        s = rf.new_zeros((B, H, N, N))
+        g = torch.zeros_like(s)
+        p = rf.new_ones((B, H, N))
+        for t in range(t0, t1):
+            s = torch.addcmul(wf[:, t, :, :, None] * s, kf[:, t, :, :, None],
+                              vf[:, t, :, None, :])
+            p = p * wf[:, t]
+        for t in reversed(range(t0, t1)):
+            g = torch.addcmul(wf[:, t, :, :, None] * g, rf[:, t, :, :, None],
+                              gf[:, t, :, None, :])
+        out.append((s, g, p))
+    return out
+
+
+def wkv6_bwd_combine(local):
+    """The kernel's second pass, a serial walk over the segments of
+    ``wkv6_bwd_local``: each segment's start state S_start (S_start[0] =
+    0, S_start[m+1] = diag(P_m) S_start[m] + S_local[m]) and end cotangent
+    G_end (the last one 0, G_end[m-1] = diag(P_m) G_end[m] + G_local[m]).
+    It only multiplies.  -> (starts, ends), one [B,H,N,N] a segment."""
+    zero = torch.zeros_like(local[0][0])
+    starts, ends = [zero], [zero]
+    for s, _, p in local[:-1]:
+        starts.append(p[..., None] * starts[-1] + s)
+    for _, g, p in local[:0:-1]:
+        ends.append(p[..., None] * ends[-1] + g)
+    return starts, ends[::-1]
+
+
+def wkv6_bwd_parts(r, k, v, w, u, dy, *, cols=32, chunk=8, seg=None,
+                   bounds=None):
+    """The wkv6 backward kernel's partial sums (``csrc/wkv6_bwd.cu``): the
+    sequence cut into segments of ``seg`` steps (one where None), each
+    walked from its start state and end cotangent (``bounds``, as
+    ``wkv6_bwd_combine`` gives them, where None), a head's columns cut into
+    blocks of ``cols``, each block's share of dr, dk and dw (the sums over
+    columns j, bonus terms included) and of du for each row and segment,
+    beside dv whole (a column block holds every row i).
 
       dr_t = S_{t-1} dy_t + (u o k_t)(v_t . dy_t)
       dk_t = G_t v_t + (u o r_t)(v_t . dy_t)
@@ -589,44 +647,67 @@ def wkv6_bwd_parts(r, k, v, w, u, dy, *, cols=32, chunk=8):
       dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
       du = sum_{row,t} (r_t o k_t)(v_t . dy_t)
 
-    Returns {"dr", "dk", "dw": one [B,S,H,N] per block, "du": [B][block]
-    [H,N], "dv": [B,S,H,N]} in f32 (f64 where an input is f64)."""
+    Returns {"dr", "dk", "dw": one [B,S,H,N] per block, "du": [B][segment]
+    [block] [H,N], "dv": [B,S,H,N]} in f32 (f64 where an input is f64)."""
     acc = _acc(r, k, v, w, u, dy)
     rf, kf, vf, wf, gf = (t.to(acc) for t in (r, k, v, w, dy))
     uf = u.to(acc)
-    N = r.shape[-1]
+    B, S, H, N = r.shape
     width = min(cols, N)
     blocks = [slice(j, j + width) for j in range(0, N, width)]
-    parts, dv = _wkv_bwd_sweep(rf, kf, vf, wf, gf, chunk, blocks)
+    segs = _segments(S, seg)
+    if bounds is None:
+        bounds = (wkv6_bwd_combine(wkv6_bwd_local(rf, kf, vf, wf, gf,
+                                                  seg=seg))
+                  if len(segs) > 1 else
+                  ([rf.new_zeros((B, H, N, N))], [rf.new_zeros((B, H, N, N))]))
+    parts = {n: [torch.zeros_like(rf) for _ in blocks]
+             for n in ("dr", "dk", "dw")}
+    dv = torch.zeros_like(rf)
+    for (t0, t1), s0, g1 in zip(segs, *bounds):
+        ts = slice(t0, t1)
+        p, dv[:, ts] = _wkv_bwd_sweep(rf[:, ts], kf[:, ts], vf[:, ts],
+                                      wf[:, ts], gf[:, ts], chunk, blocks,
+                                      s0, g1)
+        for n in parts:
+            for i, x in enumerate(p[n]):
+                parts[n][i][:, ts] = x
     vdy = [(vf[..., cs] * gf[..., cs]).sum(-1, keepdim=True) for cs in blocks]
     for i, d in enumerate(vdy):
         parts["dr"][i] += uf * kf * d
         parts["dk"][i] += uf * rf * d
     dv += (rf * uf * kf).sum(-1, keepdim=True) * gf
-    parts["du"] = [[(rf[b] * kf[b] * d[b]).sum(0) for d in vdy]
-                   for b in range(r.shape[0])]
+    parts["du"] = [[[(rf[b, t0:t1] * kf[b, t0:t1] * d[b, t0:t1]).sum(0)
+                     for d in vdy] for t0, t1 in segs]
+                   for b in range(B)]
     parts["dv"] = dv
     return parts
 
 
-def wkv6_bwd_split_plain(r, k, v, w, u, dy, *, cols=32, chunk=8):
-    """The wkv6 backward as the kernel adds its partials: dr, dk and dw
-    over the column blocks in order, du over (row, block) in order
-    (``wkv6_bwd_parts``).  -> (dr, dk, dv in r's dtype, dw f32, du in u's
+def wkv6_bwd_sum(p, r, w, u):
+    """The parts of ``wkv6_bwd_parts`` added as the kernel adds them: dr,
+    dk and dw over the column blocks in order, du over (row, segment,
+    block) in order.  -> (dr, dk, dv in r's dtype, dw f32, du in u's
     dtype), each rounded once."""
-    p = wkv6_bwd_parts(r, k, v, w, u, dy, cols=cols, chunk=chunk)
     dr, dk, dw = (_sum_in_order(p[n]) for n in ("dr", "dk", "dw"))
-    du = _sum_in_order([x for row in p["du"] for x in row])
+    du = _sum_in_order([x for row in p["du"] for sg in row for x in sg])
     return (dr.to(r.dtype), dk.to(r.dtype), p["dv"].to(r.dtype),
             dw.to(_acc(w, r)), du.to(u.dtype))
+
+
+def wkv6_bwd_split_plain(r, k, v, w, u, dy, *, cols=32, chunk=8, seg=None):
+    """The wkv6 backward as the kernel splits and adds it
+    (``wkv6_bwd_parts``, ``wkv6_bwd_sum``)."""
+    p = wkv6_bwd_parts(r, k, v, w, u, dy, cols=cols, chunk=chunk, seg=seg)
+    return wkv6_bwd_sum(p, r, w, u)
 
 
 def wkv6_bwd_plain(r, k, v, w, u, dy, *, chunk=64):
     """The gradient of ``wkv6_plain(r, k, v, w, u)`` at the cotangent
     ``dy`` [B,S,H,N]: (dr, dk, dv, dw, du) from the closed forms of
-    ``wkv6_bwd_parts`` over whole heads, the state kept every ``chunk``
-    steps.  dr, dk, dv in r's dtype, dw in f32 (f64 where an input is f64),
-    du in u's dtype; every sum in f32 (f64)."""
+    ``wkv6_bwd_parts`` over whole heads and one segment, the state kept
+    every ``chunk`` steps.  dr, dk, dv in r's dtype, dw in f32 (f64 where
+    an input is f64), du in u's dtype; every sum in f32 (f64)."""
     return wkv6_bwd_split_plain(r, k, v, w, u, dy, cols=r.shape[-1],
                                 chunk=chunk)
 

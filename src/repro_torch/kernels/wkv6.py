@@ -15,9 +15,11 @@ value on the host, so it can be captured in a CUDA graph.
 
 With grad mode on and an input that requires grad, ``wkv6`` runs through
 ``Wkv6Fn``: the same forward, and ``wkv6_bwd`` for the gradient (on the
-CPU ``ref.wkv6_bwd_plain``, on the card the kernel, which keeps the state
-every ``BWD_CHUNK`` steps in a workspace and adds its column blocks'
-partials in order).
+CPU ``ref.wkv6_bwd_plain``, on the card the kernel, which cuts the
+sequence into segments of ``BWD_SEG`` steps: their walks from zero, a
+serial combine into each segment's start state and end cotangent (kept in
+a workspace), then each segment's gradient, a block a (row, head, segment)
+adding its column groups' partials in order).
 
 ``wkv6.launches`` counts forward kernel launches and ``wkv6.bwd_launches``
 the backward's (plain integers; reset them to 0 before a run to prove the
@@ -33,8 +35,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import wkv6_bwd_plain, wkv6_plain
 
 HEAD_DIMS = (16, 32, 64)      # csrc: the N the kernel is built for
-BWD_CHUNK = 8                 # csrc/wkv6_bwd.cu kSteps: the state kept
-BWD_COLS = 32                 # csrc/wkv6_bwd.cu kMaxCols: columns a block
+BWD_SEG = 64                  # csrc/wkv6_bwd.cu kSeg: steps a segment
+BWD_CHUNK = 8                 # csrc/wkv6_bwd.cu kSteps: states rebuilt
+BWD_GROUP = 4                 # csrc/wkv6_bwd.cu kTile: columns a partial
 _fns = {}
 
 
@@ -52,13 +55,12 @@ def _launcher(name="wkv6"):
 
 
 def bwd_workspace_floats(B, S, H, N):
-    """The backward kernel's f32 workspace: the state at the start of
-    every ``BWD_CHUNK`` steps of each (row, head) (N^2 each), the column
-    blocks' partials of dr, dk and dw ([B,S,H,N] each a block) and of du
-    ([H,N] a row and block)."""
-    ncb = N // min(N, BWD_COLS)
-    nchunk = -(-S // BWD_CHUNK)
-    return B * H * nchunk * N * N + 3 * ncb * B * S * H * N + B * ncb * H * N
+    """The backward kernel's f32 workspace: for each ``BWD_SEG``-step
+    segment of each (row, head), its start state and its end cotangent
+    (N^2 each), the product of its decays and its partial of du (N
+    each)."""
+    bhs = B * H * -(-S // BWD_SEG)
+    return 2 * bhs * N * N + 2 * bhs * N
 
 
 def _check_args(r, k, v, w, u, block_h):

@@ -64,6 +64,7 @@ from repro_torch.kernels import mxu_probe as tmxu
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import CHUNK_TOKENS, CHUNKS
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -28,6 +28,7 @@ from repro_torch.core.campaign.cli import main as cli_main
 from repro_torch.core.campaign.results import STATUS_ERROR, load_results
 from repro_torch.core.microbench import harness as tharness
 from repro_torch.core.microbench import tables
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 EXPERIMENTS = tables.CALIBRATION_EXPERIMENTS
 # the experiments beyond calibration (tests/test_torch_isa.py,

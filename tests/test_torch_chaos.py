@@ -53,6 +53,7 @@ from repro_torch.serve.telemetry.metrics import (MetricsSink, RequestRecord,
                                                  StepRecord,
                                                  schema_field_names)
 from repro_torch.serve.telemetry.slo import SLO, TokenBucket
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",

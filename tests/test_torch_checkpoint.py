@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 
 def _state(v):

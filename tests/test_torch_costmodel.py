@@ -35,6 +35,7 @@ from repro_torch.core.perfmodel.hardware import A100_40G, H100_SXM, SPECS
 from repro_torch.models import transformer as lm_mod
 from repro_torch.models.zoo import (build_model, count_active_params,
                                     count_params)
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 TORCH_CAL = ROOT / "src" / "repro_torch" / "core" / "calibration"

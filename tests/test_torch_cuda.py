@@ -1155,12 +1155,14 @@ def _bwd_gate(args, dy, bwd, plain, counter):
     return line
 
 
-# the sweep's (H, N), N=16 over a ragged last chunk, and the train shape (a
-# micro-batch of rwkv6-1.6b: two column blocks a head)
+# the sweep's (H, N), N=16 over a ragged last chunk, N=64 over three of
+# the kernel's 64-step segments (the last one ragged), and the train shape
+# (a micro-batch of rwkv6-1.6b: two column blocks a head)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,case", [
     ((2, 24, 2, 32), "short"), ((2, 24, 4, 64), "short"),
-    ((2, 37, 4, 16), "fast"), ((2, 4096, 32, 64), "long")])
+    ((2, 37, 4, 16), "fast"), ((2, 150, 4, 64), "long"),
+    ((2, 4096, 32, 64), "long")])
 def test_wkv6_bwd_kernel_matches_plain(dev, dtype, shape, case):
     g = torch.Generator(device=dev).manual_seed(3)
     args = chip_smoke.wkv_inputs(torch, g, dev, *shape, dtype, case)

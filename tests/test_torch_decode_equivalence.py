@@ -32,6 +32,7 @@ from repro_torch.configs import ARCHS, reduced
 from repro_torch.models import transformer as tlm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 DECODE_ARCHS = tuple(a for a in sorted(ARCHS)
                      if "decode" in tlm.supported_modes(reduced(ARCHS[a])))

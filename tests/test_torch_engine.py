@@ -32,6 +32,7 @@ from repro_torch.core.perfmodel.hardware import H100_SXM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import PagedServingEngine
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 
 class JEngine(_JaxEngine):

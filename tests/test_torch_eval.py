@@ -32,6 +32,7 @@ from repro_torch.models import transformer as tlm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.train.step import make_eval_step
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ARCH_NAMES = ("rwkv6-1.6b", "hymba-1.5b")
 NOISY = {"scale", "bias", "mu", "mu_k", "mu_r", "w_base", "dt_bias",

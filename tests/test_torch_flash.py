@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (MMA, SIMT, flash_attention,
                                                   kernel_for, kernel_tiles,
                                                   smem_bytes, split_plain,
                                                   work_split)
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 8e-2)}

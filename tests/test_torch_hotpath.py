@@ -41,6 +41,7 @@ from repro_torch.core.perfmodel.hardware import H100_SXM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model, fused_decode_step
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 _chip = importlib.util.spec_from_file_location(

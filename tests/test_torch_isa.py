@@ -45,6 +45,7 @@ from repro_torch.core.isa import sass_census as sc
 from repro_torch.kernels import _build
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data" / "isa"

@@ -50,6 +50,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels.paged_attention import (CHUNK_TOKENS, CHUNKS,
                                                  chunk_grid, paged_attention)
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",

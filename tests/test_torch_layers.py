@@ -14,6 +14,17 @@ from repro_torch.models.layers import basic as tbasic
 RNG = np.random.default_rng(7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the plain versions run many small ops, and the
+    suite runs several test workers on one host, whose threads would
+    otherwise contend for its cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(shape, scale=1.0):
     return (RNG.normal(size=shape) * scale).astype(np.float32)
 

@@ -22,6 +22,7 @@ from repro.models.zoo import build_model as jbuild
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -45,6 +45,7 @@ from repro_torch.kernels import alu_chain as talu
 from repro_torch.kernels import mxu_probe as tprobe
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

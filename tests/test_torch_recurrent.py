@@ -33,6 +33,7 @@ from repro_torch.kernels import ssm_scan as tssm
 from repro_torch.kernels import wkv6 as twkv
 from repro_torch.models.layers import mamba as tmamba
 from repro_torch.models.layers import rwkv as trwkv
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -37,6 +37,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",

@@ -62,6 +62,7 @@ from repro_torch.train import optim as topt
 from repro_torch.train.step import make_train_step
 from repro_torch.train.tree import leaves, unflatten
 from test_torch_eval import _tree
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 from test_torch_recurrent import _perturbed
 from test_torch_train import _keys, _port_leaf, _step_gate
 
@@ -75,17 +76,6 @@ F64_TOL = 1e-10        # of each gradient's max|g|
 GRAD_TOL = 1e-4        # f32 against f32 in another order
 MOMENT_TOL = 1e-3      # AdamW's m and v after 3 steps, of each leaf's max
 STEP_ROWS, STEP_SEQ, STEP_ACCUM, N_STEPS, STEP_LR = 4, 16, 2, 3, 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The plain backwards' time loops run many small ops: one intra-op
-    thread keeps them from contending with the other test workers'
-    threads (the suite runs several workers on one host)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ratio(got, want):
@@ -177,20 +167,51 @@ def test_ssm_scan_bwd_plain_matches_jax_grad():
         assert _ratio(g, wg) < GRAD_TOL
 
 
-@pytest.mark.parametrize("N", [16, 64])
-def test_wkv6_bwd_split_plain_adds_the_column_blocks(N):
-    """The kernel's split (column blocks of 32, the state kept every 8
-    steps; at N 64 two blocks a head) gives the whole sums."""
-    args, dy = _wkv_args("long", S=37, N=N)
+@pytest.mark.parametrize("N,S,seg", [(16, 37, None), (64, 37, None),
+                                     (16, 37, 8), (64, 37, 16),
+                                     (64, 2 * twkv.BWD_SEG + 5, twkv.BWD_SEG)])
+def test_wkv6_bwd_split_plain_adds_the_column_blocks(N, S, seg):
+    """The kernel's split (a head's columns in groups of 4, one partial a
+    group, the states rebuilt 8 steps at a time), with the sequence cut
+    into segments of ``seg`` steps (the last one ragged) walked from their
+    combined start states and end cotangents, gives the whole sums."""
+    args, dy = _wkv_args("long", S=S, N=N)
     want = ref.wkv6_bwd_plain(*args, dy)
-    parts = ref.wkv6_bwd_parts(*args, dy, cols=twkv.BWD_COLS,
-                               chunk=twkv.BWD_CHUNK)
-    assert len(parts["dr"]) == N // min(N, twkv.BWD_COLS)
-    assert len(parts["du"]) == 2 and len(parts["du"][0]) == len(parts["dr"])
-    got = ref.wkv6_bwd_split_plain(*args, dy, cols=twkv.BWD_COLS,
-                                   chunk=twkv.BWD_CHUNK)
+    parts = ref.wkv6_bwd_parts(*args, dy, cols=twkv.BWD_GROUP,
+                               chunk=twkv.BWD_CHUNK, seg=seg)
+    nseg = -(-S // (seg or S))
+    assert len(parts["dr"]) == N // twkv.BWD_GROUP
+    assert len(parts["du"]) == 2 and len(parts["du"][0]) == nseg
+    assert len(parts["du"][0][0]) == len(parts["dr"])
+    got = ref.wkv6_bwd_split_plain(*args, dy, cols=twkv.BWD_GROUP,
+                                   chunk=twkv.BWD_CHUNK, seg=seg)
     for g, w in zip(got, want):
         assert _ratio(g, w) < F64_TOL
+
+
+def test_wkv6_bwd_segments_hold_long_memory_and_underflow_f64():
+    """S 4096 in f64 over the kernel's segments: half the state rows decay
+    by w near 5e-6 (a segment's product of w underflows to 0), the others
+    by w near 1 (the state carries across every segment).  The combine
+    only multiplies, so the split equals the plain backward within 1e-10
+    of each gradient's max|g|."""
+    g = _gen(4096)
+    B, S, H, N = 1, 4096, 1, 16
+    r, k, v, dy = (torch.randn((B, S, H, N), generator=g,
+                               dtype=torch.float64) * 0.3 for _ in range(4))
+    lo = torch.rand((B, S, H, N), generator=g, dtype=torch.float64)
+    w = torch.where(torch.arange(N) % 2 == 0, 5e-6 * (1 + lo),
+                    1 - 1e-4 * lo)
+    u = torch.randn((H, N), generator=g, dtype=torch.float64) * 0.3
+    local = ref.wkv6_bwd_local(r, k, v, w, dy, seg=twkv.BWD_SEG)
+    p = torch.stack([x[2] for x in local])
+    assert len(local) == S // twkv.BWD_SEG
+    assert (p[..., ::2] == 0).all() and (p[..., 1::2] > 0.99).all()
+    want = ref.wkv6_bwd_plain(r, k, v, w, u, dy)
+    got = ref.wkv6_bwd_split_plain(r, k, v, w, u, dy, cols=twkv.BWD_GROUP,
+                                   chunk=twkv.BWD_CHUNK, seg=twkv.BWD_SEG)
+    for x, y in zip(got, want):
+        assert _ratio(x, y) < F64_TOL
 
 
 def test_ssm_scan_bwd_split_plain_adds_the_groups_and_rows():
@@ -436,10 +457,11 @@ def test_train_step_matches_jax(arch):
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.WKV_BWD_MUST_CATCH))
 def test_wkv_bwd_must_catch_controls_exceed_the_gate(name):
-    """On its case at N 64 (two column blocks a head), f32 inputs: the
-    sound f32 plain backward passes the f32 gate against the f64 one, the
-    fault exceeds it by 10x."""
-    args, dy = _wkv_args(chip_smoke.WKV_BWD_MUST_CATCH[name], B=1, S=96,
+    """On its case at N 64 (16 column groups a head) over three of the
+    kernel's segments (S 160), f32 inputs: the sound f32 plain backward
+    passes the f32 gate against the f64 one, the fault exceeds it by
+    10x."""
+    args, dy = _wkv_args(chip_smoke.WKV_BWD_MUST_CATCH[name], B=1, S=160,
                          H=2, N=64, dtype=torch.float32)
     a64 = [t.double() for t in args] + [dy.double()]
     want = ref.wkv6_bwd_plain(*a64)
@@ -513,8 +535,11 @@ def test_train_launch_counts_for_the_recurrent_families():
 
 
 def test_workspaces_hold_the_kernels_state_and_partials():
+    """wkv6: a start state, an end cotangent, a decay product and a du
+    partial a (row, head, 64-step segment); no state kept inside a
+    segment."""
     assert twkv.bwd_workspace_floats(2, 4096, 32, 64) == (
-        2 * 32 * 512 * 64 * 64 + 3 * 2 * 2 * 4096 * 32 * 64 + 2 * 2 * 32 * 64)
+        2 * 2 * 32 * 64 * 64 * 64 + 2 * 2 * 32 * 64 * 64)
     assert tssm.bwd_workspace_floats(2, 4224, 1600, 16) == (
         2 * 264 * 1600 * 16 + 2 * 100 * 2 * 4224 * 16 + 2 * 1600 * 16)
 

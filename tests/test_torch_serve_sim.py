@@ -20,6 +20,7 @@ from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import PagedServingEngine, ServingEngine
 from repro_torch.serve.sim import (FakeCostModel, FakeModel, SimClock, drive,
                                    expected_tokens, is_decode_census)
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 
 def fake():

@@ -39,6 +39,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.telemetry import TelemetryController
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 KW = dict(n_layers=2, vocab_size=128, compute_dtype="float32")
 

@@ -64,6 +64,7 @@ from repro_torch.serve.telemetry.control import TelemetryController as TC
 from repro_torch.serve.telemetry.metrics import (REQUEST_FIELDS, STEP_FIELDS,
                                                  load_snapshot, quantile,
                                                  schema_field_names)
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",

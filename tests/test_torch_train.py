@@ -55,6 +55,7 @@ from repro_torch.train import optim as topt
 from repro_torch.train.loop import train
 from repro_torch.train.step import accum_steps_for, make_train_step
 from repro_torch.train.tree import leaves, tree_map, unflatten
+from test_torch_layers import _one_thread  # noqa: F401 (module fixture)
 
 DENSE = ("gemma2-2b", "gemma3-1b", "internlm2-20b", "yi-34b")
 GRAD_TOL = 1e-4        # of each leaf's max|g|
